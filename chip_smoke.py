@@ -1,0 +1,420 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with one NVIDIA H100. It
+imports nothing from JAX or the JAX package ``repro``. Phases, each printing
+its own lines; any failure exits non-zero without the result line:
+
+1. environment: the card's name and power limit (``nvidia-smi``), torch and
+   CUDA versions, and the build of both CUDA kernels from ``csrc/`` (timed);
+2. each kernel against its plain PyTorch version on the card, at the main
+   path's head shapes (32 query heads over 8 KV heads, head_dim 128), in
+   fp32 (tolerance 2e-5) and bf16 (each element within
+   min(3e-2, 1e-3 + 1e-2 |plain|): both sides round fp32 math once to bf16,
+   so they may differ by one bf16 step), with its time (CUDA events,
+   median), the plain version's time, the least time the card could take
+   (bytes over 3.35 TB/s or flops over 989 TFLOP/s bf16 / 67 TFLOP/s fp32)
+   and, as a yardstick the port never calls,
+   ``torch.nn.functional.scaled_dot_product_attention``;
+3. reduced llama3.1-8b and qwen1.5-4b in fp32 on the card: prefill and
+   decode logits against the same model on the CPU (plain versions, 1e-4),
+   and the engine's tokens for three ragged prompts against an isolated
+   prefill + decode of each;
+4. Llama-3.1-8B at its published shape, all 32 layers, bf16 weights drawn
+   from a seeded generator, serving 12 requests (prompts of 128-1536
+   tokens, 64 new tokens each) through ``DisaggEngine`` with both kernels'
+   launch counts read around the run.
+
+The last two lines are the kernel table as JSON and
+``{"ok": true, "device": {...}}``. A longer report goes to
+``build/chip_smoke_report.json``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = 3.35e12
+FP32_TOL = 2e-5
+TOL_TEXT = {torch.float32: "2e-5", torch.bfloat16: "min(3e-2, 1e-3+1e-2|plain|)"}
+HQ, KV, HD = 32, 8, 128            # llama3.1-8b attention heads
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median device time of one call, by CUDA events, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def close(out, ref) -> bool:
+    """fp32: max |out - ref| < 2e-5. bf16: each element within
+    min(3e-2, 1e-3 + 1e-2 |ref|), one bf16 step (2^-7 of the value) and
+    some room."""
+    d = (out.float() - ref.float()).abs()
+    if out.dtype == torch.float32:
+        return float(d.max()) < FP32_TOL
+    lim = (1e-3 + 1e-2 * ref.float().abs()).clamp(max=3e-2)
+    return bool((d <= lim).all())
+
+
+def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+# ---------------------------------------------------------------------------
+# phase 1
+# ---------------------------------------------------------------------------
+
+def phase_environment(report: dict) -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"[env] torch {torch.__version__}  cuda {torch.version.cuda}  "
+        f"device {torch.cuda.get_device_name(0)}  "
+        f"count {torch.cuda.device_count()}")
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    secs = time.perf_counter() - t0
+    log(f"[env] built {[p.name for p in libs]} in {secs:.1f} s")
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "bytes stack" in line:
+                log(f"[ptxas] {lib.stem.split('_')[0]}: {line.strip()}")
+    report["env"] = {"nvidia_smi": smi, "torch": torch.__version__,
+                     "cuda": torch.version.cuda, "build_s": secs}
+    return smi
+
+
+# ---------------------------------------------------------------------------
+# phase 2
+# ---------------------------------------------------------------------------
+
+def _flash_case(S: int, window, dtype, gen) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    q = torch.randn((1, S, HQ, HD), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((1, S, KV, HD), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((1, S, KV, HD), generator=gen, device="cuda").to(dtype)
+
+    def kern():
+        return flash_attention_cuda(q, k, v, causal=True, window=window)
+
+    def plain():
+        return flash_attention_ref(q, k, v, causal=True, window=window)
+    out, ref = kern(), plain()
+    err, ok = float((out.float() - ref.float()).abs().max()), close(out, ref)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = None
+    if window is not None:
+        i = torch.arange(S, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+    def library():
+        if mask is None:
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+    qpos = np.arange(S)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(S)
+    pairs = float(np.sum(qpos - lo + 1))
+    elt = q.element_size()
+    n_bytes = elt * (2 * q.numel() + k.numel() + v.numel())
+    b_ms, b_by = bound_ms(n_bytes, 4.0 * pairs * HD * HQ, dtype)
+    return {"shape": f"B=1 S={S} Hq={HQ} K={KV} hd={HD} causal "
+                     f"window={window}", "dtype": str(dtype), "err": err,
+            "ok": ok, "ms": cuda_ms(kern, 20),
+            "plain_ms": cuda_ms(plain, 5),
+            "library_ms": cuda_ms(library, 20), "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def _decode_case(pos, window, dtype, gen, Sc=2048, B=8) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda,
+    )
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    q = torch.randn((B, 1, HQ, HD), generator=gen, device="cuda").to(dtype)
+    kc = torch.randn((B, Sc, KV, HD), generator=gen, device="cuda").to(dtype)
+    vc = torch.randn((B, Sc, KV, HD), generator=gen, device="cuda").to(dtype)
+    posd = torch.tensor(pos, dtype=torch.int32, device="cuda")
+
+    def kern():           # one launch for both cache layouts
+        return decode_attention_cuda(q, kc, vc, posd)
+
+    def plain():
+        return decode_attention_ref(q, kc, vc, posd, window=window)
+    out, ref = kern(), plain()
+    err, ok = float((out.float() - ref.float()).abs().max()), close(out, ref)
+    rows = np.minimum(np.asarray(pos) + 1, Sc)     # rows the mask admits
+    valid = torch.arange(Sc, device="cuda")[None, :] < \
+        torch.as_tensor(rows, device="cuda")[:, None]
+    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=valid[:, None, None, :], enable_gqa=True)
+    elt = q.element_size()
+    n_bytes = elt * (2 * q.numel() + 2 * float(rows.sum()) * KV * HD) + 4 * B
+    b_ms, b_by = bound_ms(n_bytes, 4.0 * float(rows.sum()) * HQ * HD, dtype)
+    return {"shape": f"B={B} Sc={Sc} Hq={HQ} K={KV} hd={HD} pos={list(pos)} "
+                     f"window={window}", "dtype": str(dtype), "err": err,
+            "ok": ok, "ms": cuda_ms(kern, 50),
+            "plain_ms": cuda_ms(plain, 10),
+            "library_ms": cuda_ms(library, 50), "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def phase_kernels(report: dict) -> dict:
+    """Returns the main-path case of each kernel (bf16), for the table."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    spread = [0, 300, 700, 1023, 1024, 1500, 2047, 2300]   # 2300: idle, > Sc
+    cases = {"flash_attention": [], "decode_attention": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        for S, window in ((1000, None), (2048, None), (2048, 256)):
+            cases["flash_attention"].append(_flash_case(S, window, dtype, gen))
+        for window in (None, 2048):   # flat cache, then rotating window
+            cases["decode_attention"].append(
+                _decode_case(spread, window, dtype, gen))
+    failed = []
+    for name, rows in cases.items():
+        for c in rows:
+            dtype = getattr(torch, c["dtype"].split(".")[1])
+            ok = c["ok"]
+            log(f"[kernel] {name} {c['dtype']} {c['shape']}: "
+                f"max_abs_err {c['err']:.3g} (tol {TOL_TEXT[dtype]}) "
+                f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  "
+                f"sdpa {c['library_ms']:.4f} ms  bound {c['bound_ms']:.4f} ms "
+                f"({c['bound_by']})  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append((name, c["shape"], c["dtype"]))
+    report["kernels"] = cases
+    if failed:
+        raise SystemExit(f"kernel disagrees with its plain version: {failed}")
+    # main-path cases: bf16, a ragged prompt / the engine's decode batch
+    return {"flash_attention": cases["flash_attention"][3],
+            "decode_attention": cases["decode_attention"][2]}
+
+
+# ---------------------------------------------------------------------------
+# phase 3
+# ---------------------------------------------------------------------------
+
+def phase_reduced(report: dict) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.serving.engine import DisaggEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch in ("qwen1.5-4b", "llama3.1-8b"):
+        cfg = get_config(arch).reduced()
+        lm = LM(cfg)
+        rng = np.random.default_rng(0)
+        # logits on the card (kernels) against the CPU (plain versions)
+        params = lm.init(torch.Generator(device="cuda").manual_seed(1),
+                         device="cuda")
+        params_cpu = _to_cpu(params)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 21)))
+        errs = []
+        caches = {d: lm.init_cache(3, 32, dtype=torch.float32, device=d)
+                  for d in ("cuda", "cpu")}
+        lg = {}
+        for d, p in (("cuda", params), ("cpu", params_cpu)):
+            lg[d], caches[d] = lm.prefill(p, {"tokens": toks[:, :17].to(d)},
+                                          caches[d])
+        errs.append(float((lg["cuda"].cpu() - lg["cpu"]).abs().max()))
+        for t in range(17, 21):
+            for d, p in (("cuda", params), ("cpu", params_cpu)):
+                lg[d], caches[d] = lm.decode_step(p, toks[:, t].to(d),
+                                                  caches[d])
+            errs.append(float((lg["cuda"].cpu() - lg["cpu"]).abs().max()))
+        if not max(errs) < 1e-4 or not torch.isfinite(lg["cuda"]).all():
+            raise SystemExit(f"{arch}: card logits differ from the CPU: {errs}")
+        # the engine's tokens against an isolated decode, on the card
+        eng = DisaggEngine(cfg, n_prefill=1, n_decode=1, max_len=64,
+                           decode_slots=3, seed=7, device="cuda")
+        for n in (12, 20, 17):
+            eng.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                       8, 0.0)
+        s = eng.run()
+        mismatched = 0
+        for req in eng.finished:
+            cache = lm.init_cache(1, 64, dtype=torch.float32, device="cuda")
+            lg1, cache = lm.prefill(
+                eng.params, {"tokens": torch.as_tensor(
+                    req.tokens, dtype=torch.long, device="cuda")[None]}, cache)
+            toks1 = [int(torch.argmax(lg1[0]))]
+            for _ in range(len(req.generated) - 1):
+                lg1, cache = lm.decode_step(
+                    eng.params, torch.tensor([toks1[-1]], device="cuda"),
+                    cache)
+                toks1.append(int(torch.argmax(lg1[0])))
+            mismatched += toks1 != req.generated
+        log(f"[reduced] {cfg.name}: logits card vs cpu max err "
+            f"{max(errs):.3g} (tol 1e-4); engine {s.n_finished}/{s.n_total} "
+            f"finished, {len(eng.finished) - mismatched}/{len(eng.finished)} "
+            f"match an isolated decode")
+        if s.n_finished != 3 or mismatched:
+            raise SystemExit(f"{arch}: engine tokens differ from an isolated "
+                             "decode")
+        out[cfg.name] = {"logit_err": max(errs), "finished": s.n_finished}
+    report["reduced"] = out
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to_cpu(v) for v in tree)
+    return tree.cpu()
+
+
+# ---------------------------------------------------------------------------
+# phase 4
+# ---------------------------------------------------------------------------
+
+def phase_serve(report: dict) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda,
+    )
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.serving.engine import DisaggEngine
+    cfg = get_config("llama3.1-8b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = DisaggEngine(cfg, n_prefill=1, n_decode=1, max_len=2048,
+                       decode_slots=8, ctrl_cfg=ControllerConfig(), seed=0,
+                       device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(128, 1536, 12)
+    lengths += lengths % 128 == 0                  # never a tile multiple
+    for n in lengths:
+        eng.submit(rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32),
+                   64, 0.0)
+    flash_attention_cuda.launches = 0
+    decode_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    s = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention_cuda.launches,
+                "decode_attention": decode_attention_cuda.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_tok = sum(len(r.generated) for r in eng.finished)
+    pre = np.asarray(eng.prefill_walls) * 1e3
+    dec = np.asarray(eng.decode_walls) * 1e3
+    log(f"[serve] {cfg.name} bf16 {cfg.n_layers} layers, prompts "
+        f"{sorted(int(n) for n in lengths)}: {s.row()}")
+    log(f"[serve] {s.n_finished}/{s.n_total} finished, {n_tok} tokens in "
+        f"{wall:.2f} s wall = {n_tok / wall:.1f} tok/s; weight init "
+        f"{init_s:.1f} s; peak memory {peak_gb:.2f} GB")
+    log(f"[serve] prefill step ms: median {np.median(pre):.2f} max "
+        f"{pre.max():.2f} (n={len(pre)}); decode step ms: median "
+        f"{np.median(dec):.2f} p90 {np.percentile(dec, 90):.2f} "
+        f"(n={len(dec)})")
+    log(f"[serve] launches on the main path: {launches}")
+    if s.n_finished != 12 or any(len(r.generated) != 64
+                                 for r in eng.finished):
+        raise SystemExit("not every request finished with 64 tokens")
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"a kernel of the main path never ran: {launches}")
+    if not all(0 <= t < cfg.vocab_size for r in eng.finished
+               for t in r.generated):
+        raise SystemExit("a generated token is outside the vocabulary")
+    # the full model's logits are finite and of the expected shape
+    cache = eng.lm.init_cache(1, 256, dtype=torch.bfloat16, device="cuda")
+    lg, cache = eng.lm.prefill(eng.params, {"tokens": torch.as_tensor(
+        eng.finished[0].tokens[:200], device="cuda")[None]}, cache)
+    lg2, _ = eng.lm.decode_step(eng.params, torch.argmax(lg, -1), cache)
+    if lg2.shape != (1, cfg.vocab_size) or not torch.isfinite(lg).all() or \
+            not torch.isfinite(lg2).all():
+        raise SystemExit("full-width logits are not finite")
+    report["serve"] = {
+        "prompt_lengths": [int(n) for n in lengths], "tokens": n_tok,
+        "wall_s": wall, "tok_per_s": n_tok / wall, "init_s": init_s,
+        "peak_gb": peak_gb, "prefill_ms": pre.tolist(),
+        "decode_ms": dec.tolist(), "launches": launches,
+        "summary": s.row()}
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import repro_torch  # noqa: F401  (fails outside a checkout)
+    report: dict = {}
+    smi = phase_environment(report)
+    main_cases = phase_kernels(report)
+    phase_reduced(report)
+    launches = phase_serve(report)
+    table = {"kernels": [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:84"},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:64"},
+    ]}
+    for row in table["kernels"]:
+        c = main_cases[row["name"]]
+        log(f"[table] {row['name']}: {c['dtype']} {c['shape']}")
+        row.update(launches=launches[row["name"]], max_abs_err=c["err"],
+                   ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+                   bound_by=c["bound_by"], library_ms=c["library_ms"])
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_report.json").write_text(
+        json.dumps(report, indent=1))
+    log(smi)
+    log(json.dumps(table))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

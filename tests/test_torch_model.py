@@ -1,0 +1,144 @@
+"""The port's dense transformer against the JAX package on the CPU.
+
+Weights come from the JAX ``LM.init``, flattened as checkpoints flatten
+them and carried over with ``repro_torch.bridge``; tokens are drawn with
+numpy. Tolerances: 1e-4 on logits against JAX (fp32, two layers, other sum
+orders); 2e-3 for prefill+decode against teacher forcing and 1e-5 for
+per-slot against scalar positions, as test_model_consistency.py.
+"""
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.models import LM as JaxLM  # noqa: E402
+from repro.training.checkpoint import _flatten  # noqa: E402
+from repro_torch.bridge import params_from_numpy  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import LM  # noqa: E402
+
+ARCHS = ["llama31_8b", "qwen1_5_4b"]
+LOGIT_TOL = 1e-4
+
+
+def _pair(arch, seed=1):
+    """(JAX LM, JAX params, port LM, port params) on the same weights."""
+    jcfg = jax_config(arch).reduced()
+    cfg = get_config(arch).reduced()
+    jlm = JaxLM(jcfg)
+    jparams = jlm.init(jax.random.key(seed))
+    params = params_from_numpy(_flatten(jparams), cfg, "cpu")
+    return jlm, jparams, LM(cfg), params
+
+
+def _tokens(cfg, B, S, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def _err(a, b):
+    return float(np.max(np.abs(np.asarray(a, np.float32) -
+                               np.asarray(b, np.float32))))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_copy_matches_jax(arch):
+    for j, t in ((jax_config(arch), get_config(arch)),
+                 (jax_config(arch).reduced(), get_config(arch).reduced())):
+        assert dataclasses.asdict(j) == dataclasses.asdict(t)
+
+
+def test_unported_arch_names_roadmap_item():
+    with pytest.raises(NotImplementedError, match="ROADMAP item A8"):
+        get_config("xlstm-350m")
+    cfg = dataclasses.replace(get_config("qwen1_5_4b"), family="moe")
+    with pytest.raises(NotImplementedError, match="ROADMAP item A5"):
+        LM(cfg)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bridge_rejects_mismatched_tree(arch):
+    _, jparams, lm, _ = _pair(arch)
+    flat = _flatten(jparams)
+    with pytest.raises(KeyError):
+        params_from_numpy({k: v for k, v in flat.items() if k != "embed"},
+                          lm.cfg, "cpu")
+    flat["embed"] = flat["embed"][:-1]
+    with pytest.raises(ValueError):
+        params_from_numpy(flat, lm.cfg, "cpu")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("window", [None, 8])
+def test_logits_match_jax(arch, window):
+    jlm, jparams, lm, params = _pair(arch)
+    B, S, P = 2, 20, 13
+    toks = _tokens(lm.cfg, B, S)
+    jfull, _ = jlm.forward_train(jparams, {"tokens": jnp.asarray(toks)},
+                                 remat=False, window=window)
+    full, _ = lm.forward_train(params, {"tokens": torch.from_numpy(toks)},
+                               window=window)
+    assert _err(full, jfull) < LOGIT_TOL
+
+    jdecode = jax.jit(functools.partial(jlm.decode_step, window=window))
+    jcache = jlm.init_cache(B, S, dtype=jnp.float32, window=window)
+    jlg, jcache = jlm.prefill(jparams, {"tokens": jnp.asarray(toks[:, :P])},
+                              jcache, window=window)
+    cache = lm.init_cache(B, S, dtype=torch.float32, window=window,
+                          device="cpu")
+    lg, cache = lm.prefill(params, {"tokens": torch.from_numpy(toks[:, :P])},
+                           cache, window=window)
+    assert _err(lg, jlg) < LOGIT_TOL
+    for t in range(P, S):
+        jlg, jcache = jdecode(jparams, jnp.asarray(toks[:, t]), jcache)
+        lg, cache = lm.decode_step(params, torch.from_numpy(toks[:, t]),
+                                   cache, window=window)
+        assert _err(lg, jlg) < LOGIT_TOL, t
+    for name in ("k", "v"):
+        assert _err(cache["slots"][0][name], jcache["slots"][0][name]) < 1e-5
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("window", [None, 8])
+def test_prefill_decode_matches_teacher_forcing(arch, window):
+    cfg = get_config(arch).reduced()
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(1), device="cpu")
+    B, S, P = 2, 24, 16
+    toks = torch.from_numpy(_tokens(cfg, B, S, seed=1))
+    full, _ = lm.forward_train(params, {"tokens": toks}, window=window)
+    cache = lm.init_cache(B, S + 4, dtype=torch.float32, window=window,
+                          device="cpu")
+    lg, cache = lm.prefill(params, {"tokens": toks[:, :P]}, cache,
+                           window=window)
+    errs = [_err(lg, full[:, P - 1])]
+    for t in range(P, S):
+        lg, cache = lm.decode_step(params, toks[:, t], cache, window=window)
+        errs.append(_err(lg, full[:, t]))
+    assert max(errs) < 2e-3, (arch, errs)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_vector_pos_decode_matches_scalar(arch):
+    cfg = get_config(arch).reduced()
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(3), device="cpu")
+    B, P = 2, 12
+    toks = torch.from_numpy(_tokens(cfg, B, P, seed=3))
+    cache = lm.init_cache(B, 24, dtype=torch.float32, device="cpu")
+    lg_s, cache_s = lm.prefill(params, {"tokens": toks}, cache)
+    tok = torch.argmax(lg_s, -1)
+    # decode writes the cache in place: give the vector-pos step its own copy
+    cache_v = {"slots": tuple({n: t.clone() for n, t in s.items()}
+                              for s in cache_s["slots"]),
+               "pos": torch.full((B,), P, dtype=torch.int32)}
+    lg1, _ = lm.decode_step(params, tok, cache_s)
+    lg2, _ = lm.decode_step(params, tok, cache_v)
+    assert _err(lg1, lg2) < 1e-5
