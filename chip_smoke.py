@@ -8,24 +8,35 @@ imports nothing from JAX or the JAX package ``repro``. Phases, each printing
 its own lines; any failure exits non-zero without the result line:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
-   CUDA versions, and the build of both CUDA kernels from ``csrc/`` (timed);
-2. each kernel against its plain PyTorch version on the card, at the main
-   path's head shapes (32 query heads over 8 KV heads, head_dim 128), in
-   fp32 (tolerance 2e-5) and bf16 (each element within
-   min(3e-2, 1e-3 + 1e-2 |plain|): both sides round fp32 math once to bf16,
-   so they may differ by one bf16 step), with its time (CUDA events,
-   median), the plain version's time, the least time the card could take
-   (bytes over 3.35 TB/s or flops over 989 TFLOP/s bf16 / 67 TFLOP/s fp32)
-   and, as a yardstick the port never calls,
-   ``torch.nn.functional.scaled_dot_product_attention``;
-3. reduced llama3.1-8b and qwen1.5-4b in fp32 on the card: prefill and
-   decode logits against the same model on the CPU (plain versions, 1e-4),
-   and the engine's tokens for three ragged prompts against an isolated
-   prefill + decode of each;
+   CUDA versions, and the build of the three CUDA kernels from ``csrc/``
+   (one ``nvcc`` each, all at once, timed; their ``ptxas`` lines);
+2. each kernel against its plain PyTorch version on the card, with its time
+   (CUDA events, median, the host queued ahead of the card), the plain
+   version's time, the least time the card could take (bytes over 3.35 TB/s
+   or flops over 989 TFLOP/s bf16 / 67 TFLOP/s fp32) and, for attention, as
+   a yardstick the port never calls,
+   ``torch.nn.functional.scaled_dot_product_attention``. The attention
+   kernels run at the head shapes of both served models (llama3.1-8b: 32
+   query heads over 8 KV heads, head_dim 128; recurrentgemma-2b: 10 over
+   1, head_dim 256, window 2048) in fp32 (tolerance 2e-5) and bf16 (each
+   element within min(3e-2, 1e-3 + 1e-2 |plain|): both sides round fp32
+   math once to bf16, so they may differ by one bf16 step); the RG-LRU scan
+   (fp32 only, tolerance 1e-4) at the hybrid serve's prefill shape and a
+   ragged one;
+3. reduced llama3.1-8b, qwen1.5-4b and recurrentgemma-2b in fp32 on the
+   card: prefill and decode logits against the same model on the CPU (plain
+   versions, 1e-4; the hybrid decodes past its window of 32), and the
+   engine's tokens for three ragged prompts against an isolated prefill +
+   decode of each;
 4. Llama-3.1-8B at its published shape, all 32 layers, bf16 weights drawn
    from a seeded generator, serving 12 requests (prompts of 128-1536
-   tokens, 64 new tokens each) through ``DisaggEngine`` with both kernels'
-   launch counts read around the run.
+   tokens, 64 new tokens each) through ``DisaggEngine`` with the kernels'
+   launch counts set to 0 before the run and read after it;
+4b. RecurrentGemma-2B at its published shape, all 26 layers (18 RG-LRU, 8
+   local attention), bf16, max_len 4096 (a rotating window cache of 2048),
+   serving 12 requests (six prompts of 128-2047 tokens, six of 2049-3583,
+   so the cache fills at prefill and wraps in decode; 64 new tokens each),
+   with the launch counts read around that run alone.
 
 The last two lines are the kernel table as JSON and
 ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -48,8 +59,10 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
 FP32_TOL = 2e-5
+SCAN_TOL = 1e-4
 TOL_TEXT = {torch.float32: "2e-5", torch.bfloat16: "min(3e-2, 1e-3+1e-2|plain|)"}
-HQ, KV, HD = 32, 8, 128            # llama3.1-8b attention heads
+LLAMA_HEADS = (32, 8, 128)         # (query heads, KV heads, head_dim)
+RG_HEADS = (10, 1, 256)            # recurrentgemma-2b
 
 
 def log(msg: str) -> None:
@@ -57,19 +70,22 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Median device time of one call, by CUDA events, after a warm-up."""
+    """Median device time of one call, by CUDA events, after a warm-up. The
+    card first sleeps for 20 ms, so the host queues the timed calls ahead of
+    it and a call shorter than its own launch overhead is timed on the card,
+    not on the host (a call whose host work outlasts the sleep, as the plain
+    scan's thousands of launches do, is still timed with it)."""
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(int(0.02 * 1.98e9))   # cycles at the H100's boost clock
+    for start, end in events:
         start.record()
         fn()
         end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in events]))
 
 
 def close(out, ref) -> bool:
@@ -121,11 +137,12 @@ def phase_environment(report: dict) -> str:
 # phase 2
 # ---------------------------------------------------------------------------
 
-def _flash_case(S: int, window, dtype, gen) -> dict:
+def _flash_case(S: int, window, dtype, gen, heads) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    HQ, KV, HD = heads
     q = torch.randn((1, S, HQ, HD), generator=gen, device="cuda").to(dtype)
     k = torch.randn((1, S, KV, HD), generator=gen, device="cuda").to(dtype)
     v = torch.randn((1, S, KV, HD), generator=gen, device="cuda").to(dtype)
@@ -163,13 +180,14 @@ def _flash_case(S: int, window, dtype, gen) -> dict:
             "bound_by": b_by}
 
 
-def _decode_case(pos, window, dtype, gen, Sc=2048, B=8) -> dict:
+def _decode_case(pos, window, dtype, gen, heads, Sc=2048, B=8) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_cuda,
     )
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    HQ, KV, HD = heads
     q = torch.randn((B, 1, HQ, HD), generator=gen, device="cuda").to(dtype)
     kc = torch.randn((B, Sc, KV, HD), generator=gen, device="cuda").to(dtype)
     vc = torch.randn((B, Sc, KV, HD), generator=gen, device="cuda").to(dtype)
@@ -201,37 +219,77 @@ def _decode_case(pos, window, dtype, gen, Sc=2048, B=8) -> dict:
             "bound_by": b_by}
 
 
+def _scan_case(B: int, S: int, W: int, gen) -> dict:
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    la = -torch.rand((B, S, W), generator=gen, device="cuda") * 0.5
+    x = torch.randn((B, S, W), generator=gen, device="cuda")
+    h0 = torch.randn((B, W), generator=gen, device="cuda")
+
+    def kern():
+        return rglru_scan_cuda(la, x, h0)
+
+    def plain():
+        return rglru_scan_ref(la, x, h0)
+    err = float((kern() - plain()).abs().max())
+    # log_a and x read once, the states written once; an exp-mul-add each
+    b_ms, b_by = bound_ms(4.0 * (3 * B * S * W + B * W), 2.0 * B * S * W,
+                          torch.float32)
+    return {"shape": f"B={B} S={S} W={W}", "dtype": str(torch.float32),
+            "err": err, "ok": err < SCAN_TOL, "ms": cuda_ms(kern, 50),
+            "plain_ms": cuda_ms(plain, 3), "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 def phase_kernels(report: dict) -> dict:
-    """Returns the main-path case of each kernel (bf16), for the table."""
+    """Returns the main-path case of each kernel, for the table: bf16
+    attention at the llama serve's shapes, the scan at the hybrid serve's
+    prefill shape."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     spread = [0, 300, 700, 1023, 1024, 1500, 2047, 2300]   # 2300: idle, > Sc
-    cases = {"flash_attention": [], "decode_attention": []}
+    # recurrentgemma-2b's rotating cache, before and after it wraps
+    rg_spread = [0, 1, 300, 1023, 1024, 2047, 2048, 3500]
+    cases = {"flash_attention": [], "decode_attention": [], "rglru_scan": []}
+    main = {}
     for dtype in (torch.float32, torch.bfloat16):
         for S, window in ((1000, None), (2048, None), (2048, 256)):
-            cases["flash_attention"].append(_flash_case(S, window, dtype, gen))
+            c = _flash_case(S, window, dtype, gen, LLAMA_HEADS)
+            cases["flash_attention"].append(c)
+            if dtype == torch.bfloat16 and S == 1000:   # a ragged prompt
+                main["flash_attention"] = c
+        cases["flash_attention"].append(
+            _flash_case(3000, 2048, dtype, gen, RG_HEADS))
         for window in (None, 2048):   # flat cache, then rotating window
-            cases["decode_attention"].append(
-                _decode_case(spread, window, dtype, gen))
+            c = _decode_case(spread, window, dtype, gen, LLAMA_HEADS)
+            cases["decode_attention"].append(c)
+            if dtype == torch.bfloat16 and window is None:
+                main["decode_attention"] = c
+        cases["decode_attention"].append(
+            _decode_case(rg_spread, 2048, dtype, gen, RG_HEADS))
+    for B, S, W in ((1, 3000, 2560), (2, 37, 200)):
+        cases["rglru_scan"].append(_scan_case(B, S, W, gen))
+    main["rglru_scan"] = cases["rglru_scan"][0]
     failed = []
     for name, rows in cases.items():
         for c in rows:
             dtype = getattr(torch, c["dtype"].split(".")[1])
+            tol = SCAN_TOL if name == "rglru_scan" else TOL_TEXT[dtype]
+            lib = "none" if c["library_ms"] is None else \
+                f"{c['library_ms']:.4f} ms"
             ok = c["ok"]
             log(f"[kernel] {name} {c['dtype']} {c['shape']}: "
-                f"max_abs_err {c['err']:.3g} (tol {TOL_TEXT[dtype]}) "
+                f"max_abs_err {c['err']:.3g} (tol {tol}) "
                 f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  "
-                f"sdpa {c['library_ms']:.4f} ms  bound {c['bound_ms']:.4f} ms "
+                f"sdpa {lib}  bound {c['bound_ms']:.4f} ms "
                 f"({c['bound_by']})  {'ok' if ok else 'FAIL'}")
             if not ok:
                 failed.append((name, c["shape"], c["dtype"]))
     report["kernels"] = cases
     if failed:
         raise SystemExit(f"kernel disagrees with its plain version: {failed}")
-    # main-path cases: bf16, a ragged prompt / the engine's decode batch
-    return {"flash_attention": cases["flash_attention"][3],
-            "decode_attention": cases["decode_attention"][2]}
+    return main
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +302,13 @@ def phase_reduced(report: dict) -> None:
     from repro_torch.serving.engine import DisaggEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    for arch in ("qwen1.5-4b", "llama3.1-8b"):
+    # arch -> (prefill, total tokens, cache max_len, engine prompt lengths);
+    # the hybrid's window is 32: it decodes past it, and two of its engine
+    # prompts are longer than it
+    plans = {"qwen1.5-4b": (17, 21, 32, (12, 20, 17)),
+             "llama3.1-8b": (17, 21, 32, (12, 20, 17)),
+             "recurrentgemma-2b": (20, 40, 64, (12, 40, 33))}
+    for arch, (n_pre, n_tot, max_len, lengths) in plans.items():
         cfg = get_config(arch).reduced()
         lm = LM(cfg)
         rng = np.random.default_rng(0)
@@ -252,16 +316,16 @@ def phase_reduced(report: dict) -> None:
         params = lm.init(torch.Generator(device="cuda").manual_seed(1),
                          device="cuda")
         params_cpu = _to_cpu(params)
-        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 21)))
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, n_tot)))
         errs = []
-        caches = {d: lm.init_cache(3, 32, dtype=torch.float32, device=d)
+        caches = {d: lm.init_cache(3, max_len, dtype=torch.float32, device=d)
                   for d in ("cuda", "cpu")}
         lg = {}
         for d, p in (("cuda", params), ("cpu", params_cpu)):
-            lg[d], caches[d] = lm.prefill(p, {"tokens": toks[:, :17].to(d)},
-                                          caches[d])
+            lg[d], caches[d] = lm.prefill(
+                p, {"tokens": toks[:, :n_pre].to(d)}, caches[d])
         errs.append(float((lg["cuda"].cpu() - lg["cpu"]).abs().max()))
-        for t in range(17, 21):
+        for t in range(n_pre, n_tot):
             for d, p in (("cuda", params), ("cpu", params_cpu)):
                 lg[d], caches[d] = lm.decode_step(p, toks[:, t].to(d),
                                                   caches[d])
@@ -271,7 +335,7 @@ def phase_reduced(report: dict) -> None:
         # the engine's tokens against an isolated decode, on the card
         eng = DisaggEngine(cfg, n_prefill=1, n_decode=1, max_len=64,
                            decode_slots=3, seed=7, device="cuda")
-        for n in (12, 20, 17):
+        for n in lengths:
             eng.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
                        8, 0.0)
         s = eng.run()
@@ -308,75 +372,75 @@ def _to_cpu(tree):
 
 
 # ---------------------------------------------------------------------------
-# phase 4
+# phases 4 and 4b
 # ---------------------------------------------------------------------------
 
-def phase_serve(report: dict) -> dict:
+def phase_serve(report: dict, tag: str, arch: str, lengths, max_len: int,
+                kernels: dict) -> dict:
+    """Serve 12 requests (64 new tokens each) through ``DisaggEngine`` at
+    the published shape in bf16; ``kernels`` name -> wrapper, whose launch
+    counts are set to 0 just before the run and read just after it."""
     from repro_torch.configs import get_config
     from repro_torch.core.controller import ControllerConfig
-    from repro_torch.kernels.decode_attention.kernel import (
-        decode_attention_cuda,
-    )
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.serving.engine import DisaggEngine
-    cfg = get_config("llama3.1-8b")
+    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = DisaggEngine(cfg, n_prefill=1, n_decode=1, max_len=2048,
+    eng = DisaggEngine(cfg, n_prefill=1, n_decode=1, max_len=max_len,
                        decode_slots=8, ctrl_cfg=ControllerConfig(), seed=0,
                        device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
-    lengths = rng.integers(128, 1536, 12)
-    lengths += lengths % 128 == 0                  # never a tile multiple
     for n in lengths:
         eng.submit(rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32),
                    64, 0.0)
-    flash_attention_cuda.launches = 0
-    decode_attention_cuda.launches = 0
+    for fn in kernels.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     s = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention_cuda.launches,
-                "decode_attention": decode_attention_cuda.launches}
+    launches = {name: fn.launches for name, fn in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_tok = sum(len(r.generated) for r in eng.finished)
     pre = np.asarray(eng.prefill_walls) * 1e3
     dec = np.asarray(eng.decode_walls) * 1e3
-    log(f"[serve] {cfg.name} bf16 {cfg.n_layers} layers, prompts "
-        f"{sorted(int(n) for n in lengths)}: {s.row()}")
-    log(f"[serve] {s.n_finished}/{s.n_total} finished, {n_tok} tokens in "
+    log(f"[{tag}] {cfg.name} bf16 {cfg.n_layers} layers, max_len {max_len}, "
+        f"prompts {sorted(int(n) for n in lengths)}: {s.row()}")
+    log(f"[{tag}] {s.n_finished}/{s.n_total} finished, {n_tok} tokens in "
         f"{wall:.2f} s wall = {n_tok / wall:.1f} tok/s; weight init "
         f"{init_s:.1f} s; peak memory {peak_gb:.2f} GB")
-    log(f"[serve] prefill step ms: median {np.median(pre):.2f} max "
+    log(f"[{tag}] prefill step ms: median {np.median(pre):.2f} max "
         f"{pre.max():.2f} (n={len(pre)}); decode step ms: median "
         f"{np.median(dec):.2f} p90 {np.percentile(dec, 90):.2f} "
         f"(n={len(dec)})")
-    log(f"[serve] launches on the main path: {launches}")
+    log(f"[{tag}] launches on the main path: {launches}")
     if s.n_finished != 12 or any(len(r.generated) != 64
                                  for r in eng.finished):
-        raise SystemExit("not every request finished with 64 tokens")
+        raise SystemExit(f"{arch}: not every request finished with 64 tokens")
     if min(launches.values()) <= 0:
-        raise SystemExit(f"a kernel of the main path never ran: {launches}")
+        raise SystemExit(f"{arch}: a kernel of the main path never ran: "
+                         f"{launches}")
     if not all(0 <= t < cfg.vocab_size for r in eng.finished
                for t in r.generated):
-        raise SystemExit("a generated token is outside the vocabulary")
-    # the full model's logits are finite and of the expected shape
-    cache = eng.lm.init_cache(1, 256, dtype=torch.bfloat16, device="cuda")
+        raise SystemExit(f"{arch}: a generated token is outside the "
+                         "vocabulary")
+    # the full model's logits are finite and of the expected shape, after
+    # the longest prompt (past the window, where the model has one)
+    prompt = max((r.tokens for r in eng.finished), key=len)
+    cache = eng.lm.init_cache(1, max_len, dtype=torch.bfloat16, device="cuda")
     lg, cache = eng.lm.prefill(eng.params, {"tokens": torch.as_tensor(
-        eng.finished[0].tokens[:200], device="cuda")[None]}, cache)
+        prompt, device="cuda")[None]}, cache)
     lg2, _ = eng.lm.decode_step(eng.params, torch.argmax(lg, -1), cache)
     if lg2.shape != (1, cfg.vocab_size) or not torch.isfinite(lg).all() or \
             not torch.isfinite(lg2).all():
-        raise SystemExit("full-width logits are not finite")
-    report["serve"] = {
-        "prompt_lengths": [int(n) for n in lengths], "tokens": n_tok,
-        "wall_s": wall, "tok_per_s": n_tok / wall, "init_s": init_s,
-        "peak_gb": peak_gb, "prefill_ms": pre.tolist(),
-        "decode_ms": dec.tolist(), "launches": launches,
-        "summary": s.row()}
+        raise SystemExit(f"{arch}: full-width logits are not finite")
+    report[tag] = {
+        "arch": arch, "prompt_lengths": [int(n) for n in lengths],
+        "tokens": n_tok, "wall_s": wall, "tok_per_s": n_tok / wall,
+        "init_s": init_s, "peak_gb": peak_gb, "prefill_ms": pre.tolist(),
+        "decode_ms": dec.tolist(), "launches": launches, "summary": s.row()}
     return launches
 
 
@@ -389,7 +453,24 @@ def main() -> int:
     smi = phase_environment(report)
     main_cases = phase_kernels(report)
     phase_reduced(report)
-    launches = phase_serve(report)
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda,
+    )
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
+    attention = {"flash_attention": flash_attention_cuda,
+                 "decode_attention": decode_attention_cuda}
+    lengths = np.random.default_rng(0).integers(128, 1536, 12)
+    lengths += lengths % 128 == 0                  # never a tile multiple
+    by_path = {"llama3.1-8b": phase_serve(report, "serve", "llama3.1-8b",
+                                          lengths, 2048, attention)}
+    rng = np.random.default_rng(0)
+    lengths = rng.permutation(np.concatenate([rng.integers(128, 2048, 6),
+                                              rng.integers(2049, 3584, 6)]))
+    lengths += lengths % 128 == 0
+    by_path["recurrentgemma-2b"] = phase_serve(
+        report, "serve-rg", "recurrentgemma-2b", lengths, 4096,
+        {**attention, "rglru_scan": rglru_scan_cuda})
     table = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -397,13 +478,20 @@ def main() -> int:
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:64"},
+        {"name": "rglru_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan/kernel.py:54"},
     ]}
     for row in table["kernels"]:
         c = main_cases[row["name"]]
         log(f"[table] {row['name']}: {c['dtype']} {c['shape']}")
-        row.update(launches=launches[row["name"]], max_abs_err=c["err"],
-                   ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-                   bound_by=c["bound_by"], library_ms=c["library_ms"])
+        # launches: the sum over the serves whose path runs the kernel
+        paths = {p: n[row["name"]] for p, n in by_path.items()
+                 if row["name"] in n}
+        row.update(launches=sum(paths.values()), launches_by_path=paths,
+                   max_abs_err=c["err"], ms=c["ms"], plain_ms=c["plain_ms"],
+                   bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                   library_ms=c["library_ms"])
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(

@@ -205,6 +205,8 @@ cudaError_t dispatch_g(const void* q, const void* kc, const void* vc,
       return launch<T, 4>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
     case 8:
       return launch<T, 8>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
+    case 10:  // recurrentgemma-2b: 10 query heads over one KV head
+      return launch<T, 10>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
     case 16:
       return launch<T, 16>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
     default:

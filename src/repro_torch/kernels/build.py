@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_attention", "decode_attention")
+SOURCES = ("flash_attention", "decode_attention", "rglru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -83,9 +83,10 @@ def load(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
-def check_operands(**tensors) -> None:
+def check_operands(align: int = 16, **tensors) -> None:
     """Raise unless every tensor lies on one CUDA device, is contiguous and
-    16-byte aligned, and all share one dtype the kernels take."""
+    ``align``-byte aligned (16 for the attention kernels' vector loads), and
+    all share one dtype the kernels take."""
     first = next(iter(tensors.values()))
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != first.device:
@@ -93,8 +94,9 @@ def check_operands(**tensors) -> None:
                              f"not {t.device}")
         if t.dtype != first.dtype:
             raise TypeError(f"{name} is {t.dtype}, expected {first.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"{name} must be contiguous and {align}-byte "
+                             "aligned")
     dtype_code(first.dtype)
 
 

@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-GROUP_SIZES = (1, 2, 4, 8, 16)   # query heads per KV head the kernel takes
+GROUP_SIZES = (1, 2, 4, 8, 10, 16)   # query heads per KV head the kernel takes
 
 
 def _entry():

@@ -1,9 +1,11 @@
 """Where a serving step's time goes:
-``python -m repro_torch.launch.profile_serve [--device cpu]``.
+``python -m repro_torch.launch.profile_serve [--arch recurrentgemma-2b]
+[--device cpu]``.
 
-Fills the decode batch of a ``DisaggEngine`` serving Llama-3.1-8B at its
-published shape (bf16 on a GPU, fp32 on the CPU; 8 slots, prompts of 1000
-tokens), then times one prefill step and five decode steps without the
+Fills the decode batch of a ``DisaggEngine`` serving Llama-3.1-8B (the
+default; max_len 2048, prompts of 1000 tokens) or RecurrentGemma-2B
+(max_len 4096, prompts of 3000 tokens, past its 2048-token window) at the
+published shape (bf16 on a GPU, fp32 on the CPU; 8 slots), then times one prefill step and five decode steps without the
 profiler (host wall per step, after
 ``torch.cuda.synchronize``) and once more under ``torch.profiler``. From
 the profiled run it prints the device-busy time per step (the sum of the
@@ -48,6 +50,8 @@ def _report(name: str, prof, wall_s: float, steps: int) -> None:
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.1-8b",
+                    choices=("llama3.1-8b", "recurrentgemma-2b"))
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args()
@@ -55,11 +59,12 @@ def main():
     from repro_torch.configs import get_config
     from repro_torch.models import resolve_device
     from repro_torch.serving.engine import DisaggEngine
-    cfg = get_config("llama3.1-8b")
+    cfg = get_config(args.arch)
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    slots, prompt = 8, 1000
-    eng = DisaggEngine(cfg, n_prefill=1, n_decode=1, max_len=2048,
+    slots = 8
+    max_len, prompt = (4096, 3000) if cfg.family == "hybrid" else (2048, 1000)
+    eng = DisaggEngine(cfg, n_prefill=1, n_decode=1, max_len=max_len,
                        decode_slots=slots, device=device, dtype=dtype)
     rng = np.random.default_rng(0)
     for _ in range(slots + 2):

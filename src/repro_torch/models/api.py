@@ -1,4 +1,5 @@
-"""Model API of the port, after ``repro.models.api.LM`` (dense family).
+"""Model API of the port, after ``repro.models.api.LM``: one entry point
+per family (dense: ``transformer``, hybrid: ``rglru``).
 
 Usage:
     lm = LM(cfg)
@@ -15,7 +16,24 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import rglru, transformer
+from repro_torch.models.params import init_from_specs
+
+_FAMILY_MODULES = {"dense": transformer, "hybrid": rglru}
+# family -> ROADMAP item that ports it
+_PENDING = {"moe": "A5", "vlm": "A3", "ssm": "A8", "audio": "A9"}
+
+
+def family_module(cfg: ModelConfig):
+    """The module that implements ``cfg``'s family; raises, naming the
+    ROADMAP item, for what the port does not carry yet."""
+    mod = _FAMILY_MODULES.get(cfg.family)
+    if mod is None:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet "
+            f"(ROADMAP item {_PENDING.get(cfg.family, 'A3')})")
+    mod.check_supported(cfg)
+    return mod
 
 
 def resolve_device(device=None) -> torch.device:
@@ -30,30 +48,32 @@ def resolve_device(device=None) -> torch.device:
 
 class LM:
     def __init__(self, cfg: ModelConfig):
-        transformer.check_supported(cfg)
+        self.mod = family_module(cfg)
         self.cfg = cfg
 
     # -- params / cache ------------------------------------------------------
     def init(self, generator: torch.Generator, dtype=torch.float32,
              device=None):
-        return transformer.init_params(self.cfg, generator, dtype,
-                                       resolve_device(device))
+        """Random weights with the JAX package's distributions, drawn from
+        ``generator`` (which lives on ``device``)."""
+        return init_from_specs(self.mod.param_specs(self.cfg), generator,
+                               dtype, resolve_device(device))
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    window: Optional[int] = None, device=None):
-        return transformer.init_cache(self.cfg, batch, max_len, dtype,
-                                      window=window,
-                                      device=resolve_device(device))
+        return self.mod.init_cache(self.cfg, batch, max_len, dtype,
+                                   window=window,
+                                   device=resolve_device(device))
 
     # -- forward passes ------------------------------------------------------
     def forward_train(self, params, batch, *, window=None):
-        return transformer.forward_train(params, self.cfg, batch,
-                                         window=window)
+        return self.mod.forward_train(params, self.cfg, batch,
+                                      window=window)
 
     def prefill(self, params, batch, cache, *, window=None):
-        return transformer.prefill(params, self.cfg, batch, cache,
-                                   window=window)
+        return self.mod.prefill(params, self.cfg, batch, cache,
+                                window=window)
 
     def decode_step(self, params, token, cache, *, window=None):
-        return transformer.decode_step(params, self.cfg, token, cache,
-                                       window=window)
+        return self.mod.decode_step(params, self.cfg, token, cache,
+                                    window=window)

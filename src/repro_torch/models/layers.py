@@ -1,5 +1,5 @@
-"""Single-device layers of the dense decoder, ported from
-``repro.models.layers``: RMS norm, RoPE, GQA attention for prefill and
+"""Single-device layers of the dense decoder and of the hybrid's attention
+slots, ported from ``repro.models.layers``: RMS norm, RoPE, GQA attention for prefill and
 decode, KV-cache writes, the SwiGLU MLP and the initialisers.
 
 Parameters are plain dicts of tensors with the JAX package's names and

@@ -15,19 +15,12 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.models import layers as L
-
-# family / option -> ROADMAP item that ports it
-_PENDING = {"moe": "A5", "vlm": "A3", "hybrid": "A7", "ssm": "A8",
-            "audio": "A9"}
+from repro_torch.models.params import layer_of
 
 
 def check_supported(cfg) -> None:
-    """Raise for what the port does not carry yet, naming the ROADMAP item."""
-    if cfg.family != "dense":
-        item = _PENDING.get(cfg.family, "A3")
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP item {item})")
+    """Raise for the dense options the port does not carry yet, naming the
+    ROADMAP item."""
     if cfg.norm != "rmsnorm" or cfg.mlp != "swiglu" or cfg.qk_norm or \
             cfg.n_experts or cfg.moe_every != 1:
         raise NotImplementedError(
@@ -55,40 +48,6 @@ def param_specs(cfg) -> Dict[str, tuple]:
     return specs
 
 
-def unflatten(flat: Dict[str, torch.Tensor]) -> dict:
-    """Nest ``a/b/c`` keys into dicts; the ``slots`` level is a tuple."""
-    tree: dict = {}
-    for key, t in flat.items():
-        node = tree
-        *path, leaf = key.split("/")
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf] = t
-    tree["slots"] = tuple(tree["slots"][str(i)]
-                          for i in range(len(tree["slots"])))
-    return tree
-
-
-def init_params(cfg, generator: torch.Generator, dtype=torch.bfloat16,
-                device=None) -> dict:
-    """Random weights with the JAX package's distributions, drawn from
-    ``generator`` (which lives on ``device``). Stacked leaves are drawn one
-    layer at a time, so the fp32 draw never holds more than one layer."""
-    flat = {}
-    for key, (shape, init) in param_specs(cfg).items():
-        if init == "ones":
-            flat[key] = torch.ones(shape, dtype=dtype, device=device)
-        elif init == "zeros":
-            flat[key] = torch.zeros(shape, dtype=dtype, device=device)
-        else:
-            t = torch.empty(shape, dtype=dtype, device=device)
-            for part in (t if len(shape) == 3 else [t]):
-                part.copy_(torch.randn(part.shape, generator=generator,
-                                       device=device) * init)
-            flat[key] = t
-    return unflatten(flat)
-
-
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                window: Optional[int] = None, device=None) -> dict:
     check_supported(cfg)
@@ -102,16 +61,11 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _layer(tree, g: int):
-    return {k: _layer(v, g) if isinstance(v, dict) else v[g]
-            for k, v in tree.items()}
-
-
 def _run_stack(params, x, cfg, mode: str, cache=None, window=None):
     stack = params["slots"][0]
     kv = cache["slots"][0] if cache is not None else None
     for g in range(cfg.n_layers):
-        p = _layer(stack, g)
+        p = layer_of(stack, g)
         h = L.rms_norm(x, p["ln1"]["w"], cfg.norm_eps)
         if mode == "train":
             a = L.attn_forward(p["attn"], h, cfg, window=window)

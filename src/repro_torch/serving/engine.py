@@ -7,10 +7,10 @@ batching with per-slot positions; the same RapidController/PowerManager
 move watts and roles. Power caps scale a logical clock, exactly as in the
 JAX engine: the port actuates no real power limit.
 
-On the GPU, prefill attention runs the hand-written flash kernel and decode
-attention the split-KV kernel (``repro_torch.kernels``). The decode worker's
-batched cache is written in place (slot insertion and each step's new
-token), not copied.
+On the GPU, prefill attention runs the hand-written flash kernel, decode
+attention the split-KV kernel and the hybrid family's recurrence the RG-LRU
+scan (``repro_torch.kernels``). The decode worker's batched cache is written
+in place (slot insertion and each step's new token and state), not copied.
 """
 from __future__ import annotations
 
@@ -40,12 +40,23 @@ class ServeRequest:
     slot: int = -1                   # decode slot index
 
 
-def _cache_insert(dst_slots, src_slots, slot: int) -> None:
+def _cache_insert(dst: dict, src: dict, slot: int) -> None:
     """Copy a batch-1 prefilled cache into slot ``slot`` of a batched decode
-    cache, in place. Leaves are (G, B, Sc, K, hd): batch is dim 1."""
-    for dst, src in zip(dst_slots, src_slots):
-        for name in dst:
-            dst[name][:, slot].copy_(src[name][:, 0])
+    cache, in place, walking its nested dicts and tuples. Leaves under
+    ``slots`` are stacked (G, B, ...), so batch is dim 1; the hybrid's
+    unstacked ``rest`` leaves have it on dim 0. ``pos`` is not copied."""
+    def ins(d, s, bdim):
+        if isinstance(d, dict):
+            for k in d:
+                ins(d[k], s[k], bdim)
+        elif isinstance(d, tuple):
+            for dd, ss in zip(d, s):
+                ins(dd, ss, bdim)
+        else:
+            d.select(bdim, slot).copy_(s.select(bdim, 0))
+    for level, bdim in (("slots", 1), ("rest", 0)):
+        if level in dst:
+            ins(dst[level], src[level], bdim)
 
 
 class Worker:
@@ -56,7 +67,7 @@ class Worker:
         self.free_at = 0.0           # logical clock
         # decode state
         self.active: dict = {}       # slot -> ServeRequest
-        self.cache = None            # the cache's "slots" tuple
+        self.cache = None            # the decode cache without "pos"
         self.pos = None              # (B,) int32 per-slot positions, on device
 
 
@@ -144,7 +155,7 @@ class DisaggEngine:
         if w.cache is None:
             cache = self.lm.init_cache(self.decode_slots, self.max_len,
                                        dtype=self.dtype, device=self.device)
-            w.cache = cache["slots"]
+            w.cache = {k: v for k, v in cache.items() if k != "pos"}
             w.pos = torch.zeros((self.decode_slots,), dtype=torch.int32,
                                 device=self.device)
 
@@ -155,7 +166,7 @@ class DisaggEngine:
             slot = next(i for i in range(self.decode_slots)
                         if i not in {r.slot for r in w.active.values()})
             req.slot = slot
-            _cache_insert(w.cache, cache["slots"], slot)
+            _cache_insert(w.cache, cache, slot)
             w.pos[slot] = len(req.tokens)
             w.active[slot] = req
 
@@ -171,7 +182,7 @@ class DisaggEngine:
         t0 = time.perf_counter()
         logits, cache = self.lm.decode_step(
             self.params, torch.as_tensor(tok, device=self.device),
-            {"slots": w.cache, "pos": w.pos})
+            {**w.cache, "pos": w.pos})
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         self._sync()
         wall = time.perf_counter() - t0

@@ -9,8 +9,10 @@ Tolerances: 2e-5 in fp32, as test_kernels.py (fp32 math in another sum
 order). In bf16 both sides do fp32 math and round once to bf16, so they may
 differ by one bf16 step, at most 2^-7 of the value: each element must be
 within 1e-3 + 1e-2 |plain|, and never more than test_kernels.py's 3e-2.
-A long slot's output is ~0.05, so a lost split shows. 1e-4 on the logits
-of the two-layer model.
+A long slot's output is ~0.05, so a lost split shows. The RG-LRU scan is
+fp32 only: 1e-4, as test_kernels.py (the carry across chunks is exp of a
+summed log decay where the plain version multiplies step by step). 1e-4 on
+the logits of the reduced models.
 """
 import pytest
 
@@ -20,6 +22,8 @@ from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda  #
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 
 FP32_TOL = 2e-5
 
@@ -41,6 +45,8 @@ FLASH_CASES = [
     (1, 200, 200, 2, 1, 256, True, None, 0),   # the widest head
     (1, 1000, 1000, 32, 8, 128, True, None, 0),  # llama3.1-8b, ragged prompt
     (1, 1000, 1000, 32, 8, 128, True, 100, 0),
+    (1, 3000, 3000, 10, 1, 256, True, 2048, 0),  # recurrentgemma-2b
+    (2, 300, 300, 10, 1, 256, True, 64, 0),
 ]
 
 # (B, Sc, Hq, K, hd, pos, window): pos an int or a per-slot list
@@ -52,7 +58,15 @@ DECODE_CASES = [
     (3, 300, 16, 2, 8, [299, 128, 1000], None),  # several 128-row splits
     (8, 2048, 32, 8, 128, [0, 1, 127, 128, 1000, 2046, 2047, 5000], None),
     (8, 2048, 32, 8, 128, [0, 1, 127, 128, 1000, 2046, 2047, 5000], 2048),
+    # recurrentgemma-2b: 10 query heads over one KV head, hd 256, the
+    # rotating window cache before and after it wraps
+    (8, 2048, 10, 1, 256, [0, 1, 127, 128, 1000, 2047, 2048, 3500], 2048),
+    (8, 2048, 10, 1, 256, [5, 300, 700, 1023, 1024, 1500, 2046, 2047], None),
 ]
+
+# (B, S, W): ragged, and the serve's prefill shapes (W = lru_width 2560)
+SCAN_CASES = [(2, 37, 200), (1, 5, 8), (1, 1, 3), (3, 70, 33),
+              (1, 3000, 2560), (1, 129, 2560), (4, 1024, 256)]
 
 
 @pytest.fixture
@@ -104,6 +118,20 @@ def test_decode_kernel_matches_plain(cuda, dtype, B, Sc, Hq, K, hd, pos,
     assert _close(out, ref)
 
 
+@pytest.mark.parametrize("B,S,W", SCAN_CASES)
+def test_rglru_scan_kernel_matches_plain(cuda, B, S, W):
+    la = -torch.rand((B, S, W), generator=cuda, device="cuda") * 0.5
+    x = torch.randn((B, S, W), generator=cuda, device="cuda")
+    h0 = torch.randn((B, W), generator=cuda, device="cuda")
+    before = rglru_scan_cuda.launches
+    out = rglru_scan_cuda(la, x, h0)
+    ref = rglru_scan_ref(la, x, h0)
+    torch.cuda.synchronize()
+    assert rglru_scan_cuda.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (B, S, W)
+    assert float((out - ref).abs().max()) < 1e-4
+
+
 def test_kernels_reject_what_they_do_not_take(cuda):
     q = _randn(cuda, (1, 8, 4, 16), "float32")
     k = _randn(cuda, (1, 8, 2, 16), "float32")
@@ -123,6 +151,20 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):          # 3 query heads per KV head
         decode_attention_cuda(_randn(cuda, (1, 1, 3, 16), "float32"), kc, kc,
                               3)
+    with pytest.raises(ValueError):          # 12 per KV head (10 is taken)
+        decode_attention_cuda(_randn(cuda, (1, 1, 12, 16), "float32"), kc,
+                              kc, 3)
+    la = _randn(cuda, (1, 6, 8), "float32")
+    h0 = _randn(cuda, (1, 8), "float32")
+    with pytest.raises(TypeError):           # the scan is fp32 only
+        rglru_scan_cuda(la.bfloat16(), la.bfloat16(), h0.bfloat16())
+    with pytest.raises(ValueError):          # h0 of another width
+        rglru_scan_cuda(la, la, h0[:, :4].contiguous())
+    with pytest.raises(ValueError):          # not contiguous
+        rglru_scan_cuda(la.transpose(1, 2).contiguous().transpose(1, 2), la,
+                        h0)
+    with pytest.raises(ValueError):          # a CPU operand
+        rglru_scan_cuda(la, la, h0.cpu())
 
 
 def _to_cuda(tree):
@@ -133,7 +175,8 @@ def _to_cuda(tree):
     return tree.cuda()
 
 
-@pytest.mark.parametrize("arch", ["llama3.1-8b", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ["llama3.1-8b", "qwen1.5-4b",
+                                  "recurrentgemma-2b"])
 def test_reduced_model_on_card_matches_cpu(cuda, arch):
     from repro_torch.configs import get_config
     from repro_torch.models import LM
@@ -141,14 +184,16 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch):
     lm = LM(cfg)
     params = lm.init(torch.Generator().manual_seed(0), device="cpu")
     params_gpu = _to_cuda(params)
-    toks = torch.randint(0, cfg.vocab_size, (2, 19),
+    # the hybrid prefills 20 tokens and decodes past its window of 32
+    P, S, max_len = (20, 40, 64) if cfg.family == "hybrid" else (15, 19, 24)
+    toks = torch.randint(0, cfg.vocab_size, (2, S),
                          generator=torch.Generator().manual_seed(1))
     out = {}
     for dev, p in (("cpu", params), ("cuda", params_gpu)):
-        cache = lm.init_cache(2, 24, dtype=torch.float32, device=dev)
-        lg, cache = lm.prefill(p, {"tokens": toks[:, :15].to(dev)}, cache)
+        cache = lm.init_cache(2, max_len, dtype=torch.float32, device=dev)
+        lg, cache = lm.prefill(p, {"tokens": toks[:, :P].to(dev)}, cache)
         steps = [lg]
-        for t in range(15, 19):
+        for t in range(P, S):
             lg, cache = lm.decode_step(p, toks[:, t].to(dev), cache)
             steps.append(lg)
         out[dev] = torch.stack(steps).cpu()

@@ -3,6 +3,8 @@ continuous batching with per-slot positions, the controller, and the tokens
 it generates against an isolated decode and against the JAX engine on the
 same weights.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -21,7 +23,10 @@ from repro_torch.models import LM  # noqa: E402
 from repro_torch.serving.engine import DisaggEngine  # noqa: E402
 from repro_torch.serving.ring import KVRing  # noqa: E402
 
-ARCHS = ["qwen1_5_4b", "llama31_8b"]
+ARCHS = ["qwen1_5_4b", "llama31_8b", "recurrentgemma_2b"]
+# the reduced hybrid with pattern (rec, rec, attn) over 5 layers: two
+# unstacked "rest" rec layers, whose cache leaves take the batch on dim 0
+HYBRID_REST = "recurrentgemma_2b+rest"
 # Steps whose top-2 logit gap is at most the logit tolerance of
 # test_torch_model.py may flip between the two packages' argmax.
 MARGIN_TOL = 1e-4
@@ -73,12 +78,23 @@ def test_engine_tokens_match_single_request_decode(arch):
                                       len(req.generated), 64) == req.generated
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+def _reduced_pair(arch):
+    """(JAX config, port config), reduced."""
+    name = arch.split("+")[0]
+    pair = (jax_config(name).reduced(), get_config(name).reduced())
+    if arch == HYBRID_REST:
+        pair = tuple(dataclasses.replace(c, n_layers=5,
+                                         attn_pattern=("rec", "rec", "attn"))
+                     for c in pair)
+    return pair
+
+
+@pytest.mark.parametrize("arch", ARCHS + [HYBRID_REST])
 def test_engine_tokens_match_jax_engine(arch):
     """Same weights, same prompts: the port's engine generates the JAX
     engine's tokens up to the first step whose top-2 margin is within
     MARGIN_TOL (after a legitimate flip the two continuations differ)."""
-    jcfg, cfg = jax_config(arch).reduced(), get_config(arch).reduced()
+    jcfg, cfg = _reduced_pair(arch)
     jeng = JaxEngine(jcfg, n_prefill=1, n_decode=1, max_len=64,
                      decode_slots=3, seed=7)
     eng = DisaggEngine(cfg, n_prefill=1, n_decode=1, max_len=64,

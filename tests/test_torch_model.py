@@ -25,6 +25,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 
 ARCHS = ["llama31_8b", "qwen1_5_4b"]
+# every ported config; the hybrid's model tests are in test_torch_rglru.py
+PORTED = ARCHS + ["recurrentgemma_2b"]
 LOGIT_TOL = 1e-4
 
 
@@ -48,7 +50,7 @@ def _err(a, b):
                                np.asarray(b, np.float32))))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PORTED)
 def test_config_copy_matches_jax(arch):
     for j, t in ((jax_config(arch), get_config(arch)),
                  (jax_config(arch).reduced(), get_config(arch).reduced())):
@@ -58,18 +60,31 @@ def test_config_copy_matches_jax(arch):
 def test_unported_arch_names_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP item A8"):
         get_config("xlstm-350m")
-    cfg = dataclasses.replace(get_config("qwen1_5_4b"), family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP item A5"):
+    for family, item in (("moe", "A5"), ("ssm", "A8"), ("audio", "A9")):
+        cfg = dataclasses.replace(get_config("qwen1_5_4b"), family=family)
+        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+            LM(cfg)
+    cfg = dataclasses.replace(get_config("recurrentgemma_2b"), norm="layernorm")
+    with pytest.raises(NotImplementedError, match="ROADMAP item A3"):
         LM(cfg)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PORTED)
 def test_bridge_rejects_mismatched_tree(arch):
     _, jparams, lm, _ = _pair(arch)
     flat = _flatten(jparams)
     with pytest.raises(KeyError):
         params_from_numpy({k: v for k, v in flat.items() if k != "embed"},
                           lm.cfg, "cpu")
+    if lm.cfg.family == "hybrid":   # a tree of another layer pattern
+        with pytest.raises(KeyError):
+            params_from_numpy(flat, dataclasses.replace(
+                lm.cfg, n_layers=5, attn_pattern=("rec", "rec", "attn")),
+                "cpu")
+        lam = next(k for k in flat if k.endswith("/lam"))
+        flat[lam] = flat[lam][..., :-1]
+        with pytest.raises(ValueError):
+            params_from_numpy(flat, lm.cfg, "cpu")
     flat["embed"] = flat["embed"][:-1]
     with pytest.raises(ValueError):
         params_from_numpy(flat, lm.cfg, "cpu")
