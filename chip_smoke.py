@@ -8,7 +8,7 @@ imports nothing from JAX or the JAX package ``repro``. Phases, each printing
 its own lines; any failure exits non-zero without the result line:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
-   CUDA versions, and the build of the three CUDA kernels from ``csrc/``
+   CUDA versions, and the build of the four CUDA kernels from ``csrc/``
    (one ``nvcc`` each, all at once, timed; their ``ptxas`` lines);
 2. each kernel against its plain PyTorch version on the card, with its time
    (CUDA events, median, the host queued ahead of the card), the plain
@@ -22,12 +22,15 @@ its own lines; any failure exits non-zero without the result line:
    element within min(3e-2, 1e-3 + 1e-2 |plain|): both sides round fp32
    math once to bf16, so they may differ by one bf16 step); the RG-LRU scan
    (fp32 only, tolerance 1e-4) at the hybrid serve's prefill shape and a
-   ragged one;
-3. reduced llama3.1-8b, qwen1.5-4b and recurrentgemma-2b in fp32 on the
-   card: prefill and decode logits against the same model on the CPU (plain
-   versions, 1e-4; the hybrid decodes past its window of 32), and the
-   engine's tokens for three ragged prompts against an isolated prefill +
-   decode of each;
+   ragged one; the chunkwise mLSTM (fp32 only, 2e-4 on h, 1e-5 on the final
+   (C, n, m)) at the xLSTM serve's prefill shape and a ragged multi-chunk
+   one from a given state;
+3. reduced llama3.1-8b, qwen1.5-4b, recurrentgemma-2b and xlstm-350m in
+   fp32 on the card: prefill and decode logits against the same model on
+   the CPU (plain versions, 1e-4; the hybrid decodes past its window of 32,
+   the xLSTM prefills 300 tokens, past the plain version's 256-step chunk),
+   and the engine's tokens for three ragged prompts against an isolated
+   prefill + decode of each;
 4. Llama-3.1-8B at its published shape, all 32 layers, bf16 weights drawn
    from a seeded generator, serving 12 requests (prompts of 128-1536
    tokens, 64 new tokens each) through ``DisaggEngine`` with the kernels'
@@ -36,7 +39,11 @@ its own lines; any failure exits non-zero without the result line:
    local attention), bf16, max_len 4096 (a rotating window cache of 2048),
    serving 12 requests (six prompts of 128-2047 tokens, six of 2049-3583,
    so the cache fills at prefill and wraps in decode; 64 new tokens each),
-   with the launch counts read around that run alone.
+   with the launch counts read around that run alone;
+4c. xLSTM-350M at its published shape, all 24 layers (21 mLSTM, 3 sLSTM),
+   bf16, max_len 4096, serving 12 requests (prompts of 128-2047 tokens,
+   the xLSTM paper's 2048 context, never a multiple of 64; 64 new tokens
+   each), with the mLSTM kernel's launch count read around that run alone.
 
 The last two lines are the kernel table as JSON and
 ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -60,6 +67,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
 FP32_TOL = 2e-5
 SCAN_TOL = 1e-4
+MLSTM_TOL, MLSTM_STATE_TOL = 2e-4, 1e-5
 TOL_TEXT = {torch.float32: "2e-5", torch.bfloat16: "min(3e-2, 1e-3+1e-2|plain|)"}
 LLAMA_HEADS = (32, 8, 128)         # (query heads, KV heads, head_dim)
 RG_HEADS = (10, 1, 256)            # recurrentgemma-2b
@@ -241,17 +249,50 @@ def _scan_case(B: int, S: int, W: int, gen) -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def _mlstm_case(B: int, S: int, nh: int, hd: int, given: bool, gen) -> dict:
+    from repro_torch.kernels.mlstm_chunk.kernel import (KERNEL_CHUNK,
+                                                        mlstm_chunk_cuda)
+    from repro_torch.kernels.mlstm_chunk.ref import (make_inputs,
+                                                     mlstm_chunk_ref)
+    # given=False: a prefill from the fresh state, as the serve runs it
+    (q, k, v, li, lf), state = make_inputs(gen, B, S, nh, hd, given)
+
+    def kern():
+        return mlstm_chunk_cuda(q, k, v, li, lf, *state)
+
+    def plain():
+        return mlstm_chunk_ref(q, k, v, li, lf, state)
+    (h, new), (h_ref, new_ref) = kern(), plain()
+    err = float((h - h_ref).abs().max())
+    state_err = max(float((a - b).abs().max()) for a, b in zip(new, new_ref))
+    # q, k, v, the gates and the state read once; h and the state written
+    # once. Flops of the chunkwise form at the kernel's chunk kL: q C and
+    # the C update (2 hd^2 each a step), the causal half of q k^T and w v
+    # (kL hd each a step on average)
+    n_state = B * nh * (hd * hd + hd + 1)
+    n_bytes = 4.0 * (4 * B * S * nh * hd + 2 * B * S * nh + 2 * n_state)
+    flops = 2.0 * B * nh * S * (2 * hd * hd + KERNEL_CHUNK * hd)
+    b_ms, b_by = bound_ms(n_bytes, flops, torch.float32)
+    return {"shape": f"B={B} S={S} nh={nh} hd={hd} "
+                     f"{'given' if given else 'fresh'} state",
+            "dtype": str(torch.float32), "err": err, "state_err": state_err,
+            "ok": err < MLSTM_TOL and state_err < MLSTM_STATE_TOL,
+            "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 5),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+
+
 def phase_kernels(report: dict) -> dict:
     """Returns the main-path case of each kernel, for the table: bf16
     attention at the llama serve's shapes, the scan at the hybrid serve's
-    prefill shape."""
+    prefill shape, the mLSTM at the xLSTM serve's."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     spread = [0, 300, 700, 1023, 1024, 1500, 2047, 2300]   # 2300: idle, > Sc
     # recurrentgemma-2b's rotating cache, before and after it wraps
     rg_spread = [0, 1, 300, 1023, 1024, 2047, 2048, 3500]
-    cases = {"flash_attention": [], "decode_attention": [], "rglru_scan": []}
+    cases = {"flash_attention": [], "decode_attention": [], "rglru_scan": [],
+             "mlstm_chunk": []}
     main = {}
     for dtype in (torch.float32, torch.bfloat16):
         for S, window in ((1000, None), (2048, None), (2048, 256)):
@@ -271,16 +312,25 @@ def phase_kernels(report: dict) -> dict:
     for B, S, W in ((1, 3000, 2560), (2, 37, 200)):
         cases["rglru_scan"].append(_scan_case(B, S, W, gen))
     main["rglru_scan"] = cases["rglru_scan"][0]
+    # xlstm-350m's prefill (4 heads of 512), then ragged chunks from a state
+    for B, S, nh, hd, given in ((1, 2048, 4, 512, False),
+                                (2, 300, 2, 256, True)):
+        cases["mlstm_chunk"].append(_mlstm_case(B, S, nh, hd, given, gen))
+    main["mlstm_chunk"] = cases["mlstm_chunk"][0]
+    tols = {"rglru_scan": SCAN_TOL,
+            "mlstm_chunk": f"{MLSTM_TOL}, state {MLSTM_STATE_TOL}"}
     failed = []
     for name, rows in cases.items():
         for c in rows:
             dtype = getattr(torch, c["dtype"].split(".")[1])
-            tol = SCAN_TOL if name == "rglru_scan" else TOL_TEXT[dtype]
+            tol = tols.get(name, TOL_TEXT[dtype])
             lib = "none" if c["library_ms"] is None else \
                 f"{c['library_ms']:.4f} ms"
             ok = c["ok"]
+            state = f" state {c['state_err']:.3g}" if "state_err" in c \
+                else ""
             log(f"[kernel] {name} {c['dtype']} {c['shape']}: "
-                f"max_abs_err {c['err']:.3g} (tol {tol}) "
+                f"max_abs_err {c['err']:.3g}{state} (tol {tol}) "
                 f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  "
                 f"sdpa {lib}  bound {c['bound_ms']:.4f} ms "
                 f"({c['bound_by']})  {'ok' if ok else 'FAIL'}")
@@ -302,13 +352,15 @@ def phase_reduced(report: dict) -> None:
     from repro_torch.serving.engine import DisaggEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    # arch -> (prefill, total tokens, cache max_len, engine prompt lengths);
-    # the hybrid's window is 32: it decodes past it, and two of its engine
-    # prompts are longer than it
-    plans = {"qwen1.5-4b": (17, 21, 32, (12, 20, 17)),
-             "llama3.1-8b": (17, 21, 32, (12, 20, 17)),
-             "recurrentgemma-2b": (20, 40, 64, (12, 40, 33))}
-    for arch, (n_pre, n_tot, max_len, lengths) in plans.items():
+    # arch -> (prefill, total tokens, cache max_len, engine prompt lengths,
+    # engine max_len); the hybrid's window is 32: it decodes past it, and two
+    # of its engine prompts are longer than it; the xLSTM prefills past the
+    # plain version's 256-step chunk, and so do two of its engine prompts
+    plans = {"qwen1.5-4b": (17, 21, 32, (12, 20, 17), 64),
+             "llama3.1-8b": (17, 21, 32, (12, 20, 17), 64),
+             "recurrentgemma-2b": (20, 40, 64, (12, 40, 33), 64),
+             "xlstm-350m": (300, 310, 0, (12, 300, 257), 320)}
+    for arch, (n_pre, n_tot, max_len, lengths, eng_len) in plans.items():
         cfg = get_config(arch).reduced()
         lm = LM(cfg)
         rng = np.random.default_rng(0)
@@ -333,7 +385,7 @@ def phase_reduced(report: dict) -> None:
         if not max(errs) < 1e-4 or not torch.isfinite(lg["cuda"]).all():
             raise SystemExit(f"{arch}: card logits differ from the CPU: {errs}")
         # the engine's tokens against an isolated decode, on the card
-        eng = DisaggEngine(cfg, n_prefill=1, n_decode=1, max_len=64,
+        eng = DisaggEngine(cfg, n_prefill=1, n_decode=1, max_len=eng_len,
                            decode_slots=3, seed=7, device="cuda")
         for n in lengths:
             eng.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
@@ -341,7 +393,8 @@ def phase_reduced(report: dict) -> None:
         s = eng.run()
         mismatched = 0
         for req in eng.finished:
-            cache = lm.init_cache(1, 64, dtype=torch.float32, device="cuda")
+            cache = lm.init_cache(1, eng_len, dtype=torch.float32,
+                                  device="cuda")
             lg1, cache = lm.prefill(
                 eng.params, {"tokens": torch.as_tensor(
                     req.tokens, dtype=torch.long, device="cuda")[None]}, cache)
@@ -372,7 +425,7 @@ def _to_cpu(tree):
 
 
 # ---------------------------------------------------------------------------
-# phases 4 and 4b
+# phases 4, 4b and 4c
 # ---------------------------------------------------------------------------
 
 def phase_serve(report: dict, tag: str, arch: str, lengths, max_len: int,
@@ -457,6 +510,7 @@ def main() -> int:
         decode_attention_cuda,
     )
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_cuda
     from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
     attention = {"flash_attention": flash_attention_cuda,
                  "decode_attention": decode_attention_cuda}
@@ -471,6 +525,11 @@ def main() -> int:
     by_path["recurrentgemma-2b"] = phase_serve(
         report, "serve-rg", "recurrentgemma-2b", lengths, 4096,
         {**attention, "rglru_scan": rglru_scan_cuda})
+    lengths = np.random.default_rng(0).integers(128, 2048, 12)
+    lengths += lengths % 64 == 0                   # never a multiple of 64
+    by_path["xlstm-350m"] = phase_serve(
+        report, "serve-xlstm", "xlstm-350m", lengths, 4096,
+        {"mlstm_chunk": mlstm_chunk_cuda})
     table = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -481,6 +540,9 @@ def main() -> int:
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:54"},
+        {"name": "mlstm_chunk", "route": "cuda",
+         "source": "src/repro_torch/csrc/mlstm_chunk.cu",
+         "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:76"},
     ]}
     for row in table["kernels"]:
         c = main_cases[row["name"]]

@@ -207,7 +207,8 @@ ARCH_ALIASES = {
     "llama3.1-8b": "llama31_8b",
 }
 
-PORTED_ARCHS = ("llama31_8b", "qwen1_5_4b", "recurrentgemma_2b")
+PORTED_ARCHS = ("llama31_8b", "qwen1_5_4b", "recurrentgemma_2b",
+                "xlstm_350m")
 
 # Architectures whose config (and family code) the port does not carry yet,
 # with the ROADMAP item that brings each one over.
@@ -215,7 +216,6 @@ PENDING_ARCHS = {
     "granite_3_8b": "A3", "llama3_405b": "A3", "starcoder2_15b": "A3",
     "chameleon_34b": "A3",
     "phi3_5_moe": "A5", "llama4_maverick": "A5",
-    "xlstm_350m": "A8",
     "whisper_large_v3": "A9",
 }
 

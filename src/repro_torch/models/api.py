@@ -1,5 +1,5 @@
 """Model API of the port, after ``repro.models.api.LM``: one entry point
-per family (dense: ``transformer``, hybrid: ``rglru``).
+per family (dense: ``transformer``, hybrid: ``rglru``, ssm: ``xlstm``).
 
 Usage:
     lm = LM(cfg)
@@ -16,12 +16,12 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rglru, transformer
+from repro_torch.models import rglru, transformer, xlstm
 from repro_torch.models.params import init_from_specs
 
-_FAMILY_MODULES = {"dense": transformer, "hybrid": rglru}
+_FAMILY_MODULES = {"dense": transformer, "hybrid": rglru, "ssm": xlstm}
 # family -> ROADMAP item that ports it
-_PENDING = {"moe": "A5", "vlm": "A3", "ssm": "A8", "audio": "A9"}
+_PENDING = {"moe": "A5", "vlm": "A3", "audio": "A9"}
 
 
 def family_module(cfg: ModelConfig):

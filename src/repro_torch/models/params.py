@@ -3,7 +3,7 @@
 A family module's ``param_specs(cfg)`` states its parameters as a flat dict
 keyed by the JAX pytree's paths as ``repro.training.checkpoint._flatten``
 joins them (``slots/0/attn/wq``, ``rest/1/rec/lam``): name -> (shape, init),
-init a normal std, "ones", "zeros" or ``LRU_LAMBDA``. Leaves under
+init a normal std, "ones", "zeros", ``LRU_LAMBDA`` or ``IF_BIAS``. Leaves under
 ``slots/`` carry a leading layer dim G.
 """
 from __future__ import annotations
@@ -17,6 +17,10 @@ import torch
 # ``repro.models.rglru._init_rec`` draws it
 LRU_LAMBDA = "lru_lambda"
 _LRU_C = 8.0
+# init of the mLSTM's input/forget gate bias: the first half of the last dim
+# (nh input gates) zeros, the second (nh forget gates) 3.0, as
+# ``repro.models.xlstm._init_mlstm`` sets it
+IF_BIAS = "if_bias"
 
 
 def leaf_dtype(init, dtype) -> torch.dtype:
@@ -45,6 +49,11 @@ def _draw(init, shape, generator, device):
         u = torch.rand(shape, generator=generator, device=device) * \
             (0.999 - 0.9) + 0.9
         return torch.log(torch.expm1(-torch.log(u ** _LRU_C) / _LRU_C))
+    if init == IF_BIAS:
+        nh = shape[-1] // 2
+        return torch.cat([torch.zeros((*shape[:-1], nh), device=device),
+                          torch.full((*shape[:-1], nh), 3.0, device=device)],
+                         dim=-1)
     return torch.randn(shape, generator=generator, device=device) * init
 
 

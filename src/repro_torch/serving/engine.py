@@ -8,9 +8,10 @@ move watts and roles. Power caps scale a logical clock, exactly as in the
 JAX engine: the port actuates no real power limit.
 
 On the GPU, prefill attention runs the hand-written flash kernel, decode
-attention the split-KV kernel and the hybrid family's recurrence the RG-LRU
-scan (``repro_torch.kernels``). The decode worker's batched cache is written
-in place (slot insertion and each step's new token and state), not copied.
+attention the split-KV kernel, the hybrid family's recurrence the RG-LRU
+scan and the ssm family's mLSTM prefill the chunkwise mLSTM kernel
+(``repro_torch.kernels``). The decode worker's batched cache is written in
+place (slot insertion and each step's new token and state), not copied.
 """
 from __future__ import annotations
 
@@ -42,9 +43,11 @@ class ServeRequest:
 
 def _cache_insert(dst: dict, src: dict, slot: int) -> None:
     """Copy a batch-1 prefilled cache into slot ``slot`` of a batched decode
-    cache, in place, walking its nested dicts and tuples. Leaves under
-    ``slots`` are stacked (G, B, ...), so batch is dim 1; the hybrid's
-    unstacked ``rest`` leaves have it on dim 0. ``pos`` is not copied."""
+    cache, in place, walking its nested dicts and tuples: KV caches
+    ``{"k", "v"}``, the hybrid's (conv tail, h), the xLSTM's (C, n, m) and
+    (c, n, m, h). Leaves under ``slots`` are stacked (G, B, ...), so batch
+    is dim 1; the hybrid's unstacked ``rest`` leaves have it on dim 0.
+    ``pos`` is not copied."""
     def ins(d, s, bdim):
         if isinstance(d, dict):
             for k in d:

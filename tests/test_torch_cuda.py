@@ -11,8 +11,11 @@ differ by one bf16 step, at most 2^-7 of the value: each element must be
 within 1e-3 + 1e-2 |plain|, and never more than test_kernels.py's 3e-2.
 A long slot's output is ~0.05, so a lost split shows. The RG-LRU scan is
 fp32 only: 1e-4, as test_kernels.py (the carry across chunks is exp of a
-summed log decay where the plain version multiplies step by step). 1e-4 on
-the logits of the reduced models.
+summed log decay where the plain version multiplies step by step). The
+chunkwise mLSTM is fp32 only: 2e-4 on h, as test_kernels.py (chunks of 64
+against the plain version's 256, other sum orders; h reaches ~25), 1e-5 on
+the final C and n (entries below ~2) and m. 1e-4 on the logits of the
+reduced models.
 """
 import pytest
 
@@ -22,6 +25,8 @@ from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda  #
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_cuda  # noqa: E402
+from repro_torch.kernels.mlstm_chunk.ref import make_inputs, mlstm_chunk_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 
@@ -67,6 +72,13 @@ DECODE_CASES = [
 # (B, S, W): ragged, and the serve's prefill shapes (W = lru_width 2560)
 SCAN_CASES = [(2, 37, 200), (1, 5, 8), (1, 1, 3), (3, 70, 33),
               (1, 3000, 2560), (1, 129, 2560), (4, 1024, 256)]
+
+
+# (B, S, nh, hd, initial state given): one chunk, ragged chunks, the
+# reduced model's head, and the served model's prefill at full width
+MLSTM_CASES = [(1, 1, 1, 32, False), (2, 37, 2, 64, True),
+               (2, 300, 2, 256, True), (3, 256, 1, 128, False),
+               (1, 520, 4, 512, True), (1, 2048, 4, 512, False)]
 
 
 @pytest.fixture
@@ -132,6 +144,21 @@ def test_rglru_scan_kernel_matches_plain(cuda, B, S, W):
     assert float((out - ref).abs().max()) < 1e-4
 
 
+@pytest.mark.parametrize("B,S,nh,hd,given", MLSTM_CASES)
+def test_mlstm_chunk_kernel_matches_plain(cuda, B, S, nh, hd, given):
+    ins, state = make_inputs(cuda, B, S, nh, hd, given)
+    before = mlstm_chunk_cuda.launches
+    h, new = mlstm_chunk_cuda(*ins, *state)
+    h_ref, new_ref = mlstm_chunk_ref(*ins, state)
+    torch.cuda.synchronize()
+    assert mlstm_chunk_cuda.launches == before + 1
+    assert h.dtype == torch.float32 and h.shape == (B, S, nh, hd)
+    assert float((h - h_ref).abs().max()) < 2e-4
+    for ours, plain in zip(new, new_ref):
+        assert ours.shape == plain.shape
+        assert float((ours - plain).abs().max()) < 1e-5
+
+
 def test_kernels_reject_what_they_do_not_take(cuda):
     q = _randn(cuda, (1, 8, 4, 16), "float32")
     k = _randn(cuda, (1, 8, 2, 16), "float32")
@@ -165,6 +192,22 @@ def test_kernels_reject_what_they_do_not_take(cuda):
                         h0)
     with pytest.raises(ValueError):          # a CPU operand
         rglru_scan_cuda(la, la, h0.cpu())
+    ins, state = make_inputs(cuda, 1, 8, 2, 64, True)
+    q, k, v, li, lf = ins
+    with pytest.raises(ValueError):          # gates as strided slices
+        mlstm_chunk_cuda(q, k, v, torch.cat([li, lf], -1)[..., :2], lf,
+                         *state)
+    with pytest.raises(ValueError):          # hd not a multiple of 32
+        mlstm_chunk_cuda(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                         v[..., :48].contiguous(), li, lf,
+                         state[0][..., :48, :48].contiguous(),
+                         state[1][..., :48].contiguous(), state[2])
+    with pytest.raises(ValueError):          # a state of another width
+        mlstm_chunk_cuda(q, k, v, li, lf, state[0][..., :32].contiguous(),
+                         *state[1:])
+    with pytest.raises(TypeError):           # the kernel is fp32 only
+        mlstm_chunk_cuda(*(t.bfloat16() for t in ins),
+                         *(t.bfloat16() for t in state))
 
 
 def _to_cuda(tree):
@@ -176,7 +219,7 @@ def _to_cuda(tree):
 
 
 @pytest.mark.parametrize("arch", ["llama3.1-8b", "qwen1.5-4b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "xlstm-350m"])
 def test_reduced_model_on_card_matches_cpu(cuda, arch):
     from repro_torch.configs import get_config
     from repro_torch.models import LM
@@ -184,8 +227,10 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch):
     lm = LM(cfg)
     params = lm.init(torch.Generator().manual_seed(0), device="cpu")
     params_gpu = _to_cuda(params)
-    # the hybrid prefills 20 tokens and decodes past its window of 32
-    P, S, max_len = (20, 40, 64) if cfg.family == "hybrid" else (15, 19, 24)
+    # the hybrid prefills 20 tokens and decodes past its window of 32; the
+    # xLSTM prefills past the plain version's 256-step chunk
+    P, S, max_len = {"hybrid": (20, 40, 64), "ssm": (300, 310, 0)}.get(
+        cfg.family, (15, 19, 24))
     toks = torch.randint(0, cfg.vocab_size, (2, S),
                          generator=torch.Generator().manual_seed(1))
     out = {}

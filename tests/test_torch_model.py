@@ -25,8 +25,9 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 
 ARCHS = ["llama31_8b", "qwen1_5_4b"]
-# every ported config; the hybrid's model tests are in test_torch_rglru.py
-PORTED = ARCHS + ["recurrentgemma_2b"]
+# every ported config; the hybrid's and the ssm family's model tests are in
+# test_torch_rglru.py and test_torch_xlstm.py
+PORTED = ARCHS + ["recurrentgemma_2b", "xlstm_350m"]
 LOGIT_TOL = 1e-4
 
 
@@ -58,15 +59,20 @@ def test_config_copy_matches_jax(arch):
 
 
 def test_unported_arch_names_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP item A8"):
-        get_config("xlstm-350m")
-    for family, item in (("moe", "A5"), ("ssm", "A8"), ("audio", "A9")):
+    # the ssm family (A8) is ported: xlstm-350m loads and builds its model
+    assert LM(get_config("xlstm-350m")).cfg.family == "ssm"
+    with pytest.raises(NotImplementedError, match="ROADMAP item A5"):
+        get_config("phi3.5-moe-42b-a6.6b")
+    with pytest.raises(NotImplementedError, match="ROADMAP item A9"):
+        get_config("whisper-large-v3")
+    for family, item in (("moe", "A5"), ("audio", "A9")):
         cfg = dataclasses.replace(get_config("qwen1_5_4b"), family=family)
         with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
             LM(cfg)
-    cfg = dataclasses.replace(get_config("recurrentgemma_2b"), norm="layernorm")
-    with pytest.raises(NotImplementedError, match="ROADMAP item A3"):
-        LM(cfg)
+    for arch in ("recurrentgemma_2b", "xlstm_350m"):
+        cfg = dataclasses.replace(get_config(arch), norm="layernorm")
+        with pytest.raises(NotImplementedError, match="ROADMAP item A3"):
+            LM(cfg)
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -76,6 +82,10 @@ def test_bridge_rejects_mismatched_tree(arch):
     with pytest.raises(KeyError):
         params_from_numpy({k: v for k, v in flat.items() if k != "embed"},
                           lm.cfg, "cpu")
+    if lm.cfg.family == "ssm":      # a tree of another sLSTM period
+        with pytest.raises(KeyError):
+            params_from_numpy(flat, dataclasses.replace(
+                lm.cfg, n_layers=4, slstm_every=4), "cpu")
     if lm.cfg.family == "hybrid":   # a tree of another layer pattern
         with pytest.raises(KeyError):
             params_from_numpy(flat, dataclasses.replace(
