@@ -8,14 +8,20 @@ imports nothing from JAX or the JAX package ``repro``. Phases, each printing
 its own lines; any failure exits non-zero without the result line:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
-   CUDA versions, and the build of the four CUDA kernels from ``csrc/``
-   (one ``nvcc`` each, all at once, timed; their ``ptxas`` lines);
+   CUDA versions, and the build of the five CUDA libraries from ``csrc/``
+   (one ``nvcc`` each, all at once, timed; their ``ptxas`` lines), and the
+   count of tensor-core ``HGMMA`` instructions in the bf16 flash kernel's
+   SASS (``cuobjdump --dump-sass``; none fails the run);
 2. each kernel against its plain PyTorch version on the card, with its time
    (CUDA events, median, the host queued ahead of the card), the plain
    version's time, the least time the card could take (bytes over 3.35 TB/s
    or flops over 989 TFLOP/s bf16 / 67 TFLOP/s fp32) and, for attention, as
    a yardstick the port never calls,
-   ``torch.nn.functional.scaled_dot_product_attention``. The attention
+   ``torch.nn.functional.scaled_dot_product_attention`` (for a window also
+   SDPA's time on the causal problem without it: the dense mask keeps SDPA
+   off its flash backend). Each flash case prints the route its launch
+   took, by the wrapper's counters: bf16 on the tensor-core kernel
+   (``flash_attention_sm90.cu``), fp32 on the CUDA-core one. The attention
    kernels run at the head shapes of both served models (llama3.1-8b: 32
    query heads over 8 KV heads, head_dim 128; recurrentgemma-2b: 10 over
    1, head_dim 256, window 2048) in fp32 (tolerance 2e-5) and bf16 (each
@@ -34,7 +40,8 @@ its own lines; any failure exits non-zero without the result line:
 4. Llama-3.1-8B at its published shape, all 32 layers, bf16 weights drawn
    from a seeded generator, serving 12 requests (prompts of 128-1536
    tokens, 64 new tokens each) through ``DisaggEngine`` with the kernels'
-   launch counts set to 0 before the run and read after it;
+   launch counts set to 0 before the run and read after it (prefill
+   attention must run on the tensor-core kernel, the CUDA-core one never);
 4b. RecurrentGemma-2B at its published shape, all 26 layers (18 RG-LRU, 8
    local attention), bf16, max_len 4096 (a rotating window cache of 2048),
    serving 12 requests (six prompts of 128-2047 tokens, six of 2049-3583,
@@ -118,6 +125,15 @@ def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
 # phase 1
 # ---------------------------------------------------------------------------
 
+def count_hgmma(lib: Path) -> int:
+    """Tensor-core (wgmma) instructions in a built library's SASS."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
+
+
 def phase_environment(report: dict) -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -135,9 +151,15 @@ def phase_environment(report: dict) -> str:
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "bytes stack" in line:
-                log(f"[ptxas] {lib.stem.split('_')[0]}: {line.strip()}")
+                log(f"[ptxas] {lib.stem.rsplit('_', 1)[0]}: {line.strip()}")
+    hgmma = count_hgmma(build.library_path("flash_attention_sm90"))
+    log(f"[env] flash_attention_sm90: {hgmma} HGMMA instructions in its SASS")
+    if hgmma == 0:
+        raise SystemExit("the bf16 flash kernel has no tensor-core "
+                         "instruction")
     report["env"] = {"nvidia_smi": smi, "torch": torch.__version__,
-                     "cuda": torch.version.cuda, "build_s": secs}
+                     "cuda": torch.version.cuda, "build_s": secs,
+                     "hgmma": hgmma}
     return smi
 
 
@@ -160,7 +182,10 @@ def _flash_case(S: int, window, dtype, gen, heads) -> dict:
 
     def plain():
         return flash_attention_ref(q, k, v, causal=True, window=window)
+    sm90 = flash_attention_cuda.launches_sm90
     out, ref = kern(), plain()
+    route = "sm90 wgmma" if flash_attention_cuda.launches_sm90 > sm90 else \
+        "cuda-core fp32"
     err, ok = float((out.float() - ref.float()).abs().max()), close(out, ref)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = None
@@ -168,10 +193,13 @@ def _flash_case(S: int, window, dtype, gen, heads) -> dict:
         i = torch.arange(S, device="cuda")
         mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
 
+    def causal_library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
     def library():
         if mask is None:
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
+            return causal_library()
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                               enable_gqa=True)
     qpos = np.arange(S)
@@ -182,10 +210,11 @@ def _flash_case(S: int, window, dtype, gen, heads) -> dict:
     b_ms, b_by = bound_ms(n_bytes, 4.0 * pairs * HD * HQ, dtype)
     return {"shape": f"B=1 S={S} Hq={HQ} K={KV} hd={HD} causal "
                      f"window={window}", "dtype": str(dtype), "err": err,
-            "ok": ok, "ms": cuda_ms(kern, 20),
+            "ok": ok, "route": route, "ms": cuda_ms(kern, 20),
             "plain_ms": cuda_ms(plain, 5),
-            "library_ms": cuda_ms(library, 20), "bound_ms": b_ms,
-            "bound_by": b_by}
+            "library_ms": cuda_ms(library, 20),
+            "library_causal_ms": None if window is None else
+            cuda_ms(causal_library, 20), "bound_ms": b_ms, "bound_by": b_by}
 
 
 def _decode_case(pos, window, dtype, gen, heads, Sc=2048, B=8) -> dict:
@@ -329,7 +358,10 @@ def phase_kernels(report: dict) -> dict:
             ok = c["ok"]
             state = f" state {c['state_err']:.3g}" if "state_err" in c \
                 else ""
-            log(f"[kernel] {name} {c['dtype']} {c['shape']}: "
+            route = f" [{c['route']}]" if "route" in c else ""
+            if c.get("library_causal_ms") is not None:
+                lib += f" (causal, no window {c['library_causal_ms']:.4f} ms)"
+            log(f"[kernel] {name}{route} {c['dtype']} {c['shape']}: "
                 f"max_abs_err {c['err']:.3g}{state} (tol {tol}) "
                 f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  "
                 f"sdpa {lib}  bound {c['bound_ms']:.4f} ms "
@@ -431,8 +463,10 @@ def _to_cpu(tree):
 def phase_serve(report: dict, tag: str, arch: str, lengths, max_len: int,
                 kernels: dict) -> dict:
     """Serve 12 requests (64 new tokens each) through ``DisaggEngine`` at
-    the published shape in bf16; ``kernels`` name -> wrapper, whose launch
-    counts are set to 0 just before the run and read just after it."""
+    the published shape in bf16; ``kernels`` name -> (wrapper, name of its
+    launch counter), whose counters are set to 0 just before the run and
+    read just after it. The bf16 serve must not launch the CUDA-core flash
+    kernel (the wrapper's total less its tensor-core launches)."""
     from repro_torch.configs import get_config
     from repro_torch.core.controller import ControllerConfig
     from repro_torch.serving.engine import DisaggEngine
@@ -448,13 +482,19 @@ def phase_serve(report: dict, tag: str, arch: str, lengths, max_len: int,
     for n in lengths:
         eng.submit(rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32),
                    64, 0.0)
-    for fn in kernels.values():
+    for fn, _ in kernels.values():
         fn.launches = 0
+        if hasattr(fn, "launches_sm90"):
+            fn.launches_sm90 = 0
     t0 = time.perf_counter()
     s = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in kernels.items()}
+    cuda_core = {name: fn.launches - fn.launches_sm90
+                 for name, (fn, _) in kernels.items()
+                 if hasattr(fn, "launches_sm90")}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_tok = sum(len(r.generated) for r in eng.finished)
     pre = np.asarray(eng.prefill_walls) * 1e3
@@ -468,13 +508,17 @@ def phase_serve(report: dict, tag: str, arch: str, lengths, max_len: int,
         f"{pre.max():.2f} (n={len(pre)}); decode step ms: median "
         f"{np.median(dec):.2f} p90 {np.percentile(dec, 90):.2f} "
         f"(n={len(dec)})")
-    log(f"[{tag}] launches on the main path: {launches}")
+    log(f"[{tag}] launches on the main path: {launches}; CUDA-core flash "
+        f"kernel: {cuda_core}")
     if s.n_finished != 12 or any(len(r.generated) != 64
                                  for r in eng.finished):
         raise SystemExit(f"{arch}: not every request finished with 64 tokens")
     if min(launches.values()) <= 0:
         raise SystemExit(f"{arch}: a kernel of the main path never ran: "
                          f"{launches}")
+    if any(cuda_core.values()):
+        raise SystemExit(f"{arch}: bf16 prefill attention left the "
+                         f"tensor-core kernel: {cuda_core}")
     if not all(0 <= t < cfg.vocab_size for r in eng.finished
                for t in r.generated):
         raise SystemExit(f"{arch}: a generated token is outside the "
@@ -512,8 +556,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_cuda
     from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
-    attention = {"flash_attention": flash_attention_cuda,
-                 "decode_attention": decode_attention_cuda}
+    attention = {"flash_attention": (flash_attention_cuda, "launches_sm90"),
+                 "decode_attention": (decode_attention_cuda, "launches")}
     lengths = np.random.default_rng(0).integers(128, 1536, 12)
     lengths += lengths % 128 == 0                  # never a tile multiple
     by_path = {"llama3.1-8b": phase_serve(report, "serve", "llama3.1-8b",
@@ -524,15 +568,15 @@ def main() -> int:
     lengths += lengths % 128 == 0
     by_path["recurrentgemma-2b"] = phase_serve(
         report, "serve-rg", "recurrentgemma-2b", lengths, 4096,
-        {**attention, "rglru_scan": rglru_scan_cuda})
+        {**attention, "rglru_scan": (rglru_scan_cuda, "launches")})
     lengths = np.random.default_rng(0).integers(128, 2048, 12)
     lengths += lengths % 64 == 0                   # never a multiple of 64
     by_path["xlstm-350m"] = phase_serve(
         report, "serve-xlstm", "xlstm-350m", lengths, 4096,
-        {"mlstm_chunk": mlstm_chunk_cuda})
+        {"mlstm_chunk": (mlstm_chunk_cuda, "launches")})
     table = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:84"},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",

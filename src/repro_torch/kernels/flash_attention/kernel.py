@@ -1,6 +1,14 @@
-"""ctypes wrapper of the CUDA flash prefill kernel (``csrc/flash_attention.cu``).
+"""ctypes wrappers of the CUDA flash prefill kernels, chosen by dtype (both
+routes are kernels; neither falls back to the other):
 
-``flash_attention_cuda.launches`` counts the kernel's launches.
+- bf16: ``csrc/flash_attention_sm90.cu``, both products on the tensor cores
+  (``wgmma``, tiles fed by TMA); head_dim a multiple of 8 up to 256;
+- fp32: ``csrc/flash_attention.cu``, fp32 products on the CUDA cores (held
+  to 2e-5, which TF32 products could not meet); head_dim a multiple of 4 up
+  to 256.
+
+``flash_attention_cuda.launches`` counts the launches of both,
+``flash_attention_cuda.launches_sm90`` those of the bf16 kernel.
 """
 from __future__ import annotations
 
@@ -14,10 +22,10 @@ from repro_torch.kernels import build
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _entry():
-    lib = build.load("flash_attention")
-    fn = lib.flash_attention_fwd
-    fn.argtypes = [_P, _P, _P, _P] + [_I] * 10 + [_P]
+def _entry(name: str, fn_name: str, n_ints: int):
+    lib = build.load(name)
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [_P, _P, _P, _P] + [_I] * n_ints + [_P]
     fn.restype = _I
     return lib, fn
 
@@ -48,9 +56,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool,
     if k.shape[0] != B or k.shape[3] != hd or K == 0 or Hq % K:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if not (0 < hd <= 256 and hd % 4 == 0):
-        raise ValueError(f"head_dim {hd}: the kernel takes a multiple of 4 "
-                         "up to 256")
+    sm90 = q.dtype == torch.bfloat16
+    step = 8 if sm90 else 4      # TMA needs 16-byte row strides in bf16
+    if not (0 < hd <= 256 and hd % step == 0):
+        raise ValueError(f"head_dim {hd}: the {q.dtype} kernel takes a "
+                         f"multiple of {step} up to 256")
     if Sq == 0 or Skv == 0:
         raise ValueError("empty sequence")
     if window is not None and window <= 0:
@@ -59,15 +69,24 @@ def flash_attention_cuda(q, k, v, *, causal: bool,
         raise ValueError("some query row admits no key")
     build.check_operands(q=q, k=k, v=v)
     out = torch.empty_like(q)
-    lib, fn = _entry()
+    if sm90:
+        name, fn_name, extra = ("flash_attention_sm90",
+                                "flash_attention_fwd_sm90", ())
+    else:
+        name, fn_name, extra = ("flash_attention", "flash_attention_fwd",
+                                (build.dtype_code(q.dtype),))
+    lib, fn = _entry(name, fn_name, 9 + len(extra))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, Sq, Skv, Hq, K, hd, int(causal), window or 0,
-                 q_pos_offset, build.dtype_code(q.dtype), stream)
-    build.raise_on_error(lib, "flash_attention_fwd", err)
+                 q_pos_offset, *extra, stream)
+    build.raise_on_error(lib, fn_name, err)
     flash_attention_cuda.launches += 1
+    if sm90:
+        flash_attention_cuda.launches_sm90 += 1
     return out
 
 
-flash_attention_cuda.launches = 0  # type: ignore[attr-defined]
+flash_attention_cuda.launches = 0       # type: ignore[attr-defined]
+flash_attention_cuda.launches_sm90 = 0  # type: ignore[attr-defined]

@@ -8,7 +8,9 @@ Every test skips without a CUDA device (the kernels have no CPU mode).
 Tolerances: 2e-5 in fp32, as test_kernels.py (fp32 math in another sum
 order). In bf16 both sides do fp32 math and round once to bf16, so they may
 differ by one bf16 step, at most 2^-7 of the value: each element must be
-within 1e-3 + 1e-2 |plain|, and never more than test_kernels.py's 3e-2.
+within 1e-3 + 1e-2 |plain|, and never more than test_kernels.py's 3e-2 (the
+tensor-core flash kernel feeds P to its bf16 products as two bf16 halves,
+so its weights keep ~16 bits, as the plain version's fp32 ones).
 A long slot's output is ~0.05, so a lost split shows. The RG-LRU scan is
 fp32 only: 1e-4, as test_kernels.py (the carry across chunks is exp of a
 summed log decay where the plain version multiplies step by step). The
@@ -52,6 +54,18 @@ FLASH_CASES = [
     (1, 1000, 1000, 32, 8, 128, True, 100, 0),
     (1, 3000, 3000, 10, 1, 256, True, 2048, 0),  # recurrentgemma-2b
     (2, 300, 300, 10, 1, 256, True, 64, 0),
+    # the edges of the bf16 tensor-core kernel's tiles (64 query rows per
+    # warpgroup, 64 keys per tile, 64-column head-dim slabs)
+    (1, 63, 63, 4, 2, 64, True, None, 0),
+    (1, 64, 64, 4, 2, 64, True, None, 0),
+    (1, 65, 65, 4, 2, 64, True, None, 0),
+    (1, 127, 127, 4, 2, 64, True, None, 0),
+    (1, 128, 128, 4, 2, 64, True, None, 0),
+    (1, 129, 129, 4, 2, 64, True, None, 0),
+    (2, 200, 200, 8, 2, 128, True, None, 0),    # the map's batch coordinate
+    (1, 300, 300, 10, 1, 256, True, 100, 0),    # window edge inside a tile
+    (1, 100, 700, 8, 2, 128, True, None, 600),  # query tail at an offset
+    (1, 50, 90, 4, 4, 64, False, 20, 40),       # offset window, not causal
 ]
 
 # (B, Sc, Hq, K, hd, pos, window): pos an int or a per-slot list
@@ -103,12 +117,16 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, Sq, Skv, Hq, K, hd,
     k = _randn(cuda, (B, Skv, K, hd), dtype)
     v = _randn(cuda, (B, Skv, K, hd), dtype)
     before = flash_attention_cuda.launches
+    before_sm90 = flash_attention_cuda.launches_sm90
     out = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                q_pos_offset=off)
     ref = flash_attention_ref(q, k, v, causal=causal, window=window,
                               q_pos_offset=off)
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == before + 1
+    # bf16 takes the tensor-core kernel, fp32 the CUDA-core one
+    assert flash_attention_cuda.launches_sm90 == \
+        before_sm90 + (dtype == "bfloat16")
     assert out.dtype == q.dtype and out.shape == q.shape
     assert _close(out, ref)
 
@@ -174,6 +192,9 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     wide = _randn(cuda, (1, 4, 1, 260), "float32")
     with pytest.raises(ValueError):          # head_dim above 256
         flash_attention_cuda(wide, wide, wide, causal=True)
+    odd = _randn(cuda, (1, 4, 1, 12), "bfloat16")
+    with pytest.raises(ValueError):          # bf16 needs a multiple of 8
+        flash_attention_cuda(odd, odd, odd, causal=True)
     kc = _randn(cuda, (1, 16, 1, 16), "float32")
     with pytest.raises(ValueError):          # 3 query heads per KV head
         decode_attention_cuda(_randn(cuda, (1, 1, 3, 16), "float32"), kc, kc,

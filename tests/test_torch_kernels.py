@@ -89,6 +89,14 @@ GQA_CASES = [
     (2, 5, 29, 8, 2, 16, True, None, 24),      # query tail at an offset
     (1, 7, 19, 4, 1, 16, False, None, 0),      # not causal
     (1, 70, 70, 6, 3, 8, True, 33, 0),         # window across tiles
+    # the edges of the bf16 tensor-core kernel's tiles, which the plain
+    # version is held to on the card
+    (1, 63, 63, 4, 2, 64, True, None, 0),
+    (1, 65, 65, 4, 2, 64, True, None, 0),
+    (1, 127, 127, 4, 2, 64, True, None, 0),
+    (1, 129, 129, 4, 2, 64, True, None, 0),
+    (1, 70, 70, 10, 1, 256, True, 33, 0),      # G = 10, hd 256, window
+    (1, 20, 150, 4, 2, 64, True, None, 130),   # offset tail, Sq < Skv
 ]
 
 
@@ -107,16 +115,24 @@ def test_flash_plain_matches_layers(B, Sq, Skv, Hq, K, hd, causal, window,
     assert _err(out, ref) < FP32_TOL
 
 
-def test_flash_plain_bf16_matches_layers():
-    rng = np.random.default_rng(3)
-    q, k, v = (_normal(rng, 1, 33, 4, 32), _normal(rng, 1, 33, 2, 32),
-               _normal(rng, 1, 33, 2, 32))
+def _check_bf16(seed, B, S, Hq, K, hd):
+    rng = np.random.default_rng(seed)
+    q, k, v = (_normal(rng, B, S, Hq, hd), _normal(rng, B, S, K, hd),
+               _normal(rng, B, S, K, hd))
     ref = jax_gqa_attention(
         *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), causal=True)
     out = flash_attention(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
                           causal=True)
-    assert out.dtype == torch.bfloat16
+    assert out.dtype == torch.bfloat16 and out.shape == (B, S, Hq, hd)
     assert _err(out.float(), ref.astype(jnp.float32)) < BF16_TOL
+
+
+def test_flash_plain_bf16_matches_layers():
+    _check_bf16(3, 1, 33, 4, 2, 32)
+
+
+def test_flash_plain_bf16_hd128_matches_layers():
+    _check_bf16(4, 2, 129, 8, 2, 128)   # two tiles of the bf16 kernel
 
 
 # (B, Sc, Hq, K, hd, pos, window): pos an int or a per-slot list
