@@ -8,10 +8,11 @@ imports nothing from JAX or the JAX package ``repro``. Phases, each printing
 its own lines; any failure exits non-zero without the result line:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
-   CUDA versions, and the build of the five CUDA libraries from ``csrc/``
+   CUDA versions, and the build of the six CUDA libraries from ``csrc/``
    (one ``nvcc`` each, all at once, timed; their ``ptxas`` lines), and the
-   count of tensor-core ``HGMMA`` instructions in the bf16 flash kernel's
-   SASS (``cuobjdump --dump-sass``; none fails the run);
+   count of tensor-core instructions in the SASS of the bf16 kernels
+   (``cuobjdump --dump-sass``): ``HGMMA`` in the flash kernel's, ``HMMA``
+   in the decode kernel's (none fails the run);
 2. each kernel against its plain PyTorch version on the card, with its time
    (CUDA events, median, the host queued ahead of the card), the plain
    version's time, the least time the card could take (bytes over 3.35 TB/s
@@ -19,9 +20,14 @@ its own lines; any failure exits non-zero without the result line:
    a yardstick the port never calls,
    ``torch.nn.functional.scaled_dot_product_attention`` (for a window also
    SDPA's time on the causal problem without it: the dense mask keeps SDPA
-   off its flash backend). Each flash case prints the route its launch
-   took, by the wrapper's counters: bf16 on the tensor-core kernel
-   (``flash_attention_sm90.cu``), fp32 on the CUDA-core one. The attention
+   off its flash backend). Each decode case also times SDPA on each slot's
+   cache cut to its admitted rows, with no mask, under the flash backend
+   alone (the B calls as one case; where that backend refuses the shape it
+   says why, and the next backend that takes it is timed), and prints the
+   bf16 kernel's time over the faster SDPA time. Each attention case
+   prints the route its launch took, by the wrapper's counters: bf16 on
+   the tensor-core kernels (``flash_attention_sm90.cu``,
+   ``decode_attention_sm90.cu``), fp32 on the CUDA-core ones. The attention
    kernels run at the head shapes of both served models (llama3.1-8b: 32
    query heads over 8 KV heads, head_dim 128; recurrentgemma-2b: 10 over
    1, head_dim 256, window 2048) in fp32 (tolerance 2e-5) and bf16 (each
@@ -40,8 +46,9 @@ its own lines; any failure exits non-zero without the result line:
 4. Llama-3.1-8B at its published shape, all 32 layers, bf16 weights drawn
    from a seeded generator, serving 12 requests (prompts of 128-1536
    tokens, 64 new tokens each) through ``DisaggEngine`` with the kernels'
-   launch counts set to 0 before the run and read after it (prefill
-   attention must run on the tensor-core kernel, the CUDA-core one never);
+   launch counts set to 0 before the run and read after it (prefill and
+   decode attention must run on the tensor-core kernels, the CUDA-core
+   ones never);
 4b. RecurrentGemma-2B at its published shape, all 26 layers (18 RG-LRU, 8
    local attention), bf16, max_len 4096 (a rotating window cache of 2048),
    serving 12 requests (six prompts of 128-2047 tokens, six of 2049-3583,
@@ -125,13 +132,15 @@ def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
 # phase 1
 # ---------------------------------------------------------------------------
 
-def count_hgmma(lib: Path) -> int:
-    """Tensor-core (wgmma) instructions in a built library's SASS."""
+def count_sass(lib: Path, opcode: str) -> int:
+    """Instructions of an opcode (``HGMMA``: wgmma, ``HMMA``: mma.sync) in a
+    built library's SASS."""
     from repro_torch.kernels import build
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
-    return sum("HGMMA" in line for line in sass.splitlines())
+    return sum(f" {opcode}." in line or f" {opcode} " in line
+               for line in sass.splitlines())
 
 
 def phase_environment(report: dict) -> str:
@@ -152,14 +161,18 @@ def phase_environment(report: dict) -> str:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "bytes stack" in line:
                 log(f"[ptxas] {lib.stem.rsplit('_', 1)[0]}: {line.strip()}")
-    hgmma = count_hgmma(build.library_path("flash_attention_sm90"))
-    log(f"[env] flash_attention_sm90: {hgmma} HGMMA instructions in its SASS")
-    if hgmma == 0:
-        raise SystemExit("the bf16 flash kernel has no tensor-core "
-                         "instruction")
+    tensor_core = {}
+    for name, opcode in (("flash_attention_sm90", "HGMMA"),
+                         ("decode_attention_sm90", "HMMA")):
+        n = count_sass(build.library_path(name), opcode)
+        log(f"[env] {name}: {n} {opcode} instructions in its SASS")
+        if n == 0:
+            raise SystemExit(f"the bf16 kernel of {name} has no tensor-core "
+                             "instruction")
+        tensor_core[name] = n
     report["env"] = {"nvidia_smi": smi, "torch": torch.__version__,
                      "cuda": torch.version.cuda, "build_s": secs,
-                     "hgmma": hgmma}
+                     "tensor_core_instructions": tensor_core}
     return smi
 
 
@@ -217,6 +230,31 @@ def _flash_case(S: int, window, dtype, gen, heads) -> dict:
             cuda_ms(causal_library, 20), "bound_ms": b_ms, "bound_by": b_by}
 
 
+def _sdpa_per_slot(qt, kt, vt, rows) -> tuple:
+    """SDPA on each slot's cache cut to its admitted rows, no mask: the B
+    calls as one function, under the flash backend alone if it takes the
+    shape, else under the first backend that does. Returns (function,
+    backend name, why flash was refused or None)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def run(backend):
+        with sdpa_kernel(backend):
+            return [F.scaled_dot_product_attention(
+                qt[b:b + 1], kt[b:b + 1, :, :n], vt[b:b + 1, :, :n],
+                enable_gqa=True) for b, n in enumerate(rows)]
+    refused = None
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            run(backend)
+        except RuntimeError as e:   # the backend refuses the shape
+            refused = refused or str(e).strip().splitlines()[0][:160]
+            continue
+        return (lambda: run(backend)), backend.name, refused
+    raise SystemExit(f"no SDPA backend takes the per-slot calls: {refused}")
+
+
 def _decode_case(pos, window, dtype, gen, heads, Sc=2048, B=8) -> dict:
     import torch.nn.functional as F
 
@@ -235,7 +273,10 @@ def _decode_case(pos, window, dtype, gen, heads, Sc=2048, B=8) -> dict:
 
     def plain():
         return decode_attention_ref(q, kc, vc, posd, window=window)
+    sm90 = decode_attention_cuda.launches_sm90
     out, ref = kern(), plain()
+    route = "sm90 mma.sync" if decode_attention_cuda.launches_sm90 > sm90 \
+        else "cuda-core fp32"
     err, ok = float((out.float() - ref.float()).abs().max()), close(out, ref)
     rows = np.minimum(np.asarray(pos) + 1, Sc)     # rows the mask admits
     valid = torch.arange(Sc, device="cuda")[None, :] < \
@@ -245,15 +286,18 @@ def _decode_case(pos, window, dtype, gen, heads, Sc=2048, B=8) -> dict:
     def library():
         return F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=valid[:, None, None, :], enable_gqa=True)
+    per_slot, backend, refused = _sdpa_per_slot(qt, kt, vt, rows.tolist())
     elt = q.element_size()
     n_bytes = elt * (2 * q.numel() + 2 * float(rows.sum()) * KV * HD) + 4 * B
     b_ms, b_by = bound_ms(n_bytes, 4.0 * float(rows.sum()) * HQ * HD, dtype)
     return {"shape": f"B={B} Sc={Sc} Hq={HQ} K={KV} hd={HD} pos={list(pos)} "
                      f"window={window}", "dtype": str(dtype), "err": err,
-            "ok": ok, "ms": cuda_ms(kern, 50),
+            "ok": ok, "route": route, "ms": cuda_ms(kern, 50),
             "plain_ms": cuda_ms(plain, 10),
-            "library_ms": cuda_ms(library, 50), "bound_ms": b_ms,
-            "bound_by": b_by}
+            "library_ms": cuda_ms(library, 50),
+            "library_per_slot_ms": cuda_ms(per_slot, 50),
+            "per_slot_backend": backend, "flash_refused": refused,
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def _scan_case(B: int, S: int, W: int, gen) -> dict:
@@ -336,8 +380,16 @@ def phase_kernels(report: dict) -> dict:
             cases["decode_attention"].append(c)
             if dtype == torch.bfloat16 and window is None:
                 main["decode_attention"] = c
-        cases["decode_attention"].append(
-            _decode_case(rg_spread, 2048, dtype, gen, RG_HEADS))
+        c = _decode_case(rg_spread, 2048, dtype, gen, RG_HEADS)
+        cases["decode_attention"].append(c)
+        if dtype == torch.bfloat16:
+            main["decode_attention_rg"] = c
+        # G = 5 (llama4-maverick) and 12 (starcoder2-15b), which the bf16
+        # kernel pads to its 16-row tile, and slots with one or two keys
+        cases["decode_attention"].append(_decode_case(
+            [0, 1, 500, 2047], None, dtype, gen, (40, 8, 128), B=4))
+        cases["decode_attention"].append(_decode_case(
+            [1, 0, 1500, 3000], 2048, dtype, gen, (48, 4, 128), B=4))
     for B, S, W in ((1, 3000, 2560), (2, 37, 200)):
         cases["rglru_scan"].append(_scan_case(B, S, W, gen))
     main["rglru_scan"] = cases["rglru_scan"][0]
@@ -361,6 +413,11 @@ def phase_kernels(report: dict) -> dict:
             route = f" [{c['route']}]" if "route" in c else ""
             if c.get("library_causal_ms") is not None:
                 lib += f" (causal, no window {c['library_causal_ms']:.4f} ms)"
+            if "library_per_slot_ms" in c:
+                lib += (f" dense mask; {c['library_per_slot_ms']:.4f} ms "
+                        f"per slot, cut, {c['per_slot_backend']}")
+                if c["flash_refused"]:
+                    lib += f" (flash refused: {c['flash_refused']})"
             log(f"[kernel] {name}{route} {c['dtype']} {c['shape']}: "
                 f"max_abs_err {c['err']:.3g}{state} (tol {tol}) "
                 f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  "
@@ -368,6 +425,10 @@ def phase_kernels(report: dict) -> dict:
                 f"({c['bound_by']})  {'ok' if ok else 'FAIL'}")
             if not ok:
                 failed.append((name, c["shape"], c["dtype"]))
+            if "library_per_slot_ms" in c and c["dtype"] == "torch.bfloat16":
+                fast = min(c["library_ms"], c["library_per_slot_ms"])
+                log(f"[kernel]   bf16 decode kernel over the faster SDPA "
+                    f"time ({fast:.4f} ms): {c['ms'] / fast:.2f}x")
     report["kernels"] = cases
     if failed:
         raise SystemExit(f"kernel disagrees with its plain version: {failed}")
@@ -465,8 +526,9 @@ def phase_serve(report: dict, tag: str, arch: str, lengths, max_len: int,
     """Serve 12 requests (64 new tokens each) through ``DisaggEngine`` at
     the published shape in bf16; ``kernels`` name -> (wrapper, name of its
     launch counter), whose counters are set to 0 just before the run and
-    read just after it. The bf16 serve must not launch the CUDA-core flash
-    kernel (the wrapper's total less its tensor-core launches)."""
+    read just after it. The bf16 serve must not launch the CUDA-core
+    attention kernels (each wrapper's total less its tensor-core
+    launches)."""
     from repro_torch.configs import get_config
     from repro_torch.core.controller import ControllerConfig
     from repro_torch.serving.engine import DisaggEngine
@@ -508,8 +570,8 @@ def phase_serve(report: dict, tag: str, arch: str, lengths, max_len: int,
         f"{pre.max():.2f} (n={len(pre)}); decode step ms: median "
         f"{np.median(dec):.2f} p90 {np.percentile(dec, 90):.2f} "
         f"(n={len(dec)})")
-    log(f"[{tag}] launches on the main path: {launches}; CUDA-core flash "
-        f"kernel: {cuda_core}")
+    log(f"[{tag}] launches on the main path: {launches}; CUDA-core "
+        f"attention kernels: {cuda_core}")
     if s.n_finished != 12 or any(len(r.generated) != 64
                                  for r in eng.finished):
         raise SystemExit(f"{arch}: not every request finished with 64 tokens")
@@ -517,8 +579,8 @@ def phase_serve(report: dict, tag: str, arch: str, lengths, max_len: int,
         raise SystemExit(f"{arch}: a kernel of the main path never ran: "
                          f"{launches}")
     if any(cuda_core.values()):
-        raise SystemExit(f"{arch}: bf16 prefill attention left the "
-                         f"tensor-core kernel: {cuda_core}")
+        raise SystemExit(f"{arch}: bf16 attention left the tensor-core "
+                         f"kernels: {cuda_core}")
     if not all(0 <= t < cfg.vocab_size for r in eng.finished
                for t in r.generated):
         raise SystemExit(f"{arch}: a generated token is outside the "
@@ -557,7 +619,7 @@ def main() -> int:
     from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_cuda
     from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
     attention = {"flash_attention": (flash_attention_cuda, "launches_sm90"),
-                 "decode_attention": (decode_attention_cuda, "launches")}
+                 "decode_attention": (decode_attention_cuda, "launches_sm90")}
     lengths = np.random.default_rng(0).integers(128, 1536, 12)
     lengths += lengths % 128 == 0                  # never a tile multiple
     by_path = {"llama3.1-8b": phase_serve(report, "serve", "llama3.1-8b",
@@ -579,8 +641,13 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:84"},
         {"name": "decode_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/decode_attention.cu",
-         "replaces": "src/repro/kernels/decode_attention/kernel.py:64"},
+         "source": "src/repro_torch/csrc/decode_attention_sm90.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
+         "path": "llama3.1-8b"},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention_sm90.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
+         "case": "decode_attention_rg", "path": "recurrentgemma-2b"},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:54"},
@@ -589,15 +656,21 @@ def main() -> int:
          "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:76"},
     ]}
     for row in table["kernels"]:
-        c = main_cases[row["name"]]
+        # a row's case: the kernel's main case, or the one it names; B2 has
+        # a row for each served model's head shape, with that serve's
+        # launches
+        c = main_cases[row.pop("case", row["name"])]
+        path = row.pop("path", None)
         log(f"[table] {row['name']}: {c['dtype']} {c['shape']}")
         # launches: the sum over the serves whose path runs the kernel
         paths = {p: n[row["name"]] for p, n in by_path.items()
-                 if row["name"] in n}
+                 if row["name"] in n and path in (None, p)}
         row.update(launches=sum(paths.values()), launches_by_path=paths,
                    max_abs_err=c["err"], ms=c["ms"], plain_ms=c["plain_ms"],
                    bound_ms=c["bound_ms"], bound_by=c["bound_by"],
-                   library_ms=c["library_ms"])
+                   library_ms=c["library_ms"], shape=c["shape"])
+        if "library_per_slot_ms" in c:   # B calls, so not the library call
+            row["library_per_slot_ms"] = c["library_per_slot_ms"]
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(

@@ -8,7 +8,7 @@
 // sliding-window cache, whose slot j holds absolute position
 // pos - ((pos - j) mod Sc) (floor modulo, as jnp.mod). Both modes take the
 // same launch: see the first point below.
-// fp32 or bf16 in and out; scores, softmax and accumulation are fp32.
+// fp32 in and out (bf16 runs on decode_attention_sm90.cu).
 //
 // What bounds it on an H100: bytes. One query token per (slot, head) does
 // 4 * G * hd flops per cached key against 2 * hd elements read, far below
@@ -41,10 +41,12 @@ constexpr int kWarps = kSplit / 32;
 
 // part_ml holds (max, sum) and part_acc the unnormalised weighted V of each
 // (slot, KV head, split, query head of the group).
-template <typename T, int G>
+template <int G>
 __global__ void __launch_bounds__(kSplit)
-decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                      const T* __restrict__ vc, const int* __restrict__ pos,
+decode_partial_kernel(const float* __restrict__ q,
+                      const float* __restrict__ kc,
+                      const float* __restrict__ vc,
+                      const int* __restrict__ pos,
                       float* __restrict__ part_acc,
                       float* __restrict__ part_ml, int Sc, int K, int hd,
                       int n_split) {
@@ -68,7 +70,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
   const int nt = min(kSplit, n_valid - j0);
 
-  const T* qh = q + ((long)b * K * G + (long)kh * G) * hd;
+  const float* qh = q + ((long)b * K * G + (long)kh * G) * hd;
   for (int i = tid * 4; i < G * hd; i += kSplit * 4) {
     const float4 x = rt::load4(qh + i);
     qs[i] = x.x;
@@ -85,7 +87,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
   for (int g = 0; g < G; ++g) s[g] = 0.f;
   if (ok) {
-    const T* krow = kc + (((long)b * Sc + j) * K + kh) * hd;
+    const float* krow = kc + (((long)b * Sc + j) * K + kh) * hd;
     for (int d = 0; d < hd; d += 4) {
       const float4 x = rt::load4(krow + d);
 #pragma unroll
@@ -131,9 +133,9 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     float a[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) a[g] = 0.f;
-    const T* vcol = vc + (((long)b * Sc + j0) * K + kh) * hd + d;
+    const float* vcol = vc + (((long)b * Sc + j0) * K + kh) * hd + d;
     for (int t = 0; t < nt; ++t) {
-      const float vv = rt::to_float(vcol[t * v_stride]);
+      const float vv = vcol[t * v_stride];
 #pragma unroll
       for (int g = 0; g < G; ++g) a[g] = fmaf(ps[g * kSplit + t], vv, a[g]);
     }
@@ -144,10 +146,9 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
 // One block per (query head, slot): rescale each split's partial to the
 // global max and normalise by the global sum.
-template <typename T>
 __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
                                       const float* __restrict__ part_ml,
-                                      T* __restrict__ out, int K, int G,
+                                      float* __restrict__ out, int K, int G,
                                       int hd, int n_split) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int kh = h / G, g = h - kh * G;
@@ -170,45 +171,47 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
       if (ml[1] > 0.f)  // empty partials are never read
         o += expf(ml[0] - M) * part_acc[((base + s) * G + g) * hd + d];
     }
-    out[((long)b * K * G + h) * hd + d] = rt::from_float<T>(o * inv);
+    out[((long)b * K * G + h) * hd + d] = o * inv;
   }
 }
 
-template <typename T, int G>
-cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const int* pos, void* out, float* part_acc,
+template <int G>
+cudaError_t launch(const float* q, const float* kc, const float* vc,
+                   const int* pos, float* out, float* part_acc,
                    float* part_ml, int B, int K, int Sc, int hd,
                    cudaStream_t stream) {
   const int n_split = (Sc + kSplit - 1) / kSplit;
   const int smem = (int)sizeof(float) * (G * hd + G * kSplit);
-  decode_partial_kernel<T, G><<<dim3(n_split, K, B), kSplit, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), pos, part_acc, part_ml, Sc, K, hd, n_split);
+  decode_partial_kernel<G><<<dim3(n_split, K, B), kSplit, smem, stream>>>(
+      q, kc, vc, pos, part_acc, part_ml, Sc, K, hd, n_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<T><<<dim3(K * G, B), 128, 0, stream>>>(
-      part_acc, part_ml, static_cast<T*>(out), K, G, hd, n_split);
+  decode_combine_kernel<<<dim3(K * G, B), 128, 0, stream>>>(
+      part_acc, part_ml, out, K, G, hd, n_split);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_g(const void* q, const void* kc, const void* vc,
-                       const int* pos, void* out, float* part_acc,
+cudaError_t dispatch_g(const float* q, const float* kc, const float* vc,
+                       const int* pos, float* out, float* part_acc,
                        float* part_ml, int B, int G, int K, int Sc, int hd,
                        cudaStream_t s) {
   switch (G) {
     case 1:
-      return launch<T, 1>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
+      return launch<1>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
     case 2:
-      return launch<T, 2>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
+      return launch<2>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
     case 4:
-      return launch<T, 4>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
+      return launch<4>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
+    case 5:  // llama4-maverick: 40 query heads over 8 KV heads
+      return launch<5>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
     case 8:
-      return launch<T, 8>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
+      return launch<8>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
     case 10:  // recurrentgemma-2b: 10 query heads over one KV head
-      return launch<T, 10>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
+      return launch<10>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
+    case 12:  // starcoder2-15b: 48 query heads over 4 KV heads
+      return launch<12>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
     case 16:
-      return launch<T, 16>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
+      return launch<16>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -220,27 +223,22 @@ cudaError_t dispatch_g(const void* q, const void* kc, const void* vc,
 extern "C" int decode_attention_split_rows() { return kSplit; }
 
 // C interface (bound with ctypes). q (B,1,Hq,hd), caches (B,Sc,K,hd), out
-// like q, pos (B,) int32, all contiguous device memory, 16-byte aligned;
-// part_acc holds B*K*n_split*G*hd floats and part_ml B*K*n_split*G*2, with
-// n_split = ceil(Sc / decode_attention_split_rows()). Returns a cudaError_t.
+// like q, all fp32; pos (B,) int32; all contiguous device memory, 16-byte
+// aligned; part_acc holds B*K*n_split*G*hd floats and part_ml
+// B*K*n_split*G*2, with n_split = ceil(Sc / decode_attention_split_rows()).
+// Returns a cudaError_t.
 extern "C" int decode_attention_fwd(const void* q, const void* kc,
                                     const void* vc, const void* pos,
                                     void* out, void* part_acc, void* part_ml,
                                     int B, int Hq, int K, int Sc, int hd,
-                                    int dtype, void* stream) {
+                                    void* stream) {
   if (B <= 0 || Sc <= 0 || K <= 0 || Hq % K != 0 || hd <= 0 || hd > 256 ||
       hd % 4 != 0)
     return (int)cudaErrorInvalidValue;
-  const int G = Hq / K;
-  const int* p = static_cast<const int*>(pos);
-  float* acc = static_cast<float*>(part_acc);
-  float* ml = static_cast<float*>(part_ml);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::kFloat32)
-    return (int)dispatch_g<float>(q, kc, vc, p, out, acc, ml, B, G, K, Sc, hd,
-                                  s);
-  if (dtype == rt::kBFloat16)
-    return (int)dispatch_g<__nv_bfloat16>(q, kc, vc, p, out, acc, ml, B, G, K,
-                                          Sc, hd, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_g(
+      static_cast<const float*>(q), static_cast<const float*>(kc),
+      static_cast<const float*>(vc), static_cast<const int*>(pos),
+      static_cast<float*>(out), static_cast<float*>(part_acc),
+      static_cast<float*>(part_ml), B, Hq / K, K, Sc, hd,
+      static_cast<cudaStream_t>(stream));
 }

@@ -23,7 +23,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("flash_attention", "decode_attention", "rglru_scan",
-           "mlstm_chunk", "flash_attention_sm90")
+           "mlstm_chunk", "flash_attention_sm90", "decode_attention_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -87,7 +87,16 @@ def load(name: str) -> ctypes.CDLL:
 def check_operands(align: int = 16, **tensors) -> None:
     """Raise unless every tensor lies on one CUDA device, is contiguous and
     ``align``-byte aligned (16 for the attention kernels' vector loads), and
-    all share one dtype the kernels take."""
+    all share one dtype the kernels take. Raise ``RuntimeError`` first if
+    autograd would record the call: the kernels have no backward yet, and
+    their outputs would silently cut the graph."""
+    if torch.is_grad_enabled():
+        needs = [name for name, t in tensors.items() if t.requires_grad]
+        if needs:
+            raise RuntimeError(
+                f"{', '.join(needs)} require grad, but the CUDA kernels have "
+                "no backward yet (ROADMAP A6); call them under "
+                "torch.no_grad() or detach the operands")
     first = next(iter(tensors.values()))
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != first.device:

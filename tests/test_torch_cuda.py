@@ -81,6 +81,13 @@ DECODE_CASES = [
     # rotating window cache before and after it wraps
     (8, 2048, 10, 1, 256, [0, 1, 127, 128, 1000, 2047, 2048, 3500], 2048),
     (8, 2048, 10, 1, 256, [5, 300, 700, 1023, 1024, 1500, 2046, 2047], None),
+    # slots with one or two keys, where bf16(P) alone would lose the limit
+    (8, 2048, 32, 8, 128, [0, 1, 1, 0, 1, 0, 0, 1], None),
+    (8, 2048, 10, 1, 256, [1, 0, 0, 1, 0, 1, 1, 0], 2048),
+    # G = 5 (llama4-maverick, 40 over 8) and G = 12 (starcoder2-15b, 48
+    # over 4), which only padding to the 16-row tile serves in bf16
+    (4, 1000, 40, 8, 128, [0, 1, 500, 2000], None),
+    (4, 1000, 48, 4, 128, [1, 300, 999, 1500], 1000),
 ]
 
 # (B, S, W): ragged, and the serve's prefill shapes (W = lru_width 2560)
@@ -140,10 +147,14 @@ def test_decode_kernel_matches_plain(cuda, dtype, B, Sc, Hq, K, hd, pos,
     vc = _randn(cuda, (B, Sc, K, hd), dtype)
     posd = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
     before = decode_attention_cuda.launches
+    before_sm90 = decode_attention_cuda.launches_sm90
     out = decode_attention_cuda(q, kc, vc, posd)   # one launch, any layout
     ref = decode_attention_ref(q, kc, vc, posd, window=window)
     torch.cuda.synchronize()
     assert decode_attention_cuda.launches == before + 1
+    # bf16 takes the tensor-core kernel, fp32 the CUDA-core one
+    assert decode_attention_cuda.launches_sm90 == \
+        before_sm90 + (dtype == "bfloat16")
     assert out.dtype == q.dtype and out.shape == q.shape
     assert _close(out, ref)
 
@@ -199,9 +210,15 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):          # 3 query heads per KV head
         decode_attention_cuda(_randn(cuda, (1, 1, 3, 16), "float32"), kc, kc,
                               3)
-    with pytest.raises(ValueError):          # 12 per KV head (10 is taken)
-        decode_attention_cuda(_randn(cuda, (1, 1, 12, 16), "float32"), kc,
+    with pytest.raises(ValueError):          # 17 per KV head (16 is taken)
+        decode_attention_cuda(_randn(cuda, (1, 1, 17, 16), "float32"), kc,
                               kc, 3)
+    kb = kc.bfloat16()
+    with pytest.raises(ValueError):          # 17 in bf16 too
+        decode_attention_cuda(_randn(cuda, (1, 1, 17, 16), "bfloat16"), kb,
+                              kb, 3)
+    with pytest.raises(ValueError):          # bf16 needs a multiple of 8
+        decode_attention_cuda(odd[:, :1].contiguous(), odd, odd, 3)
     la = _randn(cuda, (1, 6, 8), "float32")
     h0 = _randn(cuda, (1, 8), "float32")
     with pytest.raises(TypeError):           # the scan is fp32 only
@@ -264,3 +281,33 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch):
             steps.append(lg)
         out[dev] = torch.stack(steps).cpu()
     assert float((out["cuda"] - out["cpu"]).abs().max()) < 1e-4
+
+
+def _requires_grad(tree):
+    if isinstance(tree, dict):
+        return {k: _requires_grad(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_requires_grad(v) for v in tree)
+    return tree.requires_grad_() if tree.is_floating_point() else tree
+
+
+def test_kernels_refuse_autograd(cuda):
+    """The kernels have no backward yet: under grad mode a call with an
+    operand that requires grad raises instead of cutting the graph, which
+    would leave wq, wk, wv and the norms before attention without a
+    gradient."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    cfg = get_config("llama3.1-8b").reduced()
+    lm = LM(cfg)
+    params = _requires_grad(lm.init(cuda, device="cuda"))
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=cuda,
+                         device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        lm.forward_train(params, {"tokens": toks})
+    q = _randn(cuda, (1, 8, 4, 16), "float32").requires_grad_()
+    k = _randn(cuda, (1, 8, 2, 16), "float32")
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention_cuda(q, k, k, causal=True)
+    with torch.no_grad():                    # inference is untouched
+        flash_attention_cuda(q, k, k, causal=True)

@@ -70,6 +70,8 @@ def test_flash_plain_matches_pallas(B, S, Hq, K, hd, window):
     (1, 512, 4, 4, 128, 128, 511),
     (3, 512, 16, 2, 64, 512, 100),
     (2, 256, 8, 8, 64, 64, 0),
+    (2, 256, 10, 2, 64, 128, 200),    # G = 5 (llama4-maverick)
+    (1, 512, 24, 2, 32, 256, 300),    # G = 12 (starcoder2-15b)
 ])
 def test_decode_plain_matches_pallas(B, S, Hq, K, hd, bs, pos):
     rng = np.random.default_rng(S + Hq + pos)
@@ -142,6 +144,11 @@ DECODE_CASES = [
     (4, 8, 4, 4, 16, [3, 7, 8, 20], 8),        # rotating window
     (2, 8, 4, 1, 16, 19, 8),                   # rotating, scalar pos
     (3, 300, 16, 2, 8, [299, 128, 1000], None),  # several 128-row splits
+    # G = 5 and G = 12, which the bf16 kernel pads to its 16-row tile
+    (3, 40, 10, 2, 16, [0, 17, 39], None),
+    (3, 16, 10, 2, 16, [1, 15, 30], 16),
+    (2, 48, 24, 2, 16, [1, 47], None),
+    (3, 16, 12, 1, 16, [0, 16, 33], 16),
 ]
 
 
@@ -175,3 +182,76 @@ def test_dispatch_rejects_other_devices():
         flash_attention(q, q, q, causal=True)
     with pytest.raises(ValueError):
         decode_attention(q[:, :1], q, q, 0)
+
+
+def test_plan_splits_covers_rows_and_fills_the_card():
+    """The bf16 decode kernel's splits: chosen from B, K, Sc and the card
+    (132 SMs; 2 blocks an SM at hd 128, 1 at hd 256) alone, the grid covers
+    the SMs at both serve shapes unless the splits are already down to their
+    least length (at RecurrentGemma's, 16 splits of 128 rows make 128
+    blocks: 32 splits timed slower on the card), never holds more blocks
+    than the card at once (the splits meet at a grid barrier), and the even
+    cut of each slot's admitted rows over the splits (as each block derives
+    it on the device) covers every row once."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        SM90_MAX_SPLITS, SM90_MIN_SPLIT_ROWS, plan_splits)
+    n_sm = 132
+    for B, K, per_sm, want in ((8, 8, 2, 4), (8, 1, 1, 16)):
+        n = plan_splits(B, K, 2048, n_sm, per_sm)    # llama, recurrentgemma
+        assert n == want
+        assert n * B * K >= n_sm or n == 2048 // SM90_MIN_SPLIT_ROWS
+        assert n * B * K >= 0.95 * n_sm
+    assert plan_splits(1, 1, 8192, n_sm, 1) == SM90_MAX_SPLITS
+    for B, K, per_sm in ((100, 1, 1), (40, 2, 2), (64, 8, 2)):
+        n = plan_splits(B, K, 2048, n_sm, per_sm)
+        assert n == 1 or n * B * K <= per_sm * n_sm
+    for B, K, Sc in ((8, 8, 2048), (8, 1, 2048), (1, 1, 16), (3, 2, 300),
+                     (64, 8, 4096)):
+        n = plan_splits(B, K, Sc, n_sm, 1)
+        assert 1 <= n <= SM90_MAX_SPLITS
+        for pos in (-1, 0, 1, 15, Sc - 2, Sc - 1, Sc, 3 * Sc):
+            # as decode_attention_sm90.cu cuts them: evenly, rounded up to
+            # whole 64-row tiles of the block's four warps
+            n_valid = 0 if pos < 0 else min(pos + 1, Sc)
+            chunk = -(-(-(-n_valid // n)) // 64) * 64
+            rows = []
+            for split in range(n):
+                r0 = min(split * chunk, n_valid)
+                rows += range(r0, min(r0 + chunk, n_valid))
+            assert rows == list(range(n_valid))
+
+
+def test_check_operands_refuses_autograd():
+    """Under grad mode an operand that requires grad raises before any
+    other check (the kernels have no backward yet); under no_grad, or with
+    no such operand, the next check (here: the device) decides."""
+    from repro_torch.kernels import build
+    x = torch.zeros(4, requires_grad=True)
+    y = torch.zeros(4)
+    with pytest.raises(RuntimeError, match="no backward"):
+        build.check_operands(q=y, k=x)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="CUDA"):
+            build.check_operands(q=y, k=x)
+    with pytest.raises(ValueError, match="CUDA"):
+        build.check_operands(q=y, k=x.detach())
+
+
+@pytest.mark.parametrize("dtype,Hq,hd,match", [
+    (torch.bfloat16, 17, 128, "1 to 16"),        # the bf16 kernel: G <= 16
+    (torch.bfloat16, 12, 12, "multiple of 8"),   # 16-byte copies of rows
+    (torch.float32, 3, 128, "query heads per KV head"),  # GROUP_SIZES
+    (torch.float32, 12, 12, "CUDA"),             # fp32 takes hd 12 and G 12
+])
+def test_decode_cuda_wrapper_checks_each_route(dtype, Hq, hd, match):
+    """The CUDA decode wrapper holds each dtype to its kernel's contract
+    before it looks at the device: bf16 (the tensor-core kernel) takes any G
+    up to 16 and head_dim a multiple of 8, fp32 (the CUDA-core kernel) the
+    G of ``GROUP_SIZES`` and head_dim a multiple of 4. Input that passes
+    fails next on the device check, since these tensors lie on the CPU."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    q = torch.zeros((2, 1, Hq, hd), dtype=dtype)
+    cache = torch.zeros((2, 32, 1, hd), dtype=dtype)
+    with pytest.raises(ValueError, match=match):
+        decode_attention_cuda(q, cache, cache, torch.tensor([0, 5]))
