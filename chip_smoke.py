@@ -10,9 +10,10 @@ its own lines; any failure exits non-zero without the result line:
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions, and the build of the six CUDA libraries from ``csrc/``
    (one ``nvcc`` each, all at once, timed; their ``ptxas`` lines), and the
-   count of tensor-core instructions in the SASS of the bf16 kernels
-   (``cuobjdump --dump-sass``): ``HGMMA`` in the flash kernel's, ``HMMA``
-   in the decode kernel's (none fails the run);
+   count of tensor-core instructions in the SASS of the tensor-core
+   kernels (``cuobjdump --dump-sass``): ``HGMMA`` in the bf16 flash
+   kernel's, ``HMMA`` in the bf16 decode kernel's and in the mLSTM's split
+   TF32 passes (none fails the run);
 2. each kernel against its plain PyTorch version on the card, with its time
    (CUDA events, median, the host queued ahead of the card), the plain
    version's time, the least time the card could take (bytes over 3.35 TB/s
@@ -36,7 +37,10 @@ its own lines; any failure exits non-zero without the result line:
    (fp32 only, tolerance 1e-4) at the hybrid serve's prefill shape and a
    ragged one; the chunkwise mLSTM (fp32 only, 2e-4 on h, 1e-5 on the final
    (C, n, m)) at the xLSTM serve's prefill shape and a ragged multi-chunk
-   one from a given state;
+   one from a given state, with the kernels one call launches (by
+   ``torch.profiler``, beside the wrapper's plan; the phase fails unless
+   each pass shows as one launch) and its workspace bytes (the library's
+   count, and what one call allocates past its outputs);
 3. reduced llama3.1-8b, qwen1.5-4b, recurrentgemma-2b and xlstm-350m in
    fp32 on the card: prefill and decode logits against the same model on
    the CPU (plain versions, 1e-4; the hybrid decodes past its window of 32,
@@ -66,6 +70,7 @@ The last two lines are the kernel table as JSON and
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -163,12 +168,13 @@ def phase_environment(report: dict) -> str:
                 log(f"[ptxas] {lib.stem.rsplit('_', 1)[0]}: {line.strip()}")
     tensor_core = {}
     for name, opcode in (("flash_attention_sm90", "HGMMA"),
-                         ("decode_attention_sm90", "HMMA")):
+                         ("decode_attention_sm90", "HMMA"),
+                         ("mlstm_chunk", "HMMA")):
         n = count_sass(build.library_path(name), opcode)
         log(f"[env] {name}: {n} {opcode} instructions in its SASS")
         if n == 0:
-            raise SystemExit(f"the bf16 kernel of {name} has no tensor-core "
-                             "instruction")
+            raise SystemExit(f"the tensor-core kernel of {name} has no "
+                             "tensor-core instruction")
         tensor_core[name] = n
     report["env"] = {"nvidia_smi": smi, "torch": torch.__version__,
                      "cuda": torch.version.cuda, "build_s": secs,
@@ -322,9 +328,35 @@ def _scan_case(B: int, S: int, W: int, gen) -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def _device_kernels(fn) -> dict:
+    """(launches, device ms) of each device kernel in one call of fn, by
+    torch.profiler (empty where it records no device activity). A first
+    call under the profiler warms it up and is not recorded: the profiler
+    can lose the first kernel it sees."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    got = {}
+
+    def ready(prof):
+        got.update({e.key: (e.count, e.self_device_time_total / 1e3)
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and
+                    not e.is_user_annotation})
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=ready) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return got
+
+
 def _mlstm_case(B: int, S: int, nh: int, hd: int, given: bool, gen) -> dict:
     from repro_torch.kernels.mlstm_chunk.kernel import (KERNEL_CHUNK,
-                                                        mlstm_chunk_cuda)
+                                                        _entry,
+                                                        mlstm_chunk_cuda,
+                                                        plan)
     from repro_torch.kernels.mlstm_chunk.ref import (make_inputs,
                                                      mlstm_chunk_ref)
     # given=False: a prefill from the fresh state, as the serve runs it
@@ -335,9 +367,16 @@ def _mlstm_case(B: int, S: int, nh: int, hd: int, given: bool, gen) -> dict:
 
     def plain():
         return mlstm_chunk_ref(q, k, v, li, lf, state)
-    (h, new), (h_ref, new_ref) = kern(), plain()
-    err = float((h - h_ref).abs().max())
-    state_err = max(float((a - b).abs().max()) for a, b in zip(new, new_ref))
+    # held against the plain version evaluated in fp64: its fp32 rounding on
+    # the card can reach the tolerance by itself (printed beside)
+    h, new = kern()
+    h_ref, new_ref = mlstm_chunk_ref(
+        *(t.double() for t in (q, k, v, li, lf)),
+        tuple(t.double() for t in state))
+    err = float((h.double() - h_ref).abs().max())
+    state_err = max(float((a.double() - b).abs().max())
+                    for a, b in zip(new, new_ref))
+    plain_err = float((plain()[0].double() - h_ref).abs().max())
     # q, k, v, the gates and the state read once; h and the state written
     # once. Flops of the chunkwise form at the kernel's chunk kL: q C and
     # the C update (2 hd^2 each a step), the causal half of q k^T and w v
@@ -346,10 +385,48 @@ def _mlstm_case(B: int, S: int, nh: int, hd: int, given: bool, gen) -> dict:
     n_bytes = 4.0 * (4 * B * S * nh * hd + 2 * B * S * nh + 2 * n_state)
     flops = 2.0 * B * nh * S * (2 * hd * hd + KERNEL_CHUNK * hd)
     b_ms, b_by = bound_ms(n_bytes, flops, torch.float32)
-    return {"shape": f"B={B} S={S} nh={nh} hd={hd} "
-                     f"{'given' if given else 'fresh'} state",
+    shape = (f"B={B} S={S} nh={nh} hd={hd} "
+             f"{'given' if given else 'fresh'} state")
+    # the passes of one call: planned by the wrapper, and as profiled; each
+    # pass must show as one launch of its own kernel
+    p = plan(B, S, nh, hd)
+    kernels = _device_kernels(kern)
+    passes = {re.search(r"mlstm_\w+", k).group(): v
+              for k, v in kernels.items() if "mlstm_" in k}
+    if len(passes) != p["launches"] or \
+            any(n != 1 for n, _ in passes.values()):
+        raise RuntimeError(
+            f"mlstm_chunk {shape}: the profiler saw (launches, device ms) "
+            f"{passes} of mlstm_ kernels in one call, not {p['launches']} "
+            "passes launched once each")
+    # the workspace: the library's count, the plan's, and the memory one
+    # call allocates past its outputs (the caching allocator rounds up)
+    lib, _ = _entry()
+    ws_bytes = 4 * lib.mlstm_chunk_workspace_floats(B, S, nh, hd)
+    if ws_bytes != p["workspace_bytes"]:
+        raise RuntimeError(f"mlstm_chunk {shape}: the library needs "
+                           f"{ws_bytes} bytes of workspace, the plan "
+                           f"{p['workspace_bytes']}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = kern()
+    torch.cuda.synchronize()
+    out_bytes = sum(t.numel() * 4 for t in (out[0], *out[1]))
+    ws_alloc = torch.cuda.max_memory_allocated() - base - out_bytes
+    del out
+    log(f"[kernel] mlstm_chunk {shape}: one call launches "
+        f"{p['launches']} passes on {p['blocks']} blocks (plan); profiled "
+        f"(launches, device ms): {passes}, "
+        f"{sum(n for n, _ in kernels.values())} device kernels in all; "
+        f"workspace {ws_bytes} bytes (the library's count), "
+        f"{ws_alloc} allocated past the outputs (measured)")
+    return {"shape": shape,
             "dtype": str(torch.float32), "err": err, "state_err": state_err,
+            "plain_fp32_err": plain_err,
             "ok": err < MLSTM_TOL and state_err < MLSTM_STATE_TOL,
+            "passes": passes, "blocks": p["blocks"],
+            "workspace_bytes": ws_bytes, "workspace_alloc_bytes": ws_alloc,
             "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 5),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
@@ -410,6 +487,9 @@ def phase_kernels(report: dict) -> dict:
             ok = c["ok"]
             state = f" state {c['state_err']:.3g}" if "state_err" in c \
                 else ""
+            if "plain_fp32_err" in c:
+                state += (f" against the plain version in fp64 (the plain "
+                          f"version in fp32: {c['plain_fp32_err']:.3g})")
             route = f" [{c['route']}]" if "route" in c else ""
             if c.get("library_causal_ms") is not None:
                 lib += f" (causal, no window {c['library_causal_ms']:.4f} ms)"
@@ -671,6 +751,8 @@ def main() -> int:
                    library_ms=c["library_ms"], shape=c["shape"])
         if "library_per_slot_ms" in c:   # B calls, so not the library call
             row["library_per_slot_ms"] = c["library_per_slot_ms"]
+        if c.get("passes"):   # B4's three launches, by torch.profiler
+            row["passes_ms"] = {k: ms for k, (_, ms) in c["passes"].items()}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(

@@ -1,8 +1,10 @@
 """Plain PyTorch chunkwise mLSTM: ``repro.models.xlstm._mlstm_chunk_scan``
-with its padding rule, in fp32.
+with its padding rule, in fp32 (or in fp64, given fp64 inputs).
 
-The CPU path of ``ops.mlstm_chunk`` and the version the CUDA kernel is held
-against on the card.
+The CPU path of ``ops.mlstm_chunk`` (fp32), and, evaluated in fp64, the
+version the CUDA kernel is held against on the card: h divides by a
+denominator that can cancel, and the fp32 version's own rounding on an H100
+reaches 2.7e-4 at the served prefill's shape, past the kernel's tolerance.
 """
 from __future__ import annotations
 
@@ -16,20 +18,22 @@ def mlstm_chunk_ref(q, k, v, log_i, log_f, state, chunk: int = CHUNK):
     """Stabilised chunkwise mLSTM. q, k, v: (B, S, nh, hd) fp32 (k already
     scaled by 1/sqrt(hd)); log_i, log_f: (B, S, nh); state = (C (B, nh, hd,
     hd), n (B, nh, hd), m (B, nh)). Returns (h (B, S, nh, hd), (C, n, m)),
-    new tensors. S is padded to a multiple of ``chunk`` with steps that
-    inject nothing (log_i = NEG) and do not decay the state (log_f = 0)."""
+    new tensors, in fp64 if q is fp64, else in fp32. S is padded to a
+    multiple of ``chunk`` with steps that inject nothing (log_i = NEG) and
+    do not decay the state (log_f = 0)."""
     B, S, nh, hd = q.shape
     nc = -(-S // chunk)
     pad = nc * chunk - S
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
 
     def prep(a, fill=0.0):
-        a = a.float()
+        a = a.to(dt)
         if pad:
             a = torch.cat([a, a.new_full((B, pad, *a.shape[2:]), fill)], 1)
         return a.reshape(B, nc, chunk, *a.shape[2:])
     qc, kc, vc = prep(q), prep(k), prep(v)
     lic, lfc = prep(log_i, NEG), prep(log_f)
-    C, n, m = (t.float() for t in state)
+    C, n, m = (t.to(dt) for t in state)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=q.device))
     hs = []
