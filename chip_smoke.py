@@ -34,8 +34,15 @@ its own lines; any failure exits non-zero without the result line:
    1, head_dim 256, window 2048) in fp32 (tolerance 2e-5) and bf16 (each
    element within min(3e-2, 1e-3 + 1e-2 |plain|): both sides round fp32
    math once to bf16, so they may differ by one bf16 step); the RG-LRU scan
-   (fp32 only, tolerance 1e-4) at the hybrid serve's prefill shape and a
-   ragged one; the chunkwise mLSTM (fp32 only, 2e-4 on h, 1e-5 on the final
+   (fp32 only, tolerance 1e-4) at the hybrid serve's prefill shape, a
+   ragged one, the serve's shortest and longest prompts (S=206, 3450) and
+   with the gates drawn as the model draws them, with the kernels one call
+   launches (by ``torch.profiler``; the phase fails unless that is one
+   launch of the scan kernel and nothing else), its workspace bytes, and
+   its time at each of the hybrid serve's 12 prompt lengths, summed over
+   the serve's 216 calls (beside it what ``cuda_ms`` reads for one
+   one-element PyTorch kernel, the floor under a short call's time);
+   the chunkwise mLSTM (fp32 only, 2e-4 on h, 1e-5 on the final
    (C, n, m)) at the xLSTM serve's prefill shape and a ragged multi-chunk
    one from a given state, with the kernels one call launches (by
    ``torch.profiler``, beside the wrapper's plan; the phase fails unless
@@ -306,11 +313,34 @@ def _decode_case(pos, window, dtype, gen, heads, Sc=2048, B=8) -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def _scan_case(B: int, S: int, W: int, gen) -> dict:
-    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
+def _model_gates(gen, B: int, S: int, W: int) -> tuple:
+    """log_a and x as the model feeds the scan (models/rglru.py
+    ``_lru_gates``): log_a = 8 r log(u), u ~ U[0.9, 0.999] (the lam init's
+    range), r ~ U(0, 1); x = sqrt(1 - exp(2 log_a)) times a normal draw."""
+    u = 0.9 + 0.099 * torch.rand((B, S, W), generator=gen, device="cuda")
+    r = torch.rand((B, S, W), generator=gen, device="cuda")
+    la = 8.0 * r * torch.log(u)
+    z = torch.randn((B, S, W), generator=gen, device="cuda")
+    return la, torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * la),
+                                      min=1e-12)) * z
+
+
+def _scan_case(B: int, S: int, W: int, gen, model_gates: bool = False,
+               main: bool = False) -> dict:
+    """The scan against its plain version; for the main case also the
+    device kernels one call launches (by torch.profiler: it fails unless
+    that is one launch of the scan kernel and nothing else) and the
+    workspace (the library's count, and what one call allocates past its
+    output when the wrapper holds none yet)."""
+    from repro_torch.kernels.rglru_scan.kernel import (_entry,
+                                                       release_workspaces,
+                                                       rglru_scan_cuda)
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
-    la = -torch.rand((B, S, W), generator=gen, device="cuda") * 0.5
-    x = torch.randn((B, S, W), generator=gen, device="cuda")
+    if model_gates:
+        la, x = _model_gates(gen, B, S, W)
+    else:
+        la = -torch.rand((B, S, W), generator=gen, device="cuda") * 0.5
+        x = torch.randn((B, S, W), generator=gen, device="cuda")
     h0 = torch.randn((B, W), generator=gen, device="cuda")
 
     def kern():
@@ -322,10 +352,71 @@ def _scan_case(B: int, S: int, W: int, gen) -> dict:
     # log_a and x read once, the states written once; an exp-mul-add each
     b_ms, b_by = bound_ms(4.0 * (3 * B * S * W + B * W), 2.0 * B * S * W,
                           torch.float32)
-    return {"shape": f"B={B} S={S} W={W}", "dtype": str(torch.float32),
-            "err": err, "ok": err < SCAN_TOL, "ms": cuda_ms(kern, 50),
+    shape = f"B={B} S={S} W={W}{' model gates' if model_gates else ''}"
+    case = {"shape": shape, "dtype": str(torch.float32), "err": err,
+            "ok": err < SCAN_TOL, "ms": cuda_ms(kern, 50),
             "plain_ms": cuda_ms(plain, 3), "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by}
+    if main:
+        kernels = _device_kernels(kern)
+        scan = [n for k, (n, _) in kernels.items() if "rglru_scan" in k]
+        if scan != [1] or sum(n for n, _ in kernels.values()) != 1:
+            raise RuntimeError(
+                f"rglru_scan {shape}: the profiler saw (launches, device "
+                f"ms) {kernels} in one call, not one launch of the scan "
+                "kernel and nothing else")
+        lib, _ = _entry()
+        ws_bytes = 4 * lib.rglru_scan_workspace_floats(B, S, W)
+        release_workspaces()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = kern()
+        torch.cuda.synchronize()
+        ws_alloc = torch.cuda.max_memory_allocated() - base - \
+            out.numel() * 4
+        del out
+        log(f"[kernel] rglru_scan {shape}: one call launches, by the "
+            f"profiler (launches, device ms): {kernels}; workspace "
+            f"{ws_bytes} bytes (the library's count), {ws_alloc} "
+            "allocated past the output (measured)")
+        case.update(launches_per_call=kernels, workspace_bytes=ws_bytes,
+                    workspace_alloc_bytes=ws_alloc)
+    return case
+
+
+def _rg_prompt_lengths() -> np.ndarray:
+    """The RecurrentGemma serve's prompt lengths (phase 4b): six of
+    128-2047 and six of 2049-3583 tokens, never a multiple of 128."""
+    rng = np.random.default_rng(0)
+    lengths = rng.permutation(np.concatenate([rng.integers(128, 2048, 6),
+                                              rng.integers(2049, 3584, 6)]))
+    return lengths + (lengths % 128 == 0)
+
+
+def _scan_serve(gen) -> dict:
+    """The scan's time at each of the RecurrentGemma serve's prompt lengths
+    (B=1, W = lru_width, the gates as the model draws them), and their sum
+    over the serve's calls (one a rec layer for each prompt's prefill)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
+    cfg = get_config("recurrentgemma-2b")
+    W = cfg.lru_width or cfg.d_model
+    n_rec = cfg.layer_kinds().count("rec")
+    per_call = {}
+    for S in sorted(int(n) for n in _rg_prompt_lengths()):
+        la, x = _model_gates(gen, 1, S, W)
+        h0 = torch.randn((1, W), generator=gen, device="cuda")
+        per_call[S] = cuda_ms(lambda: rglru_scan_cuda(la, x, h0), 20)
+    total = n_rec * sum(per_call.values())
+    bound = n_rec * sum(1e3 * 12.0 * S * W / HBM_BYTES_PER_S
+                        for S in per_call)
+    log(f"[kernel] rglru_scan at the RecurrentGemma serve's prompt lengths "
+        f"(B=1 W={W}, model gates), ms a call: "
+        f"{ {S: round(ms, 4) for S, ms in per_call.items()} }; x {n_rec} "
+        f"rec layers: {total:.3f} ms of scan a serve (bound {bound:.3f} ms)")
+    return {"per_call_ms": per_call, "rec_layers": n_rec,
+            "serve_ms": total, "serve_bound_ms": bound}
 
 
 def _device_kernels(fn) -> dict:
@@ -467,9 +558,21 @@ def phase_kernels(report: dict) -> dict:
             [0, 1, 500, 2047], None, dtype, gen, (40, 8, 128), B=4))
         cases["decode_attention"].append(_decode_case(
             [1, 0, 1500, 3000], 2048, dtype, gen, (48, 4, 128), B=4))
-    for B, S, W in ((1, 3000, 2560), (2, 37, 200)):
+    # what cuda_ms reads for a call that does next to nothing: the floor
+    # under the short scans' times
+    one = torch.zeros(1, device="cuda")
+    report["cuda_ms_floor"] = cuda_ms(lambda: one.add_(1), 50)
+    log(f"[kernel] cuda_ms of one one-element PyTorch kernel: "
+        f"{report['cuda_ms_floor']:.4f} ms")
+    # the hybrid serve's prefill, a ragged shape, the serve's shortest and
+    # longest prompts, and the gates as the model draws them
+    cases["rglru_scan"].append(_scan_case(1, 3000, 2560, gen, main=True))
+    for B, S, W in ((2, 37, 200), (1, 206, 2560), (1, 3450, 2560)):
         cases["rglru_scan"].append(_scan_case(B, S, W, gen))
+    cases["rglru_scan"].append(_scan_case(1, 3000, 2560, gen,
+                                          model_gates=True))
     main["rglru_scan"] = cases["rglru_scan"][0]
+    report["rglru_scan_serve"] = _scan_serve(gen)
     # xlstm-350m's prefill (4 heads of 512), then ragged chunks from a state
     for B, S, nh, hd, given in ((1, 2048, 4, 512, False),
                                 (2, 300, 2, 256, True)):
@@ -704,12 +807,8 @@ def main() -> int:
     lengths += lengths % 128 == 0                  # never a tile multiple
     by_path = {"llama3.1-8b": phase_serve(report, "serve", "llama3.1-8b",
                                           lengths, 2048, attention)}
-    rng = np.random.default_rng(0)
-    lengths = rng.permutation(np.concatenate([rng.integers(128, 2048, 6),
-                                              rng.integers(2049, 3584, 6)]))
-    lengths += lengths % 128 == 0
     by_path["recurrentgemma-2b"] = phase_serve(
-        report, "serve-rg", "recurrentgemma-2b", lengths, 4096,
+        report, "serve-rg", "recurrentgemma-2b", _rg_prompt_lengths(), 4096,
         {**attention, "rglru_scan": (rglru_scan_cuda, "launches")})
     lengths = np.random.default_rng(0).integers(128, 2048, 12)
     lengths += lengths % 64 == 0                   # never a multiple of 64

@@ -1,4 +1,7 @@
-// RG-LRU linear-recurrence scan for Hopper (sm_90a).
+// RG-LRU linear-recurrence scan for Hopper (sm_90a): one launch, a
+// single-pass chunked scan with decoupled look-back across chunks (Merrill
+// and Garland, "Single-pass Parallel Prefix Scan with Decoupled Look-back",
+// NVIDIA 2016), applied to the affine pair (A, e) of each chunk.
 //
 // Replaces the TPU kernel src/repro/kernels/rglru_scan/kernel.py::
 // rglru_scan_pallas (body _rglru_kernel): per (batch, channel)
@@ -8,131 +11,329 @@
 // (that kernel asserts S % chunk == 0 and W % bw == 0; engine prompts are
 // ragged).
 //
-// What bounds it on an H100: bytes. Each element is read twice (log_a, x)
-// and written once, 12 bytes, for an exp and two flops, far below the
-// card's ~20 fp32 flops per byte; the least time is 12 B S W / 3.35 TB/s
-// (B=1, S=3000, W=2560: 92 MB, 0.028 ms).
+// What bounds it on an H100: bytes. log_a and x are read once and every h_t
+// written once, 12 bytes an element, for an exp and two flops, far below
+// the card's ~20 fp32 flops per byte; the least time is 12 B S W / 3.35
+// TB/s (B=1, S=3000, W=2560: 92 MB, 0.0275 ms).
 //
 // The trap is the dependence along S: one thread walking one channel over
 // all of S gives only B * W threads (2560 at the serve's batch of one) for
-// 132 SMs, each waiting on S dependent steps. The design keeps the TPU
-// kernel's structure (chunks of S, a carry across chunks), but spreads the
-// chunks over blocks instead of walking them in order on one core:
-//   1. chunk_summary: grid (channel tiles, chunks, batch). Each thread scans
-//      its channel over one chunk of kChunk steps from a zero state and
-//      writes two numbers: the chunk's summed log decay and its end state;
-//   2. chunk_carry: one thread per (batch, channel) walks the chunk
-//      summaries in order, carry_{c+1} = exp(sum_c) carry_c + end_c, and
-//      writes the state entering each chunk. Its loads do not depend on the
-//      carry, so an unrolled loop keeps several in flight;
-//   3. chunk_scan: the grid of phase 1 rescans each chunk from its carry
-//      and writes every state. Rescanning, rather than adding
-//      exp(cumulative log decay) * carry to phase 1's stored states, reads
-//      8 bytes per element instead of 12 and is the reference's exact
-//      sequential recurrence inside each chunk.
-// Neighbouring threads take neighbouring channels, so every load and store
-// of a warp is 128 contiguous bytes. Phases 1 and 3 read log_a and x twice:
-// 20 bytes per element against the 12 of the bound. Fusing the three phases
-// into one pass (a decoupled look-back across chunks) is later work.
+// 132 SMs. So S is cut into chunks of kChunk steps, and the work into
+// tickets, one per (batch row, chunk, tile of kTile channels); a block
+// takes one channel a thread, so every load and store of a warp is 128
+// contiguous bytes. The grid is the blocks the card holds at once (at
+// most one per ticket), and each block walks tickets until they run out:
+//   1. it takes a ticket from a counter (atomicAdd), and its chunk from the
+//      ticket, not from blockIdx: a block takes its tickets in increasing
+//      order and works on them in that order, so the smallest ticket not
+//      yet done is always being worked on, and it waits only on smaller
+//      ones, all done: the look-back cannot deadlock, whatever the grid's
+//      size against the card's resident blocks. The block that takes the
+//      counter's last value sets it back to 0 for the next call;
+//   2. it loads the chunk of log_a and x once into registers and scans it
+//      from a zero state into the chunk's aggregate: A = sum of log_a, e =
+//      the end state, so that state_after = exp(A) * state_before + e;
+//   3. it publishes the aggregate, takes its next ticket and starts that
+//      chunk's loads (into a second set of registers, in flight while it
+//      waits), then looks back over the records of the chunks before this
+//      one, for the same channels, kWindow records at a time: it composes
+//      aggregates, (A1, e1) then (A2, e2) = (A1 + A2, exp(A2) e1 + e2),
+//      until it meets an inclusive prefix (the state at that chunk's end),
+//      which gives the state entering its own chunk. Chunk 0 starts from
+//      h0 and publishes no aggregate;
+//   4. it rescans the chunk from that state out of registers, step by step
+//      with fmaf(expf(log_a), h, x) as the reference's sequential
+//      recurrence, writes every h_t once, and publishes the last one as
+//      the chunk's inclusive prefix.
+// What this design does about the three-phase kernel it replaces (chunk
+// summaries, a carry pass, a rescan): one launch instead of three, so a
+// short prompt (S=206: a 0.0019 ms bound) pays one launch; 12 bytes an
+// element instead of 20, as each element is read once; no carry pass on
+// B * W / 128 blocks (20 at the serve's shape) walking every chunk in
+// order; and a workspace of 16 bytes per (chunk, channel) instead of
+// three B * n_chunks * W float arrays written and read in full.
+//
+// Records that cannot be half-read. A record is two 64-bit words, each a
+// float in its low half and a 32-bit tag in its high half: word 0 holds A,
+// word 1 holds e, later overwritten by the inclusive prefix. The tag is
+// epoch << 1 | inclusive, where the epoch is a per-call counter the caller
+// passes (1 .. 2^31 - 1), so records left by an earlier call never carry
+// this call's tag and need no reset launch. A 64-bit access is
+// single-copy atomic, so a word's float always comes with its own tag;
+// each word carries what its reader needs, so no fence orders the two: a
+// reader takes word 1 if it is inclusive, else both words if both are
+// this call's aggregate, else reads the record again. Records are read
+// with ld.volatile (from L2, never a stale L1 line). A look-back that reads
+// kMaxIdle rounds (seconds) without news traps, a launch error, rather than
+// hang the card. Where a look-back stops depends on timing, so two calls on
+// the same inputs may differ in the last bits of the states they carry
+// across chunks (by rounding, far inside the 1e-4 the tests hold).
+//
+// Workspace (rglru_scan_workspace_floats counts it): 16 bytes of header,
+// the ticket counter in its first 4 (the rest unused), then the records,
+// B * n_chunks * W of 16 bytes, indexed ((b * n_chunks + chunk) * W + w).
+// It must be zero (or hold only records of earlier calls and a zero
+// counter) before its first use; every call that runs to its end leaves
+// it so.
+//
+// Sizing: 128 channels and 32 steps a ticket give 20 x 7 = 140 tickets at
+// B=1 S=206 W=2560 (more than the 132 SMs) and 1,880 at S=3000. Two chunks
+// in registers take 168 a thread, so three blocks fit on an SM (396 on the
+// card); each block works on ~5 tickets at S=3000.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kChunk = 32;     // steps of S per chunk
-constexpr int kThreads = 128;  // channels per block
+constexpr int kChunk = 32;    // steps of S a ticket
+constexpr int kTile = 128;    // channels per block, one per thread
+constexpr int kWindow = 2;    // predecessor records read at once
+constexpr int kMinBlocks = 3; // resident blocks an SM, for the registers
+constexpr unsigned kMaxIdle = 1u << 22;  // look-back rounds before a trap
+constexpr long long kHeaderFloats = 4;   // the ticket counter, padded
+constexpr long long kRecordFloats = 4;   // two tagged 64-bit words
 
-__global__ void __launch_bounds__(kThreads)
-chunk_summary_kernel(const float* __restrict__ log_a,
-                     const float* __restrict__ x, float* __restrict__ sum_la,
-                     float* __restrict__ h_end, int S, int W, int n_chunks) {
-  const int w = blockIdx.x * kThreads + threadIdx.x;
-  const int c = blockIdx.y, b = blockIdx.z;
-  if (w >= W) return;
-  const int t0 = c * kChunk, t1 = min(S, t0 + kChunk);
-  const float* la = log_a + ((long)b * S + t0) * W + w;
-  const float* xb = x + ((long)b * S + t0) * W + w;
-  float A = 0.f, h = 0.f;
-#pragma unroll 8
-  for (int t = 0; t < t1 - t0; ++t) {
-    const float l = la[(long)t * W];
-    h = fmaf(expf(l), h, xb[(long)t * W]);
-    A += l;
-  }
-  const long o = ((long)b * n_chunks + c) * W + w;
-  sum_la[o] = A;
-  h_end[o] = h;
+__device__ __forceinline__ unsigned long long pack(float v, unsigned tag) {
+  return (static_cast<unsigned long long>(tag) << 32) | __float_as_uint(v);
+}
+__device__ __forceinline__ unsigned tag_of(unsigned long long w) {
+  return static_cast<unsigned>(w >> 32);
+}
+__device__ __forceinline__ float value_of(unsigned long long w) {
+  return __uint_as_float(static_cast<unsigned>(w));
 }
 
-__global__ void __launch_bounds__(kThreads)
-chunk_carry_kernel(const float* __restrict__ sum_la,
-                   const float* __restrict__ h_end,
-                   const float* __restrict__ h0, float* __restrict__ carry,
-                   int W, int n_chunks) {
-  const int w = blockIdx.x * kThreads + threadIdx.x;
-  const int b = blockIdx.y;
-  if (w >= W) return;
-  float h = h0[(long)b * W + w];
-  const long base = (long)b * n_chunks * W + w;
-#pragma unroll 8
-  for (int c = 0; c < n_chunks; ++c) {
-    const long o = base + (long)c * W;
-    carry[o] = h;
-    h = fmaf(expf(sum_la[o]), h, h_end[o]);
+__device__ __forceinline__ ulonglong2 load_record(const ulonglong2* p) {
+  ulonglong2 r;
+  asm volatile("ld.volatile.global.v2.u64 {%0, %1}, [%2];"
+               : "=l"(r.x), "=l"(r.y) : "l"(p) : "memory");
+  return r;
+}
+__device__ __forceinline__ void store_aggregate(ulonglong2* p, float A,
+                                                float e, unsigned tag) {
+  asm volatile("st.volatile.global.v2.u64 [%0], {%1, %2};"
+               :: "l"(p), "l"(pack(A, tag)), "l"(pack(e, tag)) : "memory");
+}
+__device__ __forceinline__ void store_inclusive(ulonglong2* p, float h,
+                                                unsigned tag) {
+  asm volatile("st.volatile.global.u64 [%0], %1;"
+               :: "l"(&p->y), "l"(pack(h, tag)) : "memory");
+}
+
+// Where a ticket's chunk lies: batch row b, chunk c, this thread's channel
+// w, the chunk's steps n and the offset of its first element.
+struct Place {
+  int b, c, w, n;
+  long long off;
+};
+
+__device__ __forceinline__ Place place_of(unsigned t, int S, int W,
+                                          int n_chunks, int n_tiles) {
+  Place p;
+  const int tile = static_cast<int>(t % n_tiles);
+  p.c = static_cast<int>((t / n_tiles) % n_chunks);
+  p.b = static_cast<int>(t / ((unsigned)n_tiles * n_chunks));
+  p.w = tile * kTile + threadIdx.x;
+  const int t0 = p.c * kChunk;
+  p.n = min(kChunk, S - t0);
+  p.off = ((long long)p.b * S + t0) * W + p.w;
+  return p;
+}
+
+// The next ticket, the same for every thread of the block. The block that
+// takes the counter's last value for this call (each block takes one
+// ticket past the chunks, its way out) sets it back to 0 for the next call.
+__device__ __forceinline__ unsigned take_ticket(unsigned* ticket,
+                                                unsigned last,
+                                                unsigned* shared) {
+  __syncthreads();   // every thread has read the previous ticket
+  if (threadIdx.x == 0) {
+    const unsigned t = atomicAdd(ticket, 1u);
+    if (t == last) atomicExch(ticket, 0u);
+    *shared = t;
+  }
+  __syncthreads();
+  return *shared;
+}
+
+// A chunk of log_a and x into registers; steps past S decay by exp(0) = 1
+// and add 0.
+__device__ __forceinline__ void load_chunk(const float* __restrict__ log_a,
+                                           const float* __restrict__ x,
+                                           const Place& p, int W,
+                                           float (&a)[kChunk],
+                                           float (&xs)[kChunk]) {
+#pragma unroll
+  for (int i = 0; i < kChunk; ++i) {
+    a[i] = i < p.n ? log_a[p.off + (long long)i * W] : 0.f;
+    xs[i] = i < p.n ? x[p.off + (long long)i * W] : 0.f;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-chunk_scan_kernel(const float* __restrict__ log_a, const float* __restrict__ x,
-                  const float* __restrict__ carry, float* __restrict__ out,
-                  int S, int W, int n_chunks) {
-  const int w = blockIdx.x * kThreads + threadIdx.x;
-  const int c = blockIdx.y, b = blockIdx.z;
-  if (w >= W) return;
-  const int t0 = c * kChunk, t1 = min(S, t0 + kChunk);
-  const long off = ((long)b * S + t0) * W + w;
-  const float* la = log_a + off;
-  const float* xb = x + off;
-  float* o = out + off;
-  float h = carry[((long)b * n_chunks + c) * W + w];
-#pragma unroll 8
-  for (int t = 0; t < t1 - t0; ++t) {
-    h = fmaf(expf(la[(long)t * W]), h, xb[(long)t * W]);
-    o[(long)t * W] = h;
+// The state entering chunk c > 0 of this thread's channel: the aggregates
+// of the chunks before it composed, nearest first, onto the first
+// inclusive prefix met.
+__device__ __forceinline__ float look_back(const ulonglong2* mine, int c,
+                                           int W, unsigned aggregate,
+                                           unsigned inclusive) {
+  float As = 0.f, es = 0.f;   // chunks j+1 .. c-1 composed
+  float h = 0.f;
+  int j = c - 1;
+  bool found = false;
+  unsigned idle = 0;   // rounds that found nothing new
+  while (!found) {
+    ulonglong2 r[kWindow];
+#pragma unroll
+    for (int k = 0; k < kWindow; ++k)
+      r[k] = j - k >= 0 ? load_record(mine - (long long)(c - j + k) * W)
+                        : make_ulonglong2(0ull, 0ull);
+    bool stop = false;
+    int used = 0;
+#pragma unroll
+    for (int k = 0; k < kWindow; ++k) {
+      if (stop || j - k < 0) {
+        stop = true;
+      } else if (tag_of(r[k].y) == inclusive) {
+        h = fmaf(expf(As), value_of(r[k].y), es);
+        found = stop = true;
+      } else if (tag_of(r[k].y) == aggregate &&
+                 tag_of(r[k].x) == aggregate) {
+        es = fmaf(expf(As), value_of(r[k].y), es);
+        As += value_of(r[k].x);
+        ++used;
+      } else {
+        stop = true;   // not published yet: read it again
+      }
+    }
+    j -= used;
+    if (!found && used == 0 && ++idle == kMaxIdle) __trap();
   }
+  return h;
+}
+
+__global__ void __launch_bounds__(kTile, kMinBlocks)
+rglru_scan_kernel(const float* __restrict__ log_a,
+                  const float* __restrict__ x, const float* __restrict__ h0,
+                  float* __restrict__ out, unsigned* __restrict__ ticket,
+                  ulonglong2* __restrict__ records, int S, int W,
+                  int n_chunks, int n_tiles, unsigned n_tickets,
+                  unsigned epoch) {
+  __shared__ unsigned s_ticket;
+  const unsigned last = n_tickets + gridDim.x - 1;
+  const unsigned aggregate = epoch << 1, inclusive = aggregate | 1u;
+  float a[kChunk], xs[kChunk];
+  unsigned t = take_ticket(ticket, last, &s_ticket);
+  Place p = place_of(t, S, W, n_chunks, n_tiles);
+  if (t < n_tickets && p.w < W) load_chunk(log_a, x, p, W, a, xs);
+  while (t < n_tickets) {
+    const bool live = p.w < W;
+    // 2. the chunk from a zero state: its aggregate
+    float A = 0.f, e = 0.f;
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      A += a[i];
+      a[i] = expf(a[i]);
+      e = fmaf(a[i], e, xs[i]);
+    }
+    ulonglong2* mine = records + ((long long)p.b * n_chunks + p.c) * W + p.w;
+    if (live && p.c > 0) store_aggregate(mine, A, e, aggregate);
+    // the next chunk's loads stay in flight through the look-back
+    const unsigned tn = take_ticket(ticket, last, &s_ticket);
+    const Place pn = place_of(tn, S, W, n_chunks, n_tiles);
+    float na[kChunk], nx[kChunk];
+    if (tn < n_tickets && pn.w < W) load_chunk(log_a, x, pn, W, na, nx);
+    if (live) {
+      // 3. the state entering the chunk
+      float h = p.c == 0 ? h0[(long long)p.b * W + p.w]
+                         : look_back(mine, p.c, W, aggregate, inclusive);
+      // 4. rescan from it, write every state, publish the last
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        h = fmaf(a[i], h, xs[i]);
+        if (i < p.n) out[p.off + (long long)i * W] = h;
+      }
+      store_inclusive(mine, h, inclusive);
+    }
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      a[i] = na[i];
+      xs[i] = nx[i];
+    }
+    t = tn;
+    p = pn;
+  }
+}
+
+// Blocks of the kernel the current device holds at once, looked up once
+// per device.
+cudaError_t resident_blocks(int* blocks) {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && cached[dev] > 0) {
+    *blocks = cached[dev];
+    return cudaSuccess;
+  }
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, rglru_scan_kernel, kTile, 0);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (per_sm * sms <= 0) return cudaErrorInvalidConfiguration;
+  if (dev < 64) cached[dev] = per_sm * sms;
+  *blocks = per_sm * sms;
+  return cudaSuccess;
+}
+
+long long workspace_floats(int B, int S, int W) {
+  const long long n_chunks = (S + kChunk - 1) / kChunk;
+  return kHeaderFloats + kRecordFloats * B * n_chunks * W;
 }
 
 }  // namespace
 
-// Steps of S per chunk; the wrapper sizes the scratch with it.
+// Steps of S per block.
 extern "C" int rglru_scan_chunk() { return kChunk; }
 
+// Floats of workspace a call needs (layout in the header above), or -1 for
+// a shape the kernel does not take.
+extern "C" long long rglru_scan_workspace_floats(int B, int S, int W) {
+  if (B <= 0 || S <= 0 || W <= 0) return -1;
+  return workspace_floats(B, S, W);
+}
+
 // C interface (bound with ctypes). log_a, x, out (B, S, W) and h0 (B, W):
-// contiguous fp32 device memory. scratch holds 3 * B * n_chunks * W floats,
-// n_chunks = ceil(S / rglru_scan_chunk()). Returns a cudaError_t.
+// contiguous fp32 device memory. ws: ws_floats floats of 16-byte-aligned
+// device memory, at least rglru_scan_workspace_floats(B, S, W), zero before
+// its first use. epoch: 1 .. 2^31 - 1, different from that of every earlier
+// call on this workspace since it was last zeroed. Launches nothing and
+// returns cudaErrorInvalidValue on anything else; otherwise returns the
+// launch's cudaError_t.
 extern "C" int rglru_scan_fwd(const void* log_a, const void* x,
-                              const void* h0, void* out, void* scratch, int B,
+                              const void* h0, void* out, void* ws,
+                              long long ws_floats, unsigned epoch, int B,
                               int S, int W, void* stream) {
   if (B <= 0 || S <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  if (epoch == 0 || epoch >= (1u << 31)) return (int)cudaErrorInvalidValue;
+  if (ws_floats < workspace_floats(B, S, W) ||
+      reinterpret_cast<uintptr_t>(ws) % 16)
+    return (int)cudaErrorInvalidValue;
   const int n_chunks = (S + kChunk - 1) / kChunk;
-  const long n_part = (long)B * n_chunks * W;
-  float* sum_la = static_cast<float*>(scratch);
-  float* h_end = sum_la + n_part;
-  float* carry = h_end + n_part;
-  const float* la = static_cast<const float*>(log_a);
-  const float* xs = static_cast<const float*>(x);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (W + kThreads - 1) / kThreads;
-  const dim3 grid(n_tiles, n_chunks, B);
-  chunk_summary_kernel<<<grid, kThreads, 0, s>>>(la, xs, sum_la, h_end, S, W,
-                                                  n_chunks);
-  cudaError_t err = cudaGetLastError();
+  const int n_tiles = (W + kTile - 1) / kTile;
+  const long long n_tickets = (long long)B * n_chunks * n_tiles;
+  if (n_tickets > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  int resident = 0;
+  const cudaError_t err = resident_blocks(&resident);
   if (err != cudaSuccess) return (int)err;
-  chunk_carry_kernel<<<dim3(n_tiles, B), kThreads, 0, s>>>(
-      sum_la, h_end, static_cast<const float*>(h0), carry, W, n_chunks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  chunk_scan_kernel<<<grid, kThreads, 0, s>>>(la, xs, carry,
-                                               static_cast<float*>(out), S, W,
-                                               n_chunks);
+  const unsigned grid =
+      (unsigned)(n_tickets < resident ? n_tickets : resident);
+  float* base = static_cast<float*>(ws);
+  rglru_scan_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(log_a), static_cast<const float*>(x),
+      static_cast<const float*>(h0), static_cast<float*>(out),
+      reinterpret_cast<unsigned*>(base),
+      reinterpret_cast<ulonglong2*>(base + kHeaderFloats), S, W, n_chunks,
+      n_tiles, (unsigned)n_tickets, epoch);
   return (int)cudaGetLastError();
 }

@@ -93,9 +93,16 @@ DECODE_CASES = [
     (4, 1000, 48, 4, 128, [1, 300, 999, 1500], 1000),
 ]
 
-# (B, S, W): ragged, and the serve's prefill shapes (W = lru_width 2560)
+# (B, S, W): ragged, and the serve's prefill shapes (W = lru_width 2560);
+# then the edges of the kernel's 32-step chunk (S = L - 1, L, L + 1,
+# 2L + 1), the serve's shortest and longest prompts, a long look-back over
+# narrow channels, a grid far past the card's resident blocks (the tickets'
+# forward progress), and W not a multiple of the 128-channel tile
 SCAN_CASES = [(2, 37, 200), (1, 5, 8), (1, 1, 3), (3, 70, 33),
-              (1, 3000, 2560), (1, 129, 2560), (4, 1024, 256)]
+              (1, 3000, 2560), (1, 129, 2560), (4, 1024, 256),
+              (1, 31, 256), (1, 32, 256), (1, 33, 256), (1, 65, 256),
+              (1, 206, 2560), (1, 3450, 2560), (4, 4096, 64),
+              (4, 4096, 2560), (33, 200, 2561)]
 
 
 # (B, S, nh, hd, initial state given): one chunk, ragged chunks, the
@@ -182,6 +189,78 @@ def test_rglru_scan_kernel_matches_plain(cuda, B, S, W):
     assert rglru_scan_cuda.launches == before + 1
     assert out.dtype == torch.float32 and out.shape == (B, S, W)
     assert float((out - ref).abs().max()) < 1e-4
+
+
+def _model_gates(gen, B, S, W):
+    """log_a and x as the model feeds the scan (models/rglru.py
+    ``_lru_gates``): log_a = 8 r log(u), u ~ U[0.9, 0.999] (the lam init's
+    range), r ~ U(0, 1); x = sqrt(1 - exp(2 log_a)) times a normal draw."""
+    u = 0.9 + 0.099 * torch.rand((B, S, W), generator=gen, device="cuda")
+    r = torch.rand((B, S, W), generator=gen, device="cuda")
+    la = 8.0 * r * torch.log(u)
+    z = torch.randn((B, S, W), generator=gen, device="cuda")
+    x = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * la), min=1e-12)) * z
+    return la, x
+
+
+@pytest.mark.parametrize("B,S,W", [(1, 3000, 2560), (1, 206, 2560),
+                                   (2, 37, 200)])
+def test_rglru_scan_kernel_matches_plain_on_model_gates(cuda, B, S, W):
+    la, x = _model_gates(cuda, B, S, W)
+    h0 = torch.randn((B, W), generator=cuda, device="cuda")
+    out = rglru_scan_cuda(la, x, h0)
+    ref = rglru_scan_ref(la, x, h0)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) < 1e-4
+
+
+def test_rglru_scan_kernel_reads_no_stale_record(cuda):
+    """Calls in a row on one workspace, each on new inputs: two of one
+    shape, then a longer S; every output matches its own plain version, so
+    no call took a record an earlier one left."""
+    from repro_torch.kernels.rglru_scan.kernel import (KERNEL_CHUNK,
+                                                       _entry)
+    assert _entry()[0].rglru_scan_chunk() == KERNEL_CHUNK
+    outs = []
+    for S in (1000, 1000, 2100):
+        la = -torch.rand((2, S, 384), generator=cuda, device="cuda") * 0.5
+        x = torch.randn((2, S, 384), generator=cuda, device="cuda")
+        h0 = torch.randn((2, 384), generator=cuda, device="cuda")
+        outs.append((rglru_scan_cuda(la, x, h0), rglru_scan_ref(la, x, h0)))
+    torch.cuda.synchronize()
+    for out, ref in outs:
+        assert float((out - ref).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("B,S,W", [(1, 3000, 2560), (2, 37, 200),
+                                   (1, 1, 3)])
+def test_rglru_scan_refuses_a_short_workspace(cuda, B, S, W):
+    """The library counts the workspace it needs and its entry launches
+    nothing, with an error, on a buffer one float short; on one of the
+    counted size it matches the plain version."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rglru_scan.kernel import _entry
+    lib, fn = _entry()
+    need = lib.rglru_scan_workspace_floats(B, S, W)
+    chunks = -(-S // lib.rglru_scan_chunk())
+    assert need == 4 + 4 * B * chunks * W
+    assert lib.rglru_scan_workspace_floats(B, 0, W) == -1
+    la = -torch.rand((B, S, W), generator=cuda, device="cuda") * 0.5
+    x = torch.randn((B, S, W), generator=cuda, device="cuda")
+    h0 = torch.randn((B, W), generator=cuda, device="cuda")
+    out = torch.full_like(x, float("nan"))
+    ws = torch.zeros(need, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (la, x, h0, out, ws)]
+    err = fn(*ptrs, need - 1, 1, B, S, W, stream)
+    assert err != 0
+    with pytest.raises(RuntimeError):
+        build.raise_on_error(lib, "rglru_scan_fwd", err)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out).all())       # nothing was launched
+    assert fn(*ptrs, need, 1, B, S, W, stream) == 0
+    torch.cuda.synchronize()
+    assert float((out - rglru_scan_ref(la, x, h0)).abs().max()) < 1e-4
 
 
 @pytest.mark.parametrize("B,S,nh,hd,given", MLSTM_CASES)
