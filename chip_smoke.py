@@ -29,16 +29,20 @@ its own lines; any failure exits non-zero without the result line:
    prints the route its launch took, by the wrapper's counters: bf16 on
    the tensor-core kernels (``flash_attention_sm90.cu``,
    ``decode_attention_sm90.cu``), fp32 on the CUDA-core ones. The attention
-   kernels run at the head shapes of both served models (llama3.1-8b: 32
+   kernels run at the head shapes of the served models (llama3.1-8b: 32
    query heads over 8 KV heads, head_dim 128; recurrentgemma-2b: 10 over
    1, head_dim 256, window 2048) in fp32 (tolerance 2e-5) and bf16 (each
    element within min(3e-2, 1e-3 + 1e-2 |plain|): both sides round fp32
-   math once to bf16, so they may differ by one bf16 step); the RG-LRU scan
-   (fp32 only, tolerance 1e-4) at the hybrid serve's prefill shape, a
-   ragged one, the serve's shortest and longest prompts (S=206, 3450) and
-   with the gates drawn as the model draws them, with the kernels one call
-   launches (by ``torch.profiler``; the phase fails unless that is one
-   launch of the scan kernel and nothing else), its workspace bytes, and
+   math once to bf16, so they may differ by one bf16 step), and in bf16
+   at the groups of starcoder2-15b (48 over 4, G = 12; decode also at its
+   serve's shape) and llama3-405b (128 over 8, G = 16, the largest the
+   bf16 decode kernel takes) and at chameleon-34b's (64 over 8); the
+   RG-LRU scan (fp32 only, tolerance 1e-4) at the hybrid serve's prefill
+   shape, a ragged one, the serve's shortest and longest prompts (S=206,
+   3450) and with the gates drawn as the model draws them, with the
+   kernels one call launches (by ``torch.profiler``; the phase fails
+   unless that is one launch of the scan kernel and nothing else), its
+   workspace bytes, and
    its time at each of the hybrid serve's 12 prompt lengths, summed over
    the serve's 216 calls (beside it what ``cuda_ms`` reads for one
    one-element PyTorch kernel, the floor under a short call's time);
@@ -48,11 +52,12 @@ its own lines; any failure exits non-zero without the result line:
    ``torch.profiler``, beside the wrapper's plan; the phase fails unless
    each pass shows as one launch) and its workspace bytes (the library's
    count, and what one call allocates past its outputs);
-3. reduced llama3.1-8b, qwen1.5-4b, recurrentgemma-2b and xlstm-350m in
-   fp32 on the card: prefill and decode logits against the same model on
-   the CPU (plain versions, 1e-4; the hybrid decodes past its window of 32,
-   the xLSTM prefills 300 tokens, past the plain version's 256-step chunk),
-   and the engine's tokens for three ragged prompts against an isolated
+3. reduced llama3.1-8b, qwen1.5-4b, starcoder2-15b, chameleon-34b,
+   granite-3-8b, recurrentgemma-2b and xlstm-350m in fp32 on the card:
+   prefill and decode logits and ``LM.loss`` against the same model on the
+   CPU (plain versions, 1e-4; the hybrid decodes past its window of 32, the
+   xLSTM prefills 300 tokens, past the plain version's 256-step chunk), and
+   the engine's tokens for three ragged prompts against an isolated
    prefill + decode of each;
 4. Llama-3.1-8B at its published shape, all 32 layers, bf16 weights drawn
    from a seeded generator, serving 12 requests (prompts of 128-1536
@@ -68,7 +73,15 @@ its own lines; any failure exits non-zero without the result line:
 4c. xLSTM-350M at its published shape, all 24 layers (21 mLSTM, 3 sLSTM),
    bf16, max_len 4096, serving 12 requests (prompts of 128-2047 tokens,
    the xLSTM paper's 2048 context, never a multiple of 64; 64 new tokens
-   each), with the mLSTM kernel's launch count read around that run alone.
+   each), with the mLSTM kernel's launch count read around that run alone;
+4d. StarCoder2-15B at its published shape (40 layers, layer norm with
+   bias, QKV bias, the GeLU MLP, 48 query heads over 4 KV heads), bf16, on
+   Llama's plan;
+4e. Chameleon-34B at its published shape (48 layers, QK-norm, 64 over 8
+   heads; its bf16 weights take 68.6 GB of the card), on Llama's plan.
+
+Each serve starts with the previous one's engine freed and the allocator's
+cache emptied, and prints its peak device memory.
 
 The last two lines are the kernel table as JSON and
 ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -76,6 +89,7 @@ The last two lines are the kernel table as JSON and
 """
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -97,6 +111,9 @@ MLSTM_TOL, MLSTM_STATE_TOL = 2e-4, 1e-5
 TOL_TEXT = {torch.float32: "2e-5", torch.bfloat16: "min(3e-2, 1e-3+1e-2|plain|)"}
 LLAMA_HEADS = (32, 8, 128)         # (query heads, KV heads, head_dim)
 RG_HEADS = (10, 1, 256)            # recurrentgemma-2b
+STARCODER2_HEADS = (48, 4, 128)    # starcoder2-15b, G = 12
+CHAMELEON_HEADS = (64, 8, 128)     # chameleon-34b
+LLAMA405B_HEADS = (128, 8, 128)    # llama3-405b, G = 16
 
 
 def log(msg: str) -> None:
@@ -557,7 +574,21 @@ def phase_kernels(report: dict) -> dict:
         cases["decode_attention"].append(_decode_case(
             [0, 1, 500, 2047], None, dtype, gen, (40, 8, 128), B=4))
         cases["decode_attention"].append(_decode_case(
-            [1, 0, 1500, 3000], 2048, dtype, gen, (48, 4, 128), B=4))
+            [1, 0, 1500, 3000], 2048, dtype, gen, STARCODER2_HEADS, B=4))
+    # bf16 at the head shapes of the dense serves 4d and 4e and of
+    # llama3-405b (G = 16), which no served model reaches
+    bf16 = torch.bfloat16
+    for S, heads in ((1500, STARCODER2_HEADS), (1000, CHAMELEON_HEADS),
+                     (1000, LLAMA405B_HEADS)):
+        cases["flash_attention"].append(
+            _flash_case(S, None, bf16, gen, heads))
+    for name, heads in (("starcoder2", STARCODER2_HEADS),
+                        ("chameleon", CHAMELEON_HEADS)):
+        c = _decode_case(spread, None, bf16, gen, heads)
+        cases["decode_attention"].append(c)
+        main[f"decode_attention_{name}"] = c
+    cases["decode_attention"].append(
+        _decode_case(rg_spread, 2048, bf16, gen, LLAMA405B_HEADS))
     # what cuda_ms reads for a call that does next to nothing: the floor
     # under the short scans' times
     one = torch.zeros(1, device="cuda")
@@ -632,8 +663,10 @@ def phase_reduced(report: dict) -> None:
     # engine max_len); the hybrid's window is 32: it decodes past it, and two
     # of its engine prompts are longer than it; the xLSTM prefills past the
     # plain version's 256-step chunk, and so do two of its engine prompts
-    plans = {"qwen1.5-4b": (17, 21, 32, (12, 20, 17), 64),
-             "llama3.1-8b": (17, 21, 32, (12, 20, 17), 64),
+    dense = (17, 21, 32, (12, 20, 17), 64)
+    plans = {"qwen1.5-4b": dense, "llama3.1-8b": dense,
+             "starcoder2-15b": dense, "chameleon-34b": dense,
+             "granite-3-8b": dense,
              "recurrentgemma-2b": (20, 40, 64, (12, 40, 33), 64),
              "xlstm-350m": (300, 310, 0, (12, 300, 257), 320)}
     for arch, (n_pre, n_tot, max_len, lengths, eng_len) in plans.items():
@@ -660,6 +693,17 @@ def phase_reduced(report: dict) -> None:
             errs.append(float((lg["cuda"].cpu() - lg["cpu"]).abs().max()))
         if not max(errs) < 1e-4 or not torch.isfinite(lg["cuda"]).all():
             raise SystemExit(f"{arch}: card logits differ from the CPU: {errs}")
+        # LM.loss (forward_train's logits), some labels masked
+        labels = toks.roll(-1, dims=1)
+        labels[:, -1] = -1
+        labels[0, 3:9] = -1
+        loss = {d: float(lm.loss(p, {"tokens": toks.to(d),
+                                     "labels": labels.to(d)}))
+                for d, p in (("cuda", params), ("cpu", params_cpu))}
+        loss_err = abs(loss["cuda"] - loss["cpu"])
+        if not loss_err < 1e-4:
+            raise SystemExit(f"{arch}: card loss differs from the CPU: "
+                             f"{loss}")
         # the engine's tokens against an isolated decode, on the card
         eng = DisaggEngine(cfg, n_prefill=1, n_decode=1, max_len=eng_len,
                            decode_slots=3, seed=7, device="cuda")
@@ -682,13 +726,16 @@ def phase_reduced(report: dict) -> None:
                 toks1.append(int(torch.argmax(lg1[0])))
             mismatched += toks1 != req.generated
         log(f"[reduced] {cfg.name}: logits card vs cpu max err "
-            f"{max(errs):.3g} (tol 1e-4); engine {s.n_finished}/{s.n_total} "
+            f"{max(errs):.3g} (tol 1e-4); loss {loss['cuda']:.6f}, card vs "
+            f"cpu err {loss_err:.3g} (tol 1e-4); engine "
+            f"{s.n_finished}/{s.n_total} "
             f"finished, {len(eng.finished) - mismatched}/{len(eng.finished)} "
             f"match an isolated decode")
         if s.n_finished != 3 or mismatched:
             raise SystemExit(f"{arch}: engine tokens differ from an isolated "
                              "decode")
-        out[cfg.name] = {"logit_err": max(errs), "finished": s.n_finished}
+        out[cfg.name] = {"logit_err": max(errs), "loss_err": loss_err,
+                         "finished": s.n_finished}
     report["reduced"] = out
 
 
@@ -701,7 +748,7 @@ def _to_cpu(tree):
 
 
 # ---------------------------------------------------------------------------
-# phases 4, 4b and 4c
+# phases 4 to 4e
 # ---------------------------------------------------------------------------
 
 def phase_serve(report: dict, tag: str, arch: str, lengths, max_len: int,
@@ -716,6 +763,8 @@ def phase_serve(report: dict, tag: str, arch: str, lengths, max_len: int,
     from repro_torch.core.controller import ControllerConfig
     from repro_torch.serving.engine import DisaggEngine
     cfg = get_config(arch)
+    gc.collect()                   # the previous serve's engine, if any
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = DisaggEngine(cfg, n_prefill=1, n_decode=1, max_len=max_len,
@@ -803,10 +852,10 @@ def main() -> int:
     from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
     attention = {"flash_attention": (flash_attention_cuda, "launches_sm90"),
                  "decode_attention": (decode_attention_cuda, "launches_sm90")}
-    lengths = np.random.default_rng(0).integers(128, 1536, 12)
-    lengths += lengths % 128 == 0                  # never a tile multiple
+    llama_lengths = np.random.default_rng(0).integers(128, 1536, 12)
+    llama_lengths += llama_lengths % 128 == 0      # never a tile multiple
     by_path = {"llama3.1-8b": phase_serve(report, "serve", "llama3.1-8b",
-                                          lengths, 2048, attention)}
+                                          llama_lengths, 2048, attention)}
     by_path["recurrentgemma-2b"] = phase_serve(
         report, "serve-rg", "recurrentgemma-2b", _rg_prompt_lengths(), 4096,
         {**attention, "rglru_scan": (rglru_scan_cuda, "launches")})
@@ -815,6 +864,10 @@ def main() -> int:
     by_path["xlstm-350m"] = phase_serve(
         report, "serve-xlstm", "xlstm-350m", lengths, 4096,
         {"mlstm_chunk": (mlstm_chunk_cuda, "launches")})
+    for tag, arch in (("serve-starcoder2", "starcoder2-15b"),
+                      ("serve-chameleon", "chameleon-34b")):
+        by_path[arch] = phase_serve(report, tag, arch, llama_lengths, 2048,
+                                    attention)
     table = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
@@ -827,6 +880,14 @@ def main() -> int:
          "source": "src/repro_torch/csrc/decode_attention_sm90.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
          "case": "decode_attention_rg", "path": "recurrentgemma-2b"},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention_sm90.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
+         "case": "decode_attention_starcoder2", "path": "starcoder2-15b"},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention_sm90.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
+         "case": "decode_attention_chameleon", "path": "chameleon-34b"},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:54"},

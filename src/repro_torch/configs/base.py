@@ -207,14 +207,13 @@ ARCH_ALIASES = {
     "llama3.1-8b": "llama31_8b",
 }
 
-PORTED_ARCHS = ("llama31_8b", "qwen1_5_4b", "recurrentgemma_2b",
+PORTED_ARCHS = ("llama31_8b", "qwen1_5_4b", "granite_3_8b", "llama3_405b",
+                "starcoder2_15b", "chameleon_34b", "recurrentgemma_2b",
                 "xlstm_350m")
 
 # Architectures whose config (and family code) the port does not carry yet,
 # with the ROADMAP item that brings each one over.
 PENDING_ARCHS = {
-    "granite_3_8b": "A3", "llama3_405b": "A3", "starcoder2_15b": "A3",
-    "chameleon_34b": "A3",
     "phi3_5_moe": "A5", "llama4_maverick": "A5",
     "whisper_large_v3": "A9",
 }

@@ -1,14 +1,15 @@
 """Where a serving step's time goes:
-``python -m repro_torch.launch.profile_serve [--arch recurrentgemma-2b |
-xlstm-350m] [--device cpu]``.
+``python -m repro_torch.launch.profile_serve [--arch <id>] [--device cpu]``.
 
 Fills the decode batch of a ``DisaggEngine`` serving Llama-3.1-8B (the
-default; max_len 2048, prompts of 1000 tokens), RecurrentGemma-2B
-(max_len 4096, prompts of 3000 tokens, past its 2048-token window) or
-xLSTM-350M (prompts of 2000 tokens, the xLSTM paper's context) at the
-published shape (bf16 on a GPU, fp32 on the CPU; 8 slots), then times one prefill step and five decode steps without the
-profiler (host wall per step, after
-``torch.cuda.synchronize``) and once more under ``torch.profiler``. From
+default; max_len 2048, prompts of 1000 tokens), another dense or vlm
+model on the same plan (StarCoder2-15B, Chameleon-34B, Granite-3-8B),
+RecurrentGemma-2B (max_len 4096, prompts of 3000 tokens, past its
+2048-token window) or xLSTM-350M (prompts of 2000 tokens, the xLSTM
+paper's context) at the published shape (bf16 on a GPU, fp32 on the CPU;
+8 slots), then times one prefill step and five decode steps without the
+profiler (host wall per step, after ``torch.cuda.synchronize``) and once
+more under ``torch.profiler``. From
 the profiled run it prints the device-busy time per step (the sum of the
 device events' own time; one stream, so no overlap), the device ops
 launched per step and those that take the most device time, and the host
@@ -63,8 +64,9 @@ def _report(name: str, prof, wall_s: float, prof_wall_s: float,
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.1-8b",
-                    choices=("llama3.1-8b", "recurrentgemma-2b",
-                             "xlstm-350m"))
+                    choices=("llama3.1-8b", "starcoder2-15b",
+                             "chameleon-34b", "granite-3-8b",
+                             "recurrentgemma-2b", "xlstm-350m"))
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args()

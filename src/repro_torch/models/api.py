@@ -1,10 +1,12 @@
 """Model API of the port, after ``repro.models.api.LM``: one entry point
-per family (dense: ``transformer``, hybrid: ``rglru``, ssm: ``xlstm``).
+per family (dense and vlm: ``transformer``, hybrid: ``rglru``, ssm:
+``xlstm``) and the shared causal LM loss.
 
 Usage:
     lm = LM(cfg)
     params = lm.init(torch.Generator(device).manual_seed(0), device=device)
     logits, aux = lm.forward_train(params, batch)
+    loss = lm.loss(params, batch)
     cache = lm.init_cache(batch_size, max_len, device=device)
     logits, cache = lm.prefill(params, batch, cache)
     logits, cache = lm.decode_step(params, token, cache)
@@ -19,9 +21,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rglru, transformer, xlstm
 from repro_torch.models.params import init_from_specs
 
-_FAMILY_MODULES = {"dense": transformer, "hybrid": rglru, "ssm": xlstm}
+_FAMILY_MODULES = {"dense": transformer, "vlm": transformer,
+                   "hybrid": rglru, "ssm": xlstm}
 # family -> ROADMAP item that ports it
-_PENDING = {"moe": "A5", "vlm": "A3", "audio": "A9"}
+_PENDING = {"moe": "A5", "audio": "A9"}
+
+MOE_AUX_WEIGHT = 0.01
 
 
 def family_module(cfg: ModelConfig):
@@ -31,8 +36,9 @@ def family_module(cfg: ModelConfig):
     if mod is None:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP item {_PENDING.get(cfg.family, 'A3')})")
-    mod.check_supported(cfg)
+            f"(ROADMAP item {_PENDING[cfg.family]})")
+    if mod is transformer:
+        transformer.check_supported(cfg)
     return mod
 
 
@@ -77,3 +83,15 @@ class LM:
     def decode_step(self, params, token, cache, *, window=None):
         return self.mod.decode_step(params, self.cfg, token, cache,
                                     window=window)
+
+    # -- losses ---------------------------------------------------------------
+    def loss(self, params, batch, *, window=None):
+        """Causal LM loss: tokens predict labels; labels < 0 are masked."""
+        logits, aux = self.forward_train(params, batch, window=window)
+        labels = batch["labels"]
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long()
+                            )[..., 0].float()
+        mask = (labels >= 0).float()
+        loss = ((lse - gold) * mask).sum() / mask.sum().clamp(min=1.0)
+        return loss + MOE_AUX_WEIGHT * aux

@@ -1,6 +1,8 @@
-"""Single-device layers of the dense decoder and of the hybrid's attention
-slots, ported from ``repro.models.layers``: RMS norm, RoPE, GQA attention for prefill and
-decode, KV-cache writes, the SwiGLU MLP and the initialisers.
+"""Single-device layers of the dense decoder and of the other families'
+shared slots, ported from ``repro.models.layers``: RMS and layer norm,
+RoPE, GQA attention for prefill and decode (with QKV bias and QK-norm as
+the config asks), KV-cache writes, the SwiGLU and GeLU MLPs and the
+initialisers.
 
 Parameters are plain dicts of tensors with the JAX package's names and
 layouts: activations (B, S, H, hd), caches (B, Sc, K, hd). Attention math
@@ -47,6 +49,30 @@ def rms_norm(x, w, eps: float = 1e-5):
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps) * w.float()).to(dtype)
+
+
+def layer_norm(x, w, b, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dtype)
+
+
+def apply_norm(x, p, kind: str, eps: float):
+    """``cfg.norm``'s norm: "layernorm" (weight and bias) or RMS norm."""
+    if kind == "layernorm":
+        return layer_norm(x, p["w"], p["b"], eps)
+    return rms_norm(x, p["w"], eps)
+
+
+def init_norm(d: int, kind: str) -> dict:
+    """Layout and init of a norm's parameters, as
+    ``repro.models.layers.init_norm``: name -> (shape, init)."""
+    if kind == "layernorm":
+        return {"w": ((d,), "ones"), "b": ((d,), "zeros")}
+    return {"w": ((d,), "ones")}
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):
@@ -130,6 +156,9 @@ def init_attention(cfg) -> dict:
     if cfg.qkv_bias:
         spec.update(bq=((qd,), "zeros"), bk=((kvd,), "zeros"),
                     bv=((kvd,), "zeros"))
+    if cfg.qk_norm:
+        spec.update(q_norm=((cfg.head_dim,), "ones"),
+                    k_norm=((cfg.head_dim,), "ones"))
     return spec
 
 
@@ -143,6 +172,9 @@ def _project_qkv(p, x, cfg, positions):
     q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    if "q_norm" in p:               # QK-norm over head_dim, before RoPE
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -189,14 +221,22 @@ def attn_decode(p, x, cfg, k_cache, v_cache, pos, *, window=None):
 # ---------------------------------------------------------------------------
 
 def init_mlp(cfg) -> dict:
-    """Layout and init of the SwiGLU FFN's parameters, as
-    ``repro.models.layers.init_mlp``: name -> (shape, normal std)."""
+    """Layout and init of the FFN's parameters, as
+    ``repro.models.layers.init_mlp``: name -> (shape, normal std); the
+    SwiGLU FFN has a gate ``wg``, the GeLU one not."""
     D, Fd = cfg.d_model, cfg.d_ff
-    return {"wi": ((D, Fd), dense_std((D, Fd))),
-            "wg": ((D, Fd), dense_std((D, Fd))),
-            "wo": ((Fd, D), dense_std((Fd, D), 1.0 / math.sqrt(Fd)))}
+    spec = {"wi": ((D, Fd), dense_std((D, Fd)))}
+    if cfg.mlp == "swiglu":
+        spec["wg"] = ((D, Fd), dense_std((D, Fd)))
+    spec["wo"] = ((Fd, D), dense_std((Fd, D), 1.0 / math.sqrt(Fd)))
+    return spec
 
 
 def mlp_forward(p, x, cfg):
-    """SwiGLU FFN."""
-    return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+    """SwiGLU FFN, or GeLU where there is no gate (the tanh form, which
+    ``jax.nn.gelu`` computes by default)."""
+    if "wg" in p:
+        h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+    else:
+        h = F.gelu(x @ p["wi"], approximate="tanh")
+    return h @ p["wo"]

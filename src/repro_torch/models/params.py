@@ -23,6 +23,11 @@ _LRU_C = 8.0
 IF_BIAS = "if_bias"
 
 
+def prefixed(prefix: str, spec: Dict[str, tuple]) -> Dict[str, tuple]:
+    """``spec`` with its keys under ``prefix/``."""
+    return {f"{prefix}/{k}": v for k, v in spec.items()}
+
+
 def leaf_dtype(init, dtype) -> torch.dtype:
     return torch.float32 if init == LRU_LAMBDA else dtype
 

@@ -25,20 +25,10 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rglru_scan.ops import rglru_scan
 from repro_torch.models import layers as L
-from repro_torch.models.params import LRU_LAMBDA, layer_of
+from repro_torch.models.params import LRU_LAMBDA, layer_of, prefixed
 
 _N_BLOCKS = 8   # block-diagonal gate projections (Griffin Appendix A)
 _LRU_C = 8.0
-
-
-def check_supported(cfg) -> None:
-    """Raise for the hybrid options the port does not carry yet, naming the
-    ROADMAP item."""
-    if cfg.norm != "rmsnorm" or cfg.mlp != "swiglu" or cfg.qk_norm or \
-            cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: only rmsnorm + swiglu hybrid layers are ported "
-            "(ROADMAP item A3)")
 
 
 def _plan(cfg):
@@ -57,7 +47,7 @@ def _rec_specs(cfg) -> Dict[str, tuple]:
     D, W, cw = cfg.d_model, cfg.lru_width or cfg.d_model, cfg.conv_width
     gates = (_N_BLOCKS, W // _N_BLOCKS, W // _N_BLOCKS)
     return {
-        "ln/w": ((D,), "ones"),
+        **prefixed("ln", L.init_norm(D, cfg.norm)),
         "w_gate": ((D, W), L.dense_std((D, W))),
         "w_in": ((D, W), L.dense_std((D, W))),
         "conv_w": ((cw, W), L.dense_std((cw, W), 0.1)),
@@ -72,31 +62,27 @@ def _rec_specs(cfg) -> Dict[str, tuple]:
 
 
 def _slot_specs(cfg, kind: str) -> Dict[str, tuple]:
-    D = cfg.d_model
+    norm = L.init_norm(cfg.d_model, cfg.norm)
     if kind == "rec":
         blocks = {"rec": _rec_specs(cfg)}
-        specs = {}
     else:
-        blocks = {"attn": L.init_attention(cfg)}
-        specs = {"ln1/w": ((D,), "ones")}
-    specs["ln2/w"] = ((D,), "ones")
+        blocks = {"ln1": norm, "attn": L.init_attention(cfg)}
+    blocks["ln2"] = norm
     blocks["ffn"] = L.init_mlp(cfg)
-    for block, spec in blocks.items():
-        specs.update({f"{block}/{k}": v for k, v in spec.items()})
-    return specs
+    return {f"{block}/{k}": v for block, spec in blocks.items()
+            for k, v in spec.items()}
 
 
 def param_specs(cfg) -> Dict[str, tuple]:
     """Flat parameter layout, keyed by the JAX pytree's paths
     (``slots/0/rec/w_r``, ``rest/1/rec/lam``, ``slots/2/attn/wq``):
     name -> (shape, init), see ``models.params``."""
-    check_supported(cfg)
     G, pat, rest = _plan(cfg)
     D, V = cfg.d_model, cfg.vocab_size
     specs = {
         "embed": ((V, D), L.EMBED_STD),
         "unembed": ((D, V), L.dense_std((D, V))),
-        "final_norm/w": ((D,), "ones"),
+        **prefixed("final_norm", L.init_norm(D, cfg.norm)),
     }
     for i, kind in enumerate(pat):
         for name, (shape, init) in _slot_specs(cfg, kind).items():
@@ -128,7 +114,6 @@ def _slot_cache(cfg, kind, batch, max_len, dtype, window, device, lead=()):
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                window: Optional[int] = None, device=None) -> dict:
-    check_supported(cfg)
     G, pat, rest = _plan(cfg)
     return {
         "slots": tuple(_slot_cache(cfg, k, batch, max_len, dtype, window,
@@ -175,7 +160,7 @@ def _causal_conv(u, w, b, tail):
 
 
 def _rec_block(p, x, cfg, state, mode):
-    h_in = L.rms_norm(x, p["ln"]["w"], cfg.norm_eps)
+    h_in = L.apply_norm(x, p["ln"], cfg.norm, cfg.norm_eps)
     gate = F.gelu(h_in @ p["w_gate"], approximate="tanh")   # jax.nn.gelu
     u = h_in @ p["w_in"]
     conv_tail, h_lru = state
@@ -196,7 +181,7 @@ def _rec_block(p, x, cfg, state, mode):
 # ---------------------------------------------------------------------------
 
 def _attn_apply(p, x, cfg, cache, mode, pos):
-    h = L.rms_norm(x, p["ln1"]["w"], cfg.norm_eps)
+    h = L.apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
     w = cfg.window
     if mode == "train":
         a = L.attn_forward(p["attn"], h, cfg, window=w)
@@ -207,7 +192,7 @@ def _attn_apply(p, x, cfg, cache, mode, pos):
         a, _, _ = L.attn_decode(p["attn"], h, cfg, cache["k"], cache["v"],
                                 pos, window=w)
     x = x + a
-    h = L.rms_norm(x, p["ln2"]["w"], cfg.norm_eps)
+    h = L.apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps)
     return x + L.mlp_forward(p["ffn"], h, cfg)
 
 
@@ -222,7 +207,7 @@ def _rec_apply(p, x, cfg, state, mode):
         x, (tail, h) = _rec_block(p["rec"], x, cfg, state, mode)
         state[0].copy_(tail)
         state[1].copy_(h)
-    h = L.rms_norm(x, p["ln2"]["w"], cfg.norm_eps)
+    h = L.apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps)
     return x + L.mlp_forward(p["ffn"], h, cfg)
 
 
@@ -247,7 +232,7 @@ def _run_stack(params, x, cfg, mode: str, cache=None):
 
 
 def _logits(params, x, cfg):
-    x = L.rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     return x @ params["unembed"]
 
 

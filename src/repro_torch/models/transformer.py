@@ -1,5 +1,7 @@
-"""Dense decoder-only transformer, ported from ``repro.models.transformer``
-(family ``"dense"``).
+"""Decoder-only transformer, ported from ``repro.models.transformer``
+(families ``"dense"`` and ``"vlm"``: Chameleon's early fusion puts image
+tokens in the one vocabulary, so the vlm runs the same stack; its
+tokenizer is not modelled, as in the JAX package).
 
 Parameters keep the JAX package's pytree: every per-layer leaf is stacked
 along a leading layer dim ``G`` under ``slots[0]`` (the JAX package stacks
@@ -15,17 +17,15 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models.params import layer_of
+from repro_torch.models.params import layer_of, prefixed
 
 
 def check_supported(cfg) -> None:
-    """Raise for the dense options the port does not carry yet, naming the
+    """Raise for the options the port does not carry yet, naming the
     ROADMAP item."""
-    if cfg.norm != "rmsnorm" or cfg.mlp != "swiglu" or cfg.qk_norm or \
-            cfg.n_experts or cfg.moe_every != 1:
+    if cfg.n_experts or cfg.moe_every != 1:
         raise NotImplementedError(
-            f"{cfg.name}: only rmsnorm + swiglu dense layers are ported "
-            "(ROADMAP item A3)")
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP item A5)")
 
 
 def param_specs(cfg) -> Dict[str, tuple]:
@@ -34,14 +34,14 @@ def param_specs(cfg) -> Dict[str, tuple]:
     init), init a normal std, "ones" or "zeros"."""
     check_supported(cfg)
     G, D, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
+    norm = L.init_norm(D, cfg.norm)
     specs = {
         "embed": ((V, D), L.EMBED_STD),
         "unembed": ((D, V), L.dense_std((D, V))),
-        "final_norm/w": ((D,), "ones"),
-        "slots/0/ln1/w": ((G, D), "ones"),
-        "slots/0/ln2/w": ((G, D), "ones"),
+        **prefixed("final_norm", norm),
     }
-    for block, spec in (("attn", L.init_attention(cfg)),
+    for block, spec in (("ln1", norm), ("ln2", norm),
+                        ("attn", L.init_attention(cfg)),
                         ("ffn", L.init_mlp(cfg))):
         for name, (shape, init) in spec.items():
             specs[f"slots/0/{block}/{name}"] = ((G, *shape), init)
@@ -66,7 +66,7 @@ def _run_stack(params, x, cfg, mode: str, cache=None, window=None):
     kv = cache["slots"][0] if cache is not None else None
     for g in range(cfg.n_layers):
         p = layer_of(stack, g)
-        h = L.rms_norm(x, p["ln1"]["w"], cfg.norm_eps)
+        h = L.apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
         if mode == "train":
             a = L.attn_forward(p["attn"], h, cfg, window=window)
         elif mode == "prefill":
@@ -76,13 +76,13 @@ def _run_stack(params, x, cfg, mode: str, cache=None, window=None):
             a, _, _ = L.attn_decode(p["attn"], h, cfg, kv["k"][g],
                                     kv["v"][g], cache["pos"], window=window)
         x = x + a
-        h = L.rms_norm(x, p["ln2"]["w"], cfg.norm_eps)
+        h = L.apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps)
         x = x + L.mlp_forward(p["ffn"], h, cfg)
     return x
 
 
 def _logits(params, x, cfg):
-    x = L.rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     return x @ params["unembed"]
 
 

@@ -30,16 +30,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
 from repro_torch.kernels.mlstm_chunk.ref import NEG
 from repro_torch.models import layers as L
-from repro_torch.models.params import IF_BIAS, layer_of
-
-
-def check_supported(cfg) -> None:
-    """Raise for the ssm options the port does not carry yet, naming the
-    ROADMAP item."""
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"{cfg.name}: only rmsnorm xLSTM layers are ported (ROADMAP "
-            "item A3)")
+from repro_torch.models.params import IF_BIAS, layer_of, prefixed
 
 
 def _slot_kinds(cfg):
@@ -63,7 +54,7 @@ def _mlstm_specs(cfg) -> Dict[str, tuple]:
     D, nh = cfg.d_model, cfg.n_heads
     inner = 2 * D
     return {
-        "ln/w": ((D,), "ones"),
+        **prefixed("ln", L.init_norm(D, cfg.norm)),
         "w_up": ((D, inner), L.dense_std((D, inner))),
         "w_gate": ((D, inner), L.dense_std((D, inner))),
         "wq": ((inner, inner), L.dense_std((inner, inner))),
@@ -79,7 +70,7 @@ def _slstm_specs(cfg) -> Dict[str, tuple]:
     D, nh = cfg.d_model, cfg.n_heads
     hd = D // nh
     return {
-        "ln/w": ((D,), "ones"),
+        **prefixed("ln", L.init_norm(D, cfg.norm)),
         "w_in": ((D, 4 * D), L.dense_std((D, 4 * D))),
         "b_in": ((4 * D,), "zeros"),
         "r": ((nh, hd, 4 * hd), L.dense_std((nh, hd, 4 * hd))),
@@ -91,12 +82,11 @@ def param_specs(cfg) -> Dict[str, tuple]:
     """Flat parameter layout, keyed by the JAX pytree's paths
     (``slots/0/wq``, ``slots/7/r``): name -> (shape, init), see
     ``models.params``."""
-    check_supported(cfg)
     G, D, V = _n_groups(cfg), cfg.d_model, cfg.vocab_size
     specs = {
         "embed": ((V, D), L.EMBED_STD),
         "unembed": ((D, V), L.dense_std((D, V))),
-        "final_norm/w": ((D,), "ones"),
+        **prefixed("final_norm", L.init_norm(D, cfg.norm)),
     }
     for i, kind in enumerate(_slot_kinds(cfg)):
         slot = _mlstm_specs(cfg) if kind == "mlstm" else _slstm_specs(cfg)
@@ -125,7 +115,6 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                window: Optional[int] = None, device=None) -> dict:
     """The recurrent state of every layer, fp32 whatever ``dtype``; its size
     does not depend on ``max_len``."""
-    check_supported(cfg)
     G = _n_groups(cfg)
     return {"slots": tuple(_state(cfg, kind, batch, device, (G,))
                            for kind in _slot_kinds(cfg)),
@@ -172,7 +161,7 @@ def _mlstm_decode(q, k, v, log_i, log_f, state):
 
 def _mlstm_block(p, x, cfg, state, mode):
     B, S, _ = x.shape
-    h_in = L.rms_norm(x, p["ln"]["w"], cfg.norm_eps)
+    h_in = L.apply_norm(x, p["ln"], cfg.norm, cfg.norm_eps)
     q, k, v, log_i, log_f, gate = _mlstm_qkvif(p, h_in, cfg)
     if mode == "decode":
         h = _mlstm_decode(q[:, 0], k[:, 0], v[:, 0], log_i[:, 0],
@@ -212,7 +201,7 @@ def _slstm_step(r, cfg, pre_x, state):
 
 
 def _slstm_block(p, x, cfg, state, mode):
-    h_in = L.rms_norm(x, p["ln"]["w"], cfg.norm_eps)
+    h_in = L.apply_norm(x, p["ln"], cfg.norm, cfg.norm_eps)
     pre = h_in @ p["w_in"] + p["b_in"]
     r = p["r"].float()
     st = state
@@ -243,7 +232,7 @@ def _run_stack(params, x, cfg, mode: str, cache):
 
 
 def _logits(params, x, cfg):
-    x = L.rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     return x @ params["unembed"]
 
 

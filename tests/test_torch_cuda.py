@@ -19,8 +19,8 @@ against the plain version's 256, products in split TF32, other sum orders;
 h reaches ~25), 1e-5 on the final C and n (entries below ~2) and m, against
 the plain version evaluated in fp64 (h divides by a denominator that can
 cancel, and the plain version's own fp32 rounding on the card reaches
-2.7e-4 at the served prefill's shape). 1e-4 on the logits of the reduced
-models.
+2.7e-4 at the served prefill's shape). 1e-4 on the logits and on the
+loss of the reduced models.
 """
 import pytest
 
@@ -69,6 +69,10 @@ FLASH_CASES = [
     (1, 300, 300, 10, 1, 256, True, 100, 0),    # window edge inside a tile
     (1, 100, 700, 8, 2, 128, True, None, 600),  # query tail at an offset
     (1, 50, 90, 4, 4, 64, False, 20, 40),       # offset window, not causal
+    # starcoder2-15b (48 query heads over 4, G = 12) and llama3-405b (128
+    # over 8, G = 16)
+    (1, 1500, 1500, 48, 4, 128, True, None, 0),
+    (1, 1000, 1000, 128, 8, 128, True, None, 0),
 ]
 
 # (B, Sc, Hq, K, hd, pos, window): pos an int or a per-slot list
@@ -91,6 +95,9 @@ DECODE_CASES = [
     # over 4), which only padding to the 16-row tile serves in bf16
     (4, 1000, 40, 8, 128, [0, 1, 500, 2000], None),
     (4, 1000, 48, 4, 128, [1, 300, 999, 1500], 1000),
+    # G = 16 (llama3-405b, 128 over 8), the largest group the bf16 kernel
+    # takes, on a rotating cache
+    (8, 2048, 128, 8, 128, [0, 1, 300, 1023, 1024, 2047, 2048, 3500], 2048),
 ]
 
 # (B, S, W): ragged, and the serve's prefill shapes (W = lru_width 2560);
@@ -397,8 +404,12 @@ def _to_cuda(tree):
     return tree.cuda()
 
 
-@pytest.mark.parametrize("arch", ["llama3.1-8b", "qwen1.5-4b",
-                                  "recurrentgemma-2b", "xlstm-350m"])
+REDUCED_ARCHS = ["llama3.1-8b", "qwen1.5-4b", "starcoder2-15b",
+                 "chameleon-34b", "granite-3-8b", "recurrentgemma-2b",
+                 "xlstm-350m"]
+
+
+@pytest.mark.parametrize("arch", REDUCED_ARCHS)
 def test_reduced_model_on_card_matches_cpu(cuda, arch):
     from repro_torch.configs import get_config
     from repro_torch.models import LM
@@ -422,6 +433,27 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch):
             steps.append(lg)
         out[dev] = torch.stack(steps).cpu()
     assert float((out["cuda"] - out["cpu"]).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("arch", REDUCED_ARCHS)
+def test_reduced_model_loss_on_card_matches_cpu(cuda, arch):
+    """``LM.loss`` (the logits of ``forward_train`` through the kernels on
+    the card, the plain versions on the CPU) with some labels masked."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    cfg = get_config(arch).reduced()
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(0), device="cpu")
+    S = 300 if cfg.family == "ssm" else 40
+    toks = torch.randint(0, cfg.vocab_size, (2, S),
+                         generator=torch.Generator().manual_seed(1))
+    labels = toks.roll(-1, dims=1)
+    labels[:, -1] = -1
+    labels[0, 5:12] = -1
+    loss = {dev: float(lm.loss(p, {"tokens": toks.to(dev),
+                                   "labels": labels.to(dev)}))
+            for dev, p in (("cpu", params), ("cuda", _to_cuda(params)))}
+    assert abs(loss["cuda"] - loss["cpu"]) < 1e-4
 
 
 def _requires_grad(tree):
@@ -452,3 +484,19 @@ def test_kernels_refuse_autograd(cuda):
         flash_attention_cuda(q, k, k, causal=True)
     with torch.no_grad():                    # inference is untouched
         flash_attention_cuda(q, k, k, causal=True)
+
+
+def test_loss_refuses_autograd(cuda):
+    """``LM.loss`` on the card with parameters that require grad stops at
+    the first kernel, as ``forward_train`` does."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    lm = LM(get_config("chameleon-34b").reduced())
+    params = _requires_grad(lm.init(cuda, device="cuda"))
+    toks = torch.randint(0, lm.cfg.vocab_size, (2, 9), generator=cuda,
+                         device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        lm.loss(params, {"tokens": toks, "labels": toks})
+    with torch.no_grad():
+        assert torch.isfinite(lm.loss(params, {"tokens": toks,
+                                               "labels": toks}))

@@ -23,7 +23,8 @@ from repro_torch.models import LM  # noqa: E402
 from repro_torch.serving.engine import DisaggEngine  # noqa: E402
 from repro_torch.serving.ring import KVRing  # noqa: E402
 
-ARCHS = ["qwen1_5_4b", "llama31_8b", "recurrentgemma_2b", "xlstm_350m"]
+ARCHS = ["qwen1_5_4b", "llama31_8b", "starcoder2_15b", "chameleon_34b",
+         "recurrentgemma_2b", "xlstm_350m"]
 # the reduced hybrid with pattern (rec, rec, attn) over 5 layers: two
 # unstacked "rest" rec layers, whose cache leaves take the batch on dim 0
 HYBRID_REST = "recurrentgemma_2b+rest"

@@ -1,10 +1,16 @@
-"""The port's dense transformer against the JAX package on the CPU.
+"""The port's dense and vlm transformer, and ``LM.loss`` of every ported
+family, against the JAX package on the CPU.
 
-Weights come from the JAX ``LM.init``, flattened as checkpoints flatten
-them and carried over with ``repro_torch.bridge``; tokens are drawn with
-numpy. Tolerances: 1e-4 on logits against JAX (fp32, two layers, other sum
-orders); 2e-3 for prefill+decode against teacher forcing and 1e-5 for
-per-slot against scalar positions, as test_model_consistency.py.
+Weights come from the JAX ``LM.init``, the norms' weights and biases and
+the QKV biases moved off their init (ones and zeros) by a seeded draw,
+flattened as checkpoints flatten them and carried over with
+``repro_torch.bridge``; tokens are drawn with numpy. The reduced configs
+have 4 query heads over 2 KV heads; ``starcoder2_15b+g12`` gives the
+reduced StarCoder2 12 query heads over one KV head, StarCoder2-15B's group
+of 12. Tolerances: 1e-4 on logits and on the loss against JAX (fp32, two
+layers, other sum orders); 2e-3 for prefill+decode against teacher forcing
+and 1e-5 for per-slot against scalar positions, as
+test_model_consistency.py.
 """
 import dataclasses
 import functools
@@ -24,19 +30,46 @@ from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 
-ARCHS = ["llama31_8b", "qwen1_5_4b"]
+G12 = "starcoder2_15b+g12"
+# the dense and vlm configs, and StarCoder2's group of 12
+ARCHS = ["llama31_8b", "qwen1_5_4b", "granite_3_8b", "llama3_405b",
+         "starcoder2_15b", "chameleon_34b", G12]
 # every ported config; the hybrid's and the ssm family's model tests are in
 # test_torch_rglru.py and test_torch_xlstm.py
-PORTED = ARCHS + ["recurrentgemma_2b", "xlstm_350m"]
+PORTED = ARCHS[:-1] + ["recurrentgemma_2b", "xlstm_350m"]
 LOGIT_TOL = 1e-4
+# leaves that init draws as ones (norm weights) or zeros (norm and QKV
+# biases)
+_CONSTANT_INIT = ("w", "b", "bq", "bk", "bv", "q_norm", "k_norm")
+
+
+def _configs(arch):
+    """(JAX config, port config), reduced."""
+    name = arch.split("+")[0]
+    pair = (jax_config(name).reduced(), get_config(name).reduced())
+    if arch == G12:
+        pair = tuple(dataclasses.replace(c, n_heads=12, n_kv_heads=1)
+                     for c in pair)
+    return pair
+
+
+def _moved_off_init(jparams, seed):
+    """The leaves of ``_CONSTANT_INIT`` plus a seeded normal draw of 0.3,
+    so that a dropped bias or weight shows."""
+    rng = np.random.default_rng(seed)
+
+    def move(path, x):
+        if str(getattr(path[-1], "key", "")) not in _CONSTANT_INIT:
+            return x
+        return x + 0.3 * rng.standard_normal(x.shape).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(move, jparams)
 
 
 def _pair(arch, seed=1):
     """(JAX LM, JAX params, port LM, port params) on the same weights."""
-    jcfg = jax_config(arch).reduced()
-    cfg = get_config(arch).reduced()
+    jcfg, cfg = _configs(arch)
     jlm = JaxLM(jcfg)
-    jparams = jlm.init(jax.random.key(seed))
+    jparams = _moved_off_init(jlm.init(jax.random.key(seed)), seed)
     params = params_from_numpy(_flatten(jparams), cfg, "cpu")
     return jlm, jparams, LM(cfg), params
 
@@ -59,20 +92,23 @@ def test_config_copy_matches_jax(arch):
 
 
 def test_unported_arch_names_roadmap_item():
-    # the ssm family (A8) is ported: xlstm-350m loads and builds its model
+    # the ssm (A8) and vlm (A3) families are ported: their configs load and
+    # build their models
     assert LM(get_config("xlstm-350m")).cfg.family == "ssm"
-    with pytest.raises(NotImplementedError, match="ROADMAP item A5"):
-        get_config("phi3.5-moe-42b-a6.6b")
+    assert LM(get_config("chameleon-34b")).cfg.family == "vlm"
+    for arch in ("phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item A5"):
+            get_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP item A9"):
         get_config("whisper-large-v3")
     for family, item in (("moe", "A5"), ("audio", "A9")):
         cfg = dataclasses.replace(get_config("qwen1_5_4b"), family=family)
         with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
             LM(cfg)
-    for arch in ("recurrentgemma_2b", "xlstm_350m"):
-        cfg = dataclasses.replace(get_config(arch), norm="layernorm")
-        with pytest.raises(NotImplementedError, match="ROADMAP item A3"):
-            LM(cfg)
+    # MoE layers in a dense config
+    cfg = dataclasses.replace(get_config("qwen1_5_4b"), n_experts=4, top_k=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP item A5"):
+        LM(cfg)
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -133,7 +169,7 @@ def test_logits_match_jax(arch, window):
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("window", [None, 8])
 def test_prefill_decode_matches_teacher_forcing(arch, window):
-    cfg = get_config(arch).reduced()
+    cfg = _configs(arch)[1]
     lm = LM(cfg)
     params = lm.init(torch.Generator().manual_seed(1), device="cpu")
     B, S, P = 2, 24, 16
@@ -152,7 +188,7 @@ def test_prefill_decode_matches_teacher_forcing(arch, window):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_vector_pos_decode_matches_scalar(arch):
-    cfg = get_config(arch).reduced()
+    cfg = _configs(arch)[1]
     lm = LM(cfg)
     params = lm.init(torch.Generator().manual_seed(3), device="cpu")
     B, P = 2, 12
@@ -167,3 +203,28 @@ def test_vector_pos_decode_matches_scalar(arch):
     lg1, _ = lm.decode_step(params, tok, cache_s)
     lg2, _ = lm.decode_step(params, tok, cache_v)
     assert _err(lg1, lg2) < 1e-5
+
+
+@pytest.mark.parametrize("arch,window", [
+    ("qwen1_5_4b", None), ("starcoder2_15b", None), ("chameleon_34b", 8),
+    ("recurrentgemma_2b", None), ("xlstm_350m", None)])
+def test_loss_matches_jax(arch, window):
+    """``LM.loss`` of the dense, vlm, hybrid and ssm families against the
+    JAX loss, with labels masked (< 0) at the end of each row and in a
+    stretch of the first; a batch with every label masked gives 0."""
+    jlm, jparams, lm, params = _pair(arch)
+    B, S = 2, 20
+    toks = _tokens(lm.cfg, B, S, seed=4)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    labels[0, 3:9] = -1
+    for lab in (labels, np.full_like(labels, -1)):
+        jloss = jlm.loss(jparams, {"tokens": jnp.asarray(toks),
+                                   "labels": jnp.asarray(lab)},
+                         window=window, remat=False)
+        loss = lm.loss(params, {"tokens": torch.from_numpy(toks),
+                                "labels": torch.from_numpy(lab)},
+                       window=window)
+        assert loss.shape == () and loss.dtype == torch.float32
+        assert abs(float(loss) - float(jloss)) < LOGIT_TOL
+    assert float(loss) == 0.0

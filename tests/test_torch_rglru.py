@@ -6,8 +6,9 @@ shapes of test_kernels.py and against the JAX reference at ragged shapes,
 at 1e-4 as test_kernels.py (fp32, the recurrence summed in another order).
 The hybrid model runs on weights from the JAX ``LM.init`` carried over with
 ``repro_torch.bridge``, for the reduced config (pattern (rec, attn), G=1, no
-``rest``) and a 5-layer variant with pattern (rec, rec, attn), which leaves
-two unstacked ``rest`` rec layers. Tolerances: 1e-4 on logits (fp32, two to
+``rest``), a 5-layer variant with pattern (rec, rec, attn), which leaves
+two unstacked ``rest`` rec layers, and a variant with layer norm, the GeLU
+MLP and QK-norm (its norm weights and biases moved off their init). Tolerances: 1e-4 on logits (fp32, two to
 five layers, other sum orders, the JAX prefill scans with
 ``associative_scan``); 1e-5 on the cache leaves (conv tail, h, k, v); 2e-3
 for prefill+decode against teacher forcing and 1e-5 for per-slot against
@@ -39,7 +40,7 @@ SCAN_TOL = 1e-4
 LOGIT_TOL = 1e-4
 CACHE_TOL = 1e-5
 ARCH = "recurrentgemma_2b"
-VARIANTS = ["reduced", "rest"]
+VARIANTS = ["reduced", "rest", "layernorm"]
 
 jax_rglru_ref_jit = jax.jit(jax_rglru_ref)
 
@@ -51,7 +52,22 @@ def _configs(variant):
         pair = tuple(dataclasses.replace(c, n_layers=5,
                                          attn_pattern=("rec", "rec", "attn"))
                      for c in pair)
+    if variant == "layernorm":
+        pair = tuple(dataclasses.replace(c, norm="layernorm", mlp="gelu",
+                                         qk_norm=True) for c in pair)
     return pair
+
+
+def _moved_off_init(jparams, seed):
+    """The norms' weights and biases (init: ones and zeros) plus a seeded
+    normal draw of 0.3, so that a dropped bias or weight shows."""
+    rng = np.random.default_rng(seed)
+
+    def move(path, x):
+        if str(getattr(path[-1], "key", "")) not in ("w", "b"):
+            return x
+        return x + 0.3 * rng.standard_normal(x.shape).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(move, jparams)
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,6 +77,8 @@ def _pair(variant, seed=1):
     jcfg, cfg = _configs(variant)
     jlm = JaxLM(jcfg)
     jparams = jlm.init(jax.random.key(seed))
+    if variant == "layernorm":
+        jparams = _moved_off_init(jparams, seed)
     return jlm, jparams, LM(cfg), params_from_numpy(_flatten(jparams), cfg,
                                                     "cpu")
 
@@ -191,7 +209,8 @@ def test_logits_and_cache_match_jax(variant):
     assert int(cache["pos"]) == int(jcache["pos"]) == S
     ours, theirs = _cache_leaves(cache), _cache_leaves(jcache)
     assert ours.keys() == theirs.keys()
-    assert len(ours) == {"reduced": 4, "rest": 10}[variant]
+    assert len(ours) == {"reduced": 4, "rest": 10,
+                         "layernorm": 4}[variant]
     for name in ours:
         assert ours[name].shape == theirs[name].shape, name
         assert _err(ours[name], theirs[name]) < CACHE_TOL, name

@@ -9,7 +9,8 @@ summed in another order); the final state at 1e-5 (its entries stay below
 ~2). The sLSTM step and the mLSTM decode step against the JAX functions at
 1e-5 (fp32, the same few elementwise ops). The model runs on weights from
 the JAX ``LM.init`` carried over with ``repro_torch.bridge``, for the
-reduced config (mLSTM + sLSTM, G = 1) and a 4-layer variant (G = 2):
+reduced config (mLSTM + sLSTM, G = 1), a 4-layer variant (G = 2) and a
+variant with layer norm (its weights and biases moved off their init):
 1e-4 on logits (fp32, other sum orders), 1e-4 on the state leaves (the
 sLSTM's normaliser n grows to ~6 over 270 steps); 2e-3 for prefill+decode
 against teacher forcing and 1e-5 for per-slot against scalar positions, as
@@ -44,7 +45,7 @@ STEP_TOL = 1e-5
 LOGIT_TOL = 1e-4
 MODEL_STATE_TOL = 1e-4
 ARCH = "xlstm_350m"
-VARIANTS = ["reduced", "stacked"]
+VARIANTS = ["reduced", "stacked", "layernorm"]
 
 jax_chunk_scan = jax.jit(jx._mlstm_chunk_scan)
 
@@ -54,7 +55,21 @@ def _configs(variant):
     pair = (jax_config(ARCH).reduced(), get_config(ARCH).reduced())
     if variant == "stacked":
         pair = tuple(dataclasses.replace(c, n_layers=4) for c in pair)
+    if variant == "layernorm":
+        pair = tuple(dataclasses.replace(c, norm="layernorm") for c in pair)
     return pair
+
+
+def _moved_off_init(jparams, seed):
+    """The norms' weights and biases (init: ones and zeros) plus a seeded
+    normal draw of 0.3, so that a dropped bias or weight shows."""
+    rng = np.random.default_rng(seed)
+
+    def move(path, x):
+        if str(getattr(path[-1], "key", "")) not in ("w", "b"):
+            return x
+        return x + 0.3 * rng.standard_normal(x.shape).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(move, jparams)
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,6 +79,8 @@ def _pair(variant, seed=1):
     jcfg, cfg = _configs(variant)
     jlm = JaxLM(jcfg)
     jparams = jlm.init(jax.random.key(seed))
+    if variant == "layernorm":
+        jparams = _moved_off_init(jparams, seed)
     return jlm, jparams, LM(cfg), params_from_numpy(_flatten(jparams), cfg,
                                                     "cpu")
 
