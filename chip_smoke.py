@@ -36,7 +36,11 @@ its own lines; any failure exits non-zero without the result line:
    math once to bf16, so they may differ by one bf16 step), and in bf16
    at the groups of starcoder2-15b (48 over 4, G = 12; decode also at its
    serve's shape) and llama3-405b (128 over 8, G = 16, the largest the
-   bf16 decode kernel takes) and at chameleon-34b's (64 over 8); the
+   bf16 decode kernel takes) and at chameleon-34b's (64 over 8), and at
+   whisper-large-v3's (20 over 20, G = 1, head_dim 64): B1 non-causal
+   over the encoder's 1500 frames and as cross-attention at decode (B=8,
+   one query row over the 1500 frames; B2 timed on the same rows beside
+   it), B2 over the decoder's 448-token cache; the
    RG-LRU scan (fp32 only, tolerance 1e-4) at the hybrid serve's prefill
    shape, a ragged one, the serve's shortest and longest prompts (S=206,
    3450) and with the gates drawn as the model draws them, with the
@@ -53,12 +57,13 @@ its own lines; any failure exits non-zero without the result line:
    each pass shows as one launch) and its workspace bytes (the library's
    count, and what one call allocates past its outputs);
 3. reduced llama3.1-8b, qwen1.5-4b, starcoder2-15b, chameleon-34b,
-   granite-3-8b, recurrentgemma-2b and xlstm-350m in fp32 on the card:
-   prefill and decode logits and ``LM.loss`` against the same model on the
-   CPU (plain versions, 1e-4; the hybrid decodes past its window of 32, the
-   xLSTM prefills 300 tokens, past the plain version's 256-step chunk), and
-   the engine's tokens for three ragged prompts against an isolated
-   prefill + decode of each;
+   granite-3-8b, phi3.5-moe, llama4-maverick, whisper-large-v3,
+   recurrentgemma-2b and xlstm-350m in fp32 on the card: prefill and
+   decode logits and ``LM.loss`` against the same model on the CPU (plain
+   versions, 1e-4; the hybrid decodes past its window of 32, the xLSTM
+   prefills 300 tokens, past the plain version's 256-step chunk; the
+   encoder-decoder's frames drawn from the seed), and the engine's tokens
+   for three ragged prompts against an isolated prefill + decode of each;
 4. Llama-3.1-8B at its published shape, all 32 layers, bf16 weights drawn
    from a seeded generator, serving 12 requests (prompts of 128-1536
    tokens, 64 new tokens each) through ``DisaggEngine`` with the kernels'
@@ -78,7 +83,15 @@ its own lines; any failure exits non-zero without the result line:
    bias, QKV bias, the GeLU MLP, 48 query heads over 4 KV heads), bf16, on
    Llama's plan;
 4e. Chameleon-34B at its published shape (48 layers, QK-norm, 64 over 8
-   heads; its bf16 weights take 68.6 GB of the card), on Llama's plan.
+   heads; its bf16 weights take 68.6 GB of the card), on Llama's plan;
+4f. Phi-3.5-MoE at its published widths (16 experts of d_ff 6400, top-2
+   routing, 32 over 8 heads), its depth cut to 28 of 32 layers (73.3 GB
+   of bf16 weights), on Llama's plan: prefill routes groups of 512 tokens
+   with capacity drops, decode is dropless;
+4g. Whisper-large-v3 at its published shape (32 encoder and 32 decoder
+   layers, d_model 1280, 20 heads of 64), over the engine's stub of 1500
+   zero frames, max_len 448 (its decoder's context), prompts of 4-223
+   tokens.
 
 Each serve starts with the previous one's engine freed and the allocator's
 cache emptied, and prints its peak device memory.
@@ -89,6 +102,7 @@ The last two lines are the kernel table as JSON and
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import re
@@ -114,6 +128,9 @@ RG_HEADS = (10, 1, 256)            # recurrentgemma-2b
 STARCODER2_HEADS = (48, 4, 128)    # starcoder2-15b, G = 12
 CHAMELEON_HEADS = (64, 8, 128)     # chameleon-34b
 LLAMA405B_HEADS = (128, 8, 128)    # llama3-405b, G = 16
+WHISPER_HEADS = (20, 20, 64)       # whisper-large-v3, G = 1
+PHI, PHI_LAYERS = "phi3.5-moe-42b-a6.6b", 28   # served at 28 of 32 layers
+WHISPER = "whisper-large-v3"
 
 
 def log(msg: str) -> None:
@@ -210,21 +227,25 @@ def phase_environment(report: dict) -> str:
 # phase 2
 # ---------------------------------------------------------------------------
 
-def _flash_case(S: int, window, dtype, gen, heads) -> dict:
+def _flash_case(S: int, window, dtype, gen, heads, causal: bool = True,
+                B: int = 1, Sq=None) -> dict:
+    """B1 at B x (Sq query rows over S keys; Sq = S unless given), causal
+    (queries at the first positions) or not."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     HQ, KV, HD = heads
-    q = torch.randn((1, S, HQ, HD), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((1, S, KV, HD), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((1, S, KV, HD), generator=gen, device="cuda").to(dtype)
+    Sq = S if Sq is None else Sq
+    q = torch.randn((B, Sq, HQ, HD), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, KV, HD), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, KV, HD), generator=gen, device="cuda").to(dtype)
 
     def kern():
-        return flash_attention_cuda(q, k, v, causal=True, window=window)
+        return flash_attention_cuda(q, k, v, causal=causal, window=window)
 
     def plain():
-        return flash_attention_ref(q, k, v, causal=True, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
     sm90 = flash_attention_cuda.launches_sm90
     out, ref = kern(), plain()
     route = "sm90 wgmma" if flash_attention_cuda.launches_sm90 > sm90 else \
@@ -237,7 +258,7 @@ def _flash_case(S: int, window, dtype, gen, heads) -> dict:
         mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
 
     def causal_library():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                               enable_gqa=True)
 
     def library():
@@ -245,14 +266,18 @@ def _flash_case(S: int, window, dtype, gen, heads) -> dict:
             return causal_library()
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                               enable_gqa=True)
-    qpos = np.arange(S)
-    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(S)
-    pairs = float(np.sum(qpos - lo + 1))
+    qpos = np.arange(Sq)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(Sq)
+    hi = qpos if causal else np.full(Sq, S - 1)
+    pairs = B * float(np.sum(hi - lo + 1))
     elt = q.element_size()
     n_bytes = elt * (2 * q.numel() + k.numel() + v.numel())
     b_ms, b_by = bound_ms(n_bytes, 4.0 * pairs * HD * HQ, dtype)
-    return {"shape": f"B=1 S={S} Hq={HQ} K={KV} hd={HD} causal "
-                     f"window={window}", "dtype": str(dtype), "err": err,
+    shape = (f"B={B} S={S} Hq={HQ} K={KV} hd={HD} causal window={window}"
+             if causal and Sq == S and B == 1 else
+             f"B={B} Sq={Sq} Skv={S} Hq={HQ} K={KV} hd={HD} "
+             f"{'causal' if causal else 'non-causal'} window={window}")
+    return {"shape": shape, "dtype": str(dtype), "err": err,
             "ok": ok, "route": route, "ms": cuda_ms(kern, 20),
             "plain_ms": cuda_ms(plain, 5),
             "library_ms": cuda_ms(library, 20),
@@ -589,6 +614,24 @@ def phase_kernels(report: dict) -> dict:
         main[f"decode_attention_{name}"] = c
     cases["decode_attention"].append(
         _decode_case(rg_spread, 2048, bf16, gen, LLAMA405B_HEADS))
+    # whisper-large-v3 (20 over 20 heads, G = 1, hd 64): B1 non-causal over
+    # the encoder's 1500 frames, and as cross-attention at decode (one
+    # query row of a 128-row tile for each of 8 slots); B2 on the same rows
+    # (every slot at position 1499) for comparison; B2 over the decoder's
+    # 448-token self-attention cache
+    c = _flash_case(1500, None, bf16, gen, WHISPER_HEADS, causal=False)
+    cases["flash_attention"].append(c)
+    main["flash_attention_whisper_encoder"] = c
+    c = _flash_case(1500, None, bf16, gen, WHISPER_HEADS, causal=False, B=8,
+                    Sq=1)
+    cases["flash_attention"].append(c)
+    main["flash_attention_whisper_cross"] = c
+    cases["decode_attention"].append(_decode_case(
+        [1499] * 8, None, bf16, gen, WHISPER_HEADS, Sc=1500))
+    c = _decode_case([0, 1, 223, 447, 5, 100, 300, 446], None, bf16, gen,
+                     WHISPER_HEADS, Sc=448)
+    cases["decode_attention"].append(c)
+    main["decode_attention_whisper"] = c
     # what cuda_ms reads for a call that does next to nothing: the floor
     # under the short scans' times
     one = torch.zeros(1, device="cuda")
@@ -666,7 +709,8 @@ def phase_reduced(report: dict) -> None:
     dense = (17, 21, 32, (12, 20, 17), 64)
     plans = {"qwen1.5-4b": dense, "llama3.1-8b": dense,
              "starcoder2-15b": dense, "chameleon-34b": dense,
-             "granite-3-8b": dense,
+             "granite-3-8b": dense, "phi3.5-moe-42b-a6.6b": dense,
+             "llama4-maverick-400b-a17b": dense, "whisper-large-v3": dense,
              "recurrentgemma-2b": (20, 40, 64, (12, 40, 33), 64),
              "xlstm-350m": (300, 310, 0, (12, 300, 257), 320)}
     for arch, (n_pre, n_tot, max_len, lengths, eng_len) in plans.items():
@@ -678,13 +722,18 @@ def phase_reduced(report: dict) -> None:
                          device="cuda")
         params_cpu = _to_cpu(params)
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, n_tot)))
+        # the encoder-decoder's frame embeddings, drawn from the seed
+        frames = {} if not cfg.is_encoder_decoder else {
+            "enc_feats": torch.from_numpy(0.5 * rng.standard_normal(
+                (3, cfg.encoder_seq, cfg.d_model)).astype(np.float32))}
         errs = []
         caches = {d: lm.init_cache(3, max_len, dtype=torch.float32, device=d)
                   for d in ("cuda", "cpu")}
         lg = {}
         for d, p in (("cuda", params), ("cpu", params_cpu)):
             lg[d], caches[d] = lm.prefill(
-                p, {"tokens": toks[:, :n_pre].to(d)}, caches[d])
+                p, {**{k: v.to(d) for k, v in frames.items()},
+                    "tokens": toks[:, :n_pre].to(d)}, caches[d])
         errs.append(float((lg["cuda"].cpu() - lg["cpu"]).abs().max()))
         for t in range(n_pre, n_tot):
             for d, p in (("cuda", params), ("cpu", params_cpu)):
@@ -697,8 +746,8 @@ def phase_reduced(report: dict) -> None:
         labels = toks.roll(-1, dims=1)
         labels[:, -1] = -1
         labels[0, 3:9] = -1
-        loss = {d: float(lm.loss(p, {"tokens": toks.to(d),
-                                     "labels": labels.to(d)}))
+        batch = {"tokens": toks, "labels": labels, **frames}
+        loss = {d: float(lm.loss(p, {k: v.to(d) for k, v in batch.items()}))
                 for d, p in (("cuda", params), ("cpu", params_cpu))}
         loss_err = abs(loss["cuda"] - loss["cpu"])
         if not loss_err < 1e-4:
@@ -715,9 +764,8 @@ def phase_reduced(report: dict) -> None:
         for req in eng.finished:
             cache = lm.init_cache(1, eng_len, dtype=torch.float32,
                                   device="cuda")
-            lg1, cache = lm.prefill(
-                eng.params, {"tokens": torch.as_tensor(
-                    req.tokens, dtype=torch.long, device="cuda")[None]}, cache)
+            lg1, cache = lm.prefill(eng.params, _prompt_batch(eng, req.tokens),
+                                    cache)
             toks1 = [int(torch.argmax(lg1[0]))]
             for _ in range(len(req.generated) - 1):
                 lg1, cache = lm.decode_step(
@@ -739,6 +787,24 @@ def phase_reduced(report: dict) -> None:
     report["reduced"] = out
 
 
+def _prompt_batch(eng, prompt) -> dict:
+    """A prefill batch of one prompt on the card, over the engine's stub
+    frames for the encoder-decoder."""
+    batch = {"tokens": torch.as_tensor(prompt, dtype=torch.long,
+                                       device="cuda")[None]}
+    if eng.cfg.is_encoder_decoder:
+        batch["enc_feats"] = eng.stub_frames()
+    return batch
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
@@ -752,17 +818,21 @@ def _to_cpu(tree):
 # ---------------------------------------------------------------------------
 
 def phase_serve(report: dict, tag: str, arch: str, lengths, max_len: int,
-                kernels: dict) -> dict:
+                kernels: dict, n_layers=None) -> dict:
     """Serve 12 requests (64 new tokens each) through ``DisaggEngine`` at
-    the published shape in bf16; ``kernels`` name -> (wrapper, name of its
-    launch counter), whose counters are set to 0 just before the run and
-    read just after it. The bf16 serve must not launch the CUDA-core
-    attention kernels (each wrapper's total less its tensor-core
-    launches)."""
+    the published shape in bf16 (cut to ``n_layers`` decoder layers where
+    given, and said so); ``kernels`` name -> (wrapper, name of its launch
+    counter), whose counters are set to 0 just before the run and read
+    just after it. The bf16 serve must not launch the CUDA-core attention
+    kernels (each wrapper's total less its tensor-core launches)."""
     from repro_torch.configs import get_config
     from repro_torch.core.controller import ControllerConfig
     from repro_torch.serving.engine import DisaggEngine
     cfg = get_config(arch)
+    if n_layers is not None:
+        log(f"[{tag}] {cfg.name}: depth cut to {n_layers} of its "
+            f"{cfg.n_layers} layers, every width as published")
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     gc.collect()                   # the previous serve's engine, if any
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -772,6 +842,7 @@ def phase_serve(report: dict, tag: str, arch: str, lengths, max_len: int,
                        device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(eng.params))
     rng = np.random.default_rng(0)
     for n in lengths:
         eng.submit(rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32),
@@ -796,8 +867,9 @@ def phase_serve(report: dict, tag: str, arch: str, lengths, max_len: int,
     log(f"[{tag}] {cfg.name} bf16 {cfg.n_layers} layers, max_len {max_len}, "
         f"prompts {sorted(int(n) for n in lengths)}: {s.row()}")
     log(f"[{tag}] {s.n_finished}/{s.n_total} finished, {n_tok} tokens in "
-        f"{wall:.2f} s wall = {n_tok / wall:.1f} tok/s; weight init "
-        f"{init_s:.1f} s; peak memory {peak_gb:.2f} GB")
+        f"{wall:.2f} s wall = {n_tok / wall:.1f} tok/s; {n_params} "
+        f"parameters, weight init {init_s:.1f} s; peak memory "
+        f"{peak_gb:.2f} GB")
     log(f"[{tag}] prefill step ms: median {np.median(pre):.2f} max "
         f"{pre.max():.2f} (n={len(pre)}); decode step ms: median "
         f"{np.median(dec):.2f} p90 {np.percentile(dec, 90):.2f} "
@@ -821,14 +893,14 @@ def phase_serve(report: dict, tag: str, arch: str, lengths, max_len: int,
     # the longest prompt (past the window, where the model has one)
     prompt = max((r.tokens for r in eng.finished), key=len)
     cache = eng.lm.init_cache(1, max_len, dtype=torch.bfloat16, device="cuda")
-    lg, cache = eng.lm.prefill(eng.params, {"tokens": torch.as_tensor(
-        prompt, device="cuda")[None]}, cache)
+    lg, cache = eng.lm.prefill(eng.params, _prompt_batch(eng, prompt), cache)
     lg2, _ = eng.lm.decode_step(eng.params, torch.argmax(lg, -1), cache)
     if lg2.shape != (1, cfg.vocab_size) or not torch.isfinite(lg).all() or \
             not torch.isfinite(lg2).all():
         raise SystemExit(f"{arch}: full-width logits are not finite")
     report[tag] = {
-        "arch": arch, "prompt_lengths": [int(n) for n in lengths],
+        "arch": arch, "n_layers": cfg.n_layers, "parameters": n_params,
+        "decode_steps": len(dec), "prompt_lengths": [int(n) for n in lengths],
         "tokens": n_tok, "wall_s": wall, "tok_per_s": n_tok / wall,
         "init_s": init_s, "peak_gb": peak_gb, "prefill_ms": pre.tolist(),
         "decode_ms": dec.tolist(), "launches": launches, "summary": s.row()}
@@ -868,6 +940,15 @@ def main() -> int:
                       ("serve-chameleon", "chameleon-34b")):
         by_path[arch] = phase_serve(report, tag, arch, llama_lengths, 2048,
                                     attention)
+    # Phi-3.5-MoE's 32 layers take 83.7 GB in bf16: 28 of them fit the card
+    # beside the caches
+    by_path[PHI] = phase_serve(report, "serve-phi", PHI, llama_lengths, 2048,
+                               attention, n_layers=PHI_LAYERS)
+    # Whisper: prompts of at most n_text_ctx // 2 - 1 = 223 tokens (what its
+    # decoding keeps of a prompt), its 448-token context
+    whisper_lengths = np.random.default_rng(0).integers(4, 224, 12)
+    by_path[WHISPER] = phase_serve(report, "serve-whisper", WHISPER,
+                                   whisper_lengths, 448, attention)
     table = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
@@ -888,6 +969,22 @@ def main() -> int:
          "source": "src/repro_torch/csrc/decode_attention_sm90.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
          "case": "decode_attention_chameleon", "path": "chameleon-34b"},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention_sm90.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
+         "path": PHI},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:84",
+         "case": "flash_attention_whisper_encoder", "path": WHISPER},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:84",
+         "case": "flash_attention_whisper_cross", "path": WHISPER},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention_sm90.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
+         "case": "decode_attention_whisper", "path": WHISPER},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:54"},

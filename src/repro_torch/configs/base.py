@@ -207,24 +207,15 @@ ARCH_ALIASES = {
     "llama3.1-8b": "llama31_8b",
 }
 
+# every architecture of the JAX package, and llama3.1-8b
 PORTED_ARCHS = ("llama31_8b", "qwen1_5_4b", "granite_3_8b", "llama3_405b",
                 "starcoder2_15b", "chameleon_34b", "recurrentgemma_2b",
-                "xlstm_350m")
-
-# Architectures whose config (and family code) the port does not carry yet,
-# with the ROADMAP item that brings each one over.
-PENDING_ARCHS = {
-    "phi3_5_moe": "A5", "llama4_maverick": "A5",
-    "whisper_large_v3": "A9",
-}
+                "xlstm_350m", "phi3_5_moe", "llama4_maverick",
+                "whisper_large_v3")
 
 
 def get_config(arch: str) -> ModelConfig:
     arch = ARCH_ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
-    if arch in PENDING_ARCHS:
-        raise NotImplementedError(
-            f"{arch} is not ported to repro_torch yet (ROADMAP item "
-            f"{PENDING_ARCHS[arch]})")
     if arch not in PORTED_ARCHS:
         raise KeyError(f"unknown arch {arch!r}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")

@@ -2,12 +2,16 @@
 ``python -m repro_torch.launch.profile_serve [--arch <id>] [--device cpu]``.
 
 Fills the decode batch of a ``DisaggEngine`` serving Llama-3.1-8B (the
-default; max_len 2048, prompts of 1000 tokens), another dense or vlm
-model on the same plan (StarCoder2-15B, Chameleon-34B, Granite-3-8B),
-RecurrentGemma-2B (max_len 4096, prompts of 3000 tokens, past its
-2048-token window) or xLSTM-350M (prompts of 2000 tokens, the xLSTM
-paper's context) at the published shape (bf16 on a GPU, fp32 on the CPU;
-8 slots), then times one prefill step and five decode steps without the
+default; max_len 2048, prompts of 1000 tokens), another dense, vlm or moe
+model on the same plan (StarCoder2-15B, Chameleon-34B, Granite-3-8B,
+Phi-3.5-MoE), RecurrentGemma-2B (max_len 4096, prompts of 3000 tokens,
+past its 2048-token window), xLSTM-350M (prompts of 2000 tokens, the
+xLSTM paper's context) or Whisper-large-v3 (max_len 448, its decoder's
+context, prompts of 223 tokens, the most its decoding keeps, over the
+stub's 1500 zero frames) at the published shape (bf16 on a GPU, fp32 on
+the CPU; 8 slots; ``--layers`` cuts the depth, as one H100 needs for
+Phi-3.5-MoE: 28 of its 32 layers), then times one prefill step and five
+decode steps without the
 profiler (host wall per step, after ``torch.cuda.synchronize``) and once
 more under ``torch.profiler``. From
 the profiled run it prints the device-busy time per step (the sum of the
@@ -21,6 +25,7 @@ profiler slows the host, so only the unprofiled wall is a step time.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -66,7 +71,12 @@ def main():
     ap.add_argument("--arch", default="llama3.1-8b",
                     choices=("llama3.1-8b", "starcoder2-15b",
                              "chameleon-34b", "granite-3-8b",
-                             "recurrentgemma-2b", "xlstm-350m"))
+                             "recurrentgemma-2b", "xlstm-350m",
+                             "phi3.5-moe-42b-a6.6b",
+                             "llama4-maverick-400b-a17b",
+                             "whisper-large-v3"))
+    ap.add_argument("--layers", type=int, default=None,
+                    help="decoder layers to keep (default: all)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args()
@@ -75,11 +85,13 @@ def main():
     from repro_torch.models import resolve_device
     from repro_torch.serving.engine import DisaggEngine
     cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     slots = 8
-    max_len, prompt = {"hybrid": (4096, 3000), "ssm": (4096, 2000)}.get(
-        cfg.family, (2048, 1000))
+    max_len, prompt = {"hybrid": (4096, 3000), "ssm": (4096, 2000),
+                       "audio": (448, 223)}.get(cfg.family, (2048, 1000))
     eng = DisaggEngine(cfg, n_prefill=1, n_decode=1, max_len=max_len,
                        decode_slots=slots, device=device, dtype=dtype)
     rng = np.random.default_rng(0)
@@ -95,6 +107,7 @@ def main():
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
+    print(f"[profile] {cfg.name}: {cfg.n_layers} layers")
     for name, step, n in ((f"{cfg.name} prefill S={prompt}",
                            lambda: eng._do_prefill(pre), 1),
                           (f"{cfg.name} decode B={slots}",

@@ -1,6 +1,6 @@
 """Model API of the port, after ``repro.models.api.LM``: one entry point
-per family (dense and vlm: ``transformer``, hybrid: ``rglru``, ssm:
-``xlstm``) and the shared causal LM loss.
+per family (dense, moe and vlm: ``transformer``, hybrid: ``rglru``, ssm:
+``xlstm``, audio: ``whisper``) and the shared causal LM loss.
 
 Usage:
     lm = LM(cfg)
@@ -18,28 +18,19 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rglru, transformer, xlstm
+from repro_torch.models import rglru, transformer, whisper, xlstm
 from repro_torch.models.params import init_from_specs
 
-_FAMILY_MODULES = {"dense": transformer, "vlm": transformer,
-                   "hybrid": rglru, "ssm": xlstm}
-# family -> ROADMAP item that ports it
-_PENDING = {"moe": "A5", "audio": "A9"}
+_FAMILY_MODULES = {"dense": transformer, "moe": transformer,
+                   "vlm": transformer, "audio": whisper, "hybrid": rglru,
+                   "ssm": xlstm}
 
 MOE_AUX_WEIGHT = 0.01
 
 
 def family_module(cfg: ModelConfig):
-    """The module that implements ``cfg``'s family; raises, naming the
-    ROADMAP item, for what the port does not carry yet."""
-    mod = _FAMILY_MODULES.get(cfg.family)
-    if mod is None:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP item {_PENDING[cfg.family]})")
-    if mod is transformer:
-        transformer.check_supported(cfg)
-    return mod
+    """The module that implements ``cfg``'s family."""
+    return _FAMILY_MODULES[cfg.family]
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,7 +1,8 @@
 """Single-device layers of the dense decoder and of the other families'
 shared slots, ported from ``repro.models.layers``: RMS and layer norm,
-RoPE, GQA attention for prefill and decode (with QKV bias and QK-norm as
-the config asks), KV-cache writes, the SwiGLU and GeLU MLPs and the
+RoPE and the encoder-decoder's sinusoidal embeddings, GQA attention for
+prefill and decode (with QKV bias and QK-norm as the config asks) and its
+cross-attention, KV-cache writes, the SwiGLU and GeLU MLPs and the
 initialisers.
 
 Parameters are plain dicts of tensors with the JAX package's names and
@@ -96,6 +97,17 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_pos(positions, d_model: int, dtype):
+    """Whisper's sinusoidal embeddings of ``positions`` (...,): (..., d_model),
+    the sines of the first half then the cosines, at frequencies
+    10000^(-i / (half - 1))."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / (half - 1))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # KV-cache writes (in place)
 # ---------------------------------------------------------------------------
@@ -142,10 +154,11 @@ def cache_fill_prefill(cache, k, *, window: Optional[int] = None):
 # attention block
 # ---------------------------------------------------------------------------
 
-def init_attention(cfg) -> dict:
+def init_attention(cfg, cross: bool = False) -> dict:
     """Layout and init of one attention block's parameters, as
     ``repro.models.layers.init_attention`` draws them: name -> (shape,
-    init), init a normal std or "zeros"."""
+    init), init a normal std or "zeros". Cross-attention has no QKV bias,
+    whatever the config says."""
     D, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     spec = {
         "wq": ((D, qd), dense_std((D, qd))),
@@ -153,7 +166,7 @@ def init_attention(cfg) -> dict:
         "wv": ((D, kvd), dense_std((D, kvd))),
         "wo": ((qd, D), dense_std((qd, D), 1.0 / math.sqrt(qd))),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         spec.update(bq=((qd,), "zeros"), bk=((kvd,), "zeros"),
                     bv=((kvd,), "zeros"))
     if cfg.qk_norm:
@@ -216,15 +229,33 @@ def attn_decode(p, x, cfg, k_cache, v_cache, pos, *, window=None):
     return out.reshape(B, 1, cfg.q_dim) @ p["wo"], k_cache, v_cache
 
 
+def cross_attn_cache(p, enc_out, cfg):
+    """The encoder output's cross-attention K and V (B, S, K, hd), projected
+    once at prefill: no bias and no RoPE."""
+    B, S = enc_out.shape[0], enc_out.shape[1]
+    k = (enc_out @ p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc_out @ p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    return k, v
+
+
+def cross_attn_apply(p, x, cfg, k, v):
+    """Non-causal attention of x (B, S, D) over the encoder's K and V."""
+    B, S = x.shape[0], x.shape[1]
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    out = gqa_attention(q, k, v, causal=False)
+    return out.reshape(B, S, cfg.q_dim) @ p["wo"]
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
-def init_mlp(cfg) -> dict:
+def init_mlp(cfg, d_ff: Optional[int] = None) -> dict:
     """Layout and init of the FFN's parameters, as
-    ``repro.models.layers.init_mlp``: name -> (shape, normal std); the
-    SwiGLU FFN has a gate ``wg``, the GeLU one not."""
-    D, Fd = cfg.d_model, cfg.d_ff
+    ``repro.models.layers.init_mlp``: name -> (shape, normal std), of width
+    ``d_ff or cfg.d_ff``; the SwiGLU FFN has a gate ``wg``, the GeLU one
+    not."""
+    D, Fd = cfg.d_model, d_ff or cfg.d_ff
     spec = {"wi": ((D, Fd), dense_std((D, Fd)))}
     if cfg.mlp == "swiglu":
         spec["wg"] = ((D, Fd), dense_std((D, Fd)))

@@ -4,7 +4,8 @@ A family module's ``param_specs(cfg)`` states its parameters as a flat dict
 keyed by the JAX pytree's paths as ``repro.training.checkpoint._flatten``
 joins them (``slots/0/attn/wq``, ``rest/1/rec/lam``): name -> (shape, init),
 init a normal std, "ones", "zeros", ``LRU_LAMBDA`` or ``IF_BIAS``. Leaves under
-``slots/`` carry a leading layer dim G.
+``slots/`` carry a leading layer dim G, those under the encoder-decoder's
+``enc/`` and ``dec/`` one of its encoder or decoder layers.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ _LRU_C = 8.0
 # (nh input gates) zeros, the second (nh forget gates) 3.0, as
 # ``repro.models.xlstm._init_mlstm`` sets it
 IF_BIAS = "if_bias"
+# the top-level keys whose leaves carry a leading layer dim
+STACKED = ("slots", "enc", "dec")
 
 
 def prefixed(prefix: str, spec: Dict[str, tuple]) -> Dict[str, tuple]:
@@ -76,7 +79,7 @@ def init_from_specs(specs: Dict[str, tuple], generator: torch.Generator,
             flat[key] = torch.zeros(shape, dtype=dt, device=device)
         else:
             t = torch.empty(shape, dtype=dt, device=device)
-            for part in (t if key.startswith("slots/") else [t]):
+            for part in (t if key.split("/")[0] in STACKED else [t]):
                 part.copy_(_draw(init, part.shape, generator, device))
             flat[key] = t
     return unflatten(flat)

@@ -10,8 +10,10 @@ JAX engine: the port actuates no real power limit.
 On the GPU, prefill attention runs the hand-written flash kernel, decode
 attention the split-KV kernel, the hybrid family's recurrence the RG-LRU
 scan and the ssm family's mLSTM prefill the chunkwise mLSTM kernel
-(``repro_torch.kernels``). The decode worker's batched cache is written in
-place (slot insertion and each step's new token and state), not copied.
+(``repro_torch.kernels``); the encoder-decoder's encoder and its
+cross-attention run the flash kernel non-causal. The decode worker's
+batched cache is written in place (slot insertion and each step's new
+token and state), not copied.
 """
 from __future__ import annotations
 
@@ -43,11 +45,12 @@ class ServeRequest:
 
 def _cache_insert(dst: dict, src: dict, slot: int) -> None:
     """Copy a batch-1 prefilled cache into slot ``slot`` of a batched decode
-    cache, in place, walking its nested dicts and tuples: KV caches
-    ``{"k", "v"}``, the hybrid's (conv tail, h), the xLSTM's (C, n, m) and
-    (c, n, m, h). Leaves under ``slots`` are stacked (G, B, ...), so batch
-    is dim 1; the hybrid's unstacked ``rest`` leaves have it on dim 0.
-    ``pos`` is not copied."""
+    cache, in place, walking every top-level key but ``pos`` through its
+    nested dicts and tuples: KV caches ``{"k", "v"}``, the hybrid's (conv
+    tail, h), the xLSTM's (C, n, m) and (c, n, m, h), the encoder-decoder's
+    top-level ``k``, ``v``, ``ck`` and ``cv``. Leaves are stacked (L, B,
+    ...), so batch is dim 1, except under the hybrid's unstacked ``rest``,
+    where it is dim 0, as ``repro.serving.engine._cache_insert`` has it."""
     def ins(d, s, bdim):
         if isinstance(d, dict):
             for k in d:
@@ -57,9 +60,9 @@ def _cache_insert(dst: dict, src: dict, slot: int) -> None:
                 ins(dd, ss, bdim)
         else:
             d.select(bdim, slot).copy_(s.select(bdim, 0))
-    for level, bdim in (("slots", 1), ("rest", 0)):
-        if level in dst:
-            ins(dst[level], src[level], bdim)
+    for key in dst:
+        if key != "pos":
+            ins(dst[key], src[key], 0 if key == "rest" else 1)
 
 
 class Worker:
@@ -125,6 +128,14 @@ class DisaggEngine:
         rel = self.power.rel(role, self.pm.effective[wid])
         return wall * self.time_scale / rel
 
+    def stub_frames(self) -> torch.Tensor:
+        """The encoder-decoder's stub audio front end: zero frame embeddings
+        (1, encoder_seq, d_model), as the JAX engine feeds its prefill, but
+        in the engine's dtype (the JAX engine's fp32 zeros would promote
+        its encoder to fp32; here they would meet bf16 weights and fail)."""
+        return torch.zeros((1, self.cfg.encoder_seq, self.cfg.d_model),
+                           dtype=self.dtype, device=self.device)
+
     def _sync(self):
         """Wait for the device, the counterpart of ``block_until_ready``."""
         if self.device.type == "cuda":
@@ -139,9 +150,12 @@ class DisaggEngine:
                                device=self.device)[None, :]
         cache = self.lm.init_cache(1, self.max_len, dtype=self.dtype,
                                    device=self.device)
+        batch = {"tokens": toks}
+        if self.cfg.is_encoder_decoder:
+            batch["enc_feats"] = self.stub_frames()
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = self.lm.prefill(self.params, {"tokens": toks}, cache)
+        logits, cache = self.lm.prefill(self.params, batch, cache)
         first = int(torch.argmax(logits[0]))      # waits for the device
         wall = time.perf_counter() - t0
         self.prefill_walls.append(wall)

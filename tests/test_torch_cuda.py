@@ -73,6 +73,11 @@ FLASH_CASES = [
     # over 8, G = 16)
     (1, 1500, 1500, 48, 4, 128, True, None, 0),
     (1, 1000, 1000, 128, 8, 128, True, None, 0),
+    # whisper-large-v3 (20 over 20 heads, G = 1, hd 64): the encoder over
+    # its 1500 frames, and cross-attention at decode, one query row of the
+    # 128-row tile over the 1500 frames for each of 8 slots
+    (1, 1500, 1500, 20, 20, 64, False, None, 0),
+    (8, 1, 1500, 20, 20, 64, False, None, 0),
 ]
 
 # (B, Sc, Hq, K, hd, pos, window): pos an int or a per-slot list
@@ -98,6 +103,9 @@ DECODE_CASES = [
     # G = 16 (llama3-405b, 128 over 8), the largest group the bf16 kernel
     # takes, on a rotating cache
     (8, 2048, 128, 8, 128, [0, 1, 300, 1023, 1024, 2047, 2048, 3500], 2048),
+    # whisper-large-v3's decoder self-attention (G = 1, hd 64) over its
+    # 448-token context
+    (8, 448, 20, 20, 64, [0, 1, 223, 447, 5, 100, 300, 446], None),
 ]
 
 # (B, S, W): ragged, and the serve's prefill shapes (W = lru_width 2560);
@@ -405,8 +413,19 @@ def _to_cuda(tree):
 
 
 REDUCED_ARCHS = ["llama3.1-8b", "qwen1.5-4b", "starcoder2-15b",
-                 "chameleon-34b", "granite-3-8b", "recurrentgemma-2b",
-                 "xlstm-350m"]
+                 "chameleon-34b", "granite-3-8b", "phi3.5-moe-42b-a6.6b",
+                 "llama4-maverick-400b-a17b", "whisper-large-v3",
+                 "recurrentgemma-2b", "xlstm-350m"]
+
+
+def _frames(cfg, B):
+    """The encoder-decoder's frame embeddings for a batch of B, else
+    nothing."""
+    if not cfg.is_encoder_decoder:
+        return {}
+    gen = torch.Generator().manual_seed(2)
+    return {"enc_feats": 0.5 * torch.randn(
+        (B, cfg.encoder_seq, cfg.d_model), generator=gen)}
 
 
 @pytest.mark.parametrize("arch", REDUCED_ARCHS)
@@ -423,10 +442,13 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch):
         cfg.family, (15, 19, 24))
     toks = torch.randint(0, cfg.vocab_size, (2, S),
                          generator=torch.Generator().manual_seed(1))
+    frames = _frames(cfg, 2)
     out = {}
     for dev, p in (("cpu", params), ("cuda", params_gpu)):
         cache = lm.init_cache(2, max_len, dtype=torch.float32, device=dev)
-        lg, cache = lm.prefill(p, {"tokens": toks[:, :P].to(dev)}, cache)
+        batch = {k: v.to(dev) for k, v in frames.items()}
+        lg, cache = lm.prefill(p, {**batch, "tokens": toks[:, :P].to(dev)},
+                               cache)
         steps = [lg]
         for t in range(P, S):
             lg, cache = lm.decode_step(p, toks[:, t].to(dev), cache)
@@ -450,8 +472,8 @@ def test_reduced_model_loss_on_card_matches_cpu(cuda, arch):
     labels = toks.roll(-1, dims=1)
     labels[:, -1] = -1
     labels[0, 5:12] = -1
-    loss = {dev: float(lm.loss(p, {"tokens": toks.to(dev),
-                                   "labels": labels.to(dev)}))
+    batch = {"tokens": toks, "labels": labels, **_frames(cfg, 2)}
+    loss = {dev: float(lm.loss(p, {k: v.to(dev) for k, v in batch.items()}))
             for dev, p in (("cpu", params), ("cuda", _to_cuda(params)))}
     assert abs(loss["cuda"] - loss["cpu"]) < 1e-4
 

@@ -19,11 +19,11 @@ from repro.training.checkpoint import _flatten  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.controller import ControllerConfig  # noqa: E402
-from repro_torch.models import LM  # noqa: E402
 from repro_torch.serving.engine import DisaggEngine  # noqa: E402
 from repro_torch.serving.ring import KVRing  # noqa: E402
 
 ARCHS = ["qwen1_5_4b", "llama31_8b", "starcoder2_15b", "chameleon_34b",
+         "phi3_5_moe", "llama4_maverick", "whisper_large_v3",
          "recurrentgemma_2b", "xlstm_350m"]
 # the reduced hybrid with pattern (rec, rec, attn) over 5 layers: two
 # unstacked "rest" rec layers, whose cache leaves take the batch on dim 0
@@ -52,10 +52,15 @@ def test_engine_serves_all_requests(arch):
     assert len(eng.prefill_walls) == 5 and eng.decode_walls
 
 
-def _single_request_tokens(lm, params, prompt, n, max_len):
+def _single_request_tokens(eng, prompt, n, max_len):
+    """An isolated prefill and decode of one prompt on the engine's model
+    (over the engine's stub frames, for the encoder-decoder)."""
+    lm, params = eng.lm, eng.params
     cache = lm.init_cache(1, max_len, dtype=torch.float32, device="cpu")
-    lg, cache = lm.prefill(params, {"tokens": torch.from_numpy(prompt)[None]},
-                           cache)
+    batch = {"tokens": torch.from_numpy(prompt)[None]}
+    if lm.cfg.is_encoder_decoder:
+        batch["enc_feats"] = eng.stub_frames()
+    lg, cache = lm.prefill(params, batch, cache)
     toks = [int(torch.argmax(lg[0]))]
     for _ in range(n - 1):
         lg, cache = lm.decode_step(params, torch.tensor([toks[-1]]), cache)
@@ -73,10 +78,9 @@ def test_engine_tokens_match_single_request_decode(arch):
     for p in _prompts(cfg, (12, 20, 17)):
         eng.submit(p, 8, 0.0)
     eng.run()
-    lm = LM(cfg)
     for req in eng.finished:
-        assert _single_request_tokens(lm, eng.params, req.tokens,
-                                      len(req.generated), 64) == req.generated
+        assert _single_request_tokens(eng, req.tokens, len(req.generated),
+                                      64) == req.generated
 
 
 def _reduced_pair(arch):
