@@ -8,12 +8,13 @@ imports nothing from JAX or the JAX package ``repro``. Phases, each printing
 its own lines; any failure exits non-zero without the result line:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
-   CUDA versions, and the build of the six CUDA libraries from ``csrc/``
+   CUDA versions, and the build of the seven CUDA libraries from ``csrc/``
    (one ``nvcc`` each, all at once, timed; their ``ptxas`` lines), and the
    count of tensor-core instructions in the SASS of the tensor-core
    kernels (``cuobjdump --dump-sass``): ``HGMMA`` in the bf16 flash
-   kernel's, ``HMMA`` in the bf16 decode kernel's and in the mLSTM's split
-   TF32 passes (none fails the run);
+   kernel's, ``HMMA`` in the bf16 decode kernel's, in the mLSTM's split
+   TF32 passes and in the backward flash library's bf16 passes (none fails
+   the run);
 2. each kernel against its plain PyTorch version on the card, with its time
    (CUDA events, median, the host queued ahead of the card), the plain
    version's time, the least time the card could take (bytes over 3.35 TB/s
@@ -55,7 +56,18 @@ its own lines; any failure exits non-zero without the result line:
    one from a given state, with the kernels one call launches (by
    ``torch.profiler``, beside the wrapper's plan; the phase fails unless
    each pass shows as one launch) and its workspace bytes (the library's
-   count, and what one call allocates past its outputs);
+   count, and what one call allocates past its outputs); the backwards
+   (each gradient within 1e-4 max |plain| in fp32, 2e-2 max |plain| in
+   bf16, the plain version computing in fp32 from the same bf16 inputs):
+   B1's (``flash_attention_bwd.cu``: bf16 on ``mma.sync``, fp32 on the
+   CUDA cores) at llama3.1-8b's and
+   recurrentgemma-2b's training shapes (S=4096, the latter with its 2048
+   window), whisper-large-v3's cross-attention (448 over 1500) and an fp32
+   ragged case, timed beside SDPA's backward alone (flash backend where it
+   takes the shape) and its bound (10 hd Hq flops per admitted pair); B3's
+   (the scan kernel on reversed time, then the elementwise products) at
+   B=1 S=4096 W=2560, with the reverse scan's share and the elementwise
+   share;
 3. reduced llama3.1-8b, qwen1.5-4b, starcoder2-15b, chameleon-34b,
    granite-3-8b, phi3.5-moe, llama4-maverick, whisper-large-v3,
    recurrentgemma-2b and xlstm-350m in fp32 on the card: prefill and
@@ -64,6 +76,14 @@ its own lines; any failure exits non-zero without the result line:
    prefills 300 tokens, past the plain version's 256-step chunk; the
    encoder-decoder's frames drawn from the seed), and the engine's tokens
    for three ragged prompts against an isolated prefill + decode of each;
+   then one training step of each but the xLSTM (remat on) in fp32: the
+   loss within 1e-4 of the CPU's, every gradient leaf within
+   1e-4 max(1, max |g_cpu|), AdamW on the card from the CPU's gradients
+   within 1e-6 of the CPU's update; the xLSTM's ``LM.loss(...).backward()``
+   must raise B4's "no backward"; ``train()`` of the reduced qwen1.5-4b
+   for 40 steps (test_training.py's settings and assertion), its trained
+   parameters served through ``DisaggEngine`` (3 requests), and a
+   checkpoint written on the card that restores on the CPU bit for bit;
 4. Llama-3.1-8B at its published shape, all 32 layers, bf16 weights drawn
    from a seeded generator, serving 12 requests (prompts of 128-1536
    tokens, 64 new tokens each) through ``DisaggEngine`` with the kernels'
@@ -93,8 +113,19 @@ its own lines; any failure exits non-zero without the result line:
    zero frames, max_len 448 (its decoder's context), prompts of 4-223
    tokens.
 
-Each serve starts with the previous one's engine freed and the allocator's
-cache emptied, and prints its peak device memory.
+5. training at the published widths through ``train()``: Llama-3.1-8B (all
+   32 layers) and RecurrentGemma-2B (all 26), bf16 parameters and AdamW
+   moments, B=1 S=4096 (train_4k's sequence), remat on, 4 steps each,
+   printing each step's wall, loss, grad norm and lr, the peak memory and
+   step 2's device-busy share by ``torch.profiler``; each step's launches
+   must match the plan the model's structure gives (B1 forward twice and
+   backward once a rematerialised attention layer, B3 likewise a rec layer,
+   the hybrid's unrolled layers once), and bf16 B1 never runs on the
+   CUDA-core kernel.
+
+Each serve and each training run starts with the previous one's engine
+freed and the allocator's cache emptied, and prints its peak device
+memory. The seconds of each phase are printed before the table.
 
 The last two lines are the kernel table as JSON and
 ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -123,6 +154,29 @@ FP32_TOL = 2e-5
 SCAN_TOL = 1e-4
 MLSTM_TOL, MLSTM_STATE_TOL = 2e-4, 1e-5
 TOL_TEXT = {torch.float32: "2e-5", torch.bfloat16: "min(3e-2, 1e-3+1e-2|plain|)"}
+# the backwards: max |kernel - plain| of each gradient within this share of
+# max |plain|; in bf16 the plain version computes in fp32 from the same
+# bf16 inputs and dO, and the kernel rounds its fp32 sums once to bf16
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BWD_TOL_TEXT = {torch.float32: "1e-4 max|plain|",
+                torch.bfloat16: "2e-2 max|plain|"}
+TRAIN_TOL, UPDATE_TOL = 1e-4, 1e-6
+# the reduced archs that train on the card (the xLSTM refuses: no B4
+# backward yet)
+TRAIN_ARCHS = ("llama3.1-8b", "qwen1.5-4b", "starcoder2-15b",
+               "chameleon-34b", "granite-3-8b", "phi3.5-moe-42b-a6.6b",
+               "llama4-maverick-400b-a17b", "whisper-large-v3",
+               "recurrentgemma-2b")
+TRAIN_SEQ, TRAIN_STEPS = 4096, 4   # train_4k's sequence length, B=1
+# device kernels of a training step by kind, by name (the first that
+# matches); the rest is "other"
+DEVICE_KINDS = (("B1 backward", r"bwd_(dq|dkdv|lse)"),
+                ("B1 forward", r"flash_fwd"),
+                ("B3", r"rglru"),
+                ("GEMM", r"nvjet|gemm|cutlass|xmma|sm90_"),
+                ("reductions", r"reduce|softmax|logsumexp|norm"),
+                ("elementwise and copies", r"elementwise|copy|fill|cat"),
+                ("indexing", r"index|scatter|gather"))
 LLAMA_HEADS = (32, 8, 128)         # (query heads, KV heads, head_dim)
 RG_HEADS = (10, 1, 256)            # recurrentgemma-2b
 STARCODER2_HEADS = (48, 4, 128)    # starcoder2-15b, G = 12
@@ -210,7 +264,8 @@ def phase_environment(report: dict) -> str:
     tensor_core = {}
     for name, opcode in (("flash_attention_sm90", "HGMMA"),
                          ("decode_attention_sm90", "HMMA"),
-                         ("mlstm_chunk", "HMMA")):
+                         ("mlstm_chunk", "HMMA"),
+                         ("flash_attention_bwd", "HMMA")):
         n = count_sass(build.library_path(name), opcode)
         log(f"[env] {name}: {n} {opcode} instructions in its SASS")
         if n == 0:
@@ -564,6 +619,137 @@ def _mlstm_case(B: int, S: int, nh: int, hd: int, given: bool, gen) -> dict:
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
 
+def _sdpa_backward(q, k, v, do, causal: bool, window) -> tuple:
+    """The backward alone of ``scaled_dot_product_attention`` on the same
+    problem, as a yardstick the port never calls: under the flash backend
+    where it takes the shape (no mask, bf16), else under the first backend
+    that does (a window needs a dense mask, and then K and V expanded to
+    the query heads). Returns (function, backend name, why flash was
+    refused or None)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    Sq, Skv, G = q.shape[1], k.shape[1], q.shape[2] // k.shape[2]
+    mask = None
+    if window is not None:
+        i = torch.arange(Sq, device="cuda")[:, None]
+        j = torch.arange(Skv, device="cuda")[None, :]
+        mask = (j > i - window) & ((j <= i) if causal else True)
+    refused = None
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        gqa = mask is None
+        qt = q.transpose(1, 2).detach().requires_grad_()
+        kt, vt = (t.transpose(1, 2) if gqa else
+                  t.repeat_interleave(G, dim=2).transpose(1, 2)
+                  for t in (k, v))
+        kt, vt = kt.detach().requires_grad_(), vt.detach().requires_grad_()
+        try:
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask,
+                    is_causal=causal and mask is None, enable_gqa=gqa)
+                torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2),
+                                    retain_graph=True)
+        except RuntimeError as e:   # the backend refuses the problem
+            refused = refused or str(e).strip().splitlines()[0][:160]
+            continue
+        dot = do.transpose(1, 2)
+        return (lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                            retain_graph=True)), \
+            backend.name, refused
+    raise SystemExit(f"no SDPA backend takes the backward: {refused}")
+
+
+def _flash_bwd_case(Sq: int, Skv: int, heads, dtype, gen, causal=True,
+                    window=None) -> dict:
+    """B1's backward against its plain version (fp32 math from the same
+    inputs and dO), with its time, the plain version's, SDPA's backward
+    and the bound: 10 hd Hq flops per admitted (query, key) pair at the
+    dtype's peak, or q, k, v, o, dO read and dq, dk, dv written once."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref)
+    HQ, KV, HD = heads
+    q = torch.randn((1, Sq, HQ, HD), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((1, Skv, KV, HD), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((1, Skv, KV, HD), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((1, Sq, HQ, HD), generator=gen, device="cuda").to(dtype)
+    with torch.no_grad():
+        o = flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+    def kern():
+        return flash_attention_bwd_cuda(q, k, v, o, do, causal=causal,
+                                        window=window)
+
+    def plain():
+        return flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                       window=window)
+    got, want = kern(), plain()
+    errs = [float((g.float() - w.float()).abs().max()) for g, w in
+            zip(got, want)]
+    rel = [e / float(w.float().abs().max()) for e, w in zip(errs, want)]
+    del got, want
+    qpos = np.arange(Sq)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(Sq)
+    hi = np.minimum(qpos, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    pairs = float(np.sum(hi - lo + 1))
+    n_bytes = q.element_size() * 4.0 * (q.numel() + k.numel())
+    b_ms, b_by = bound_ms(n_bytes, 10.0 * HD * HQ * pairs, dtype)
+    library, backend, refused = _sdpa_backward(q, k, v, do, causal, window)
+    case = {"shape": f"Sq={Sq} Skv={Skv} Hq={HQ} K={KV} hd={HD} "
+                     f"{'causal' if causal else 'non-causal'} "
+                     f"window={window}",
+            "route": "mma.sync" if dtype == torch.bfloat16 else
+            "cuda-core fp32",
+            "dtype": str(dtype), "err": max(errs), "rel_err": rel,
+            "ok": max(rel) <= BWD_TOL[dtype], "pairs": pairs,
+            "ms": cuda_ms(kern, 5), "plain_ms": cuda_ms(plain, 3),
+            "library_ms": cuda_ms(library, 10), "library_backend": backend,
+            "flash_refused": refused, "bound_ms": b_ms, "bound_by": b_by}
+    if window is not None:   # SDPA's flash backward without the window
+        causal_library, _, _ = _sdpa_backward(q, k, v, do, causal, None)
+        case["library_causal_ms"] = cuda_ms(causal_library, 10)
+    return case
+
+
+def _scan_bwd_case(B: int, S: int, W: int, gen) -> dict:
+    """B3's backward (the scan kernel on reversed time, then the
+    elementwise products) against its plain version, the gates as the
+    model draws them; its time, the reverse scan's alone and the
+    elementwise share, and the bound: the reverse scan's bytes (log_a' and
+    dy' read, g written) over the memory rate."""
+    from repro_torch.kernels.rglru_scan.kernel import (_scan,
+                                                       reverse_scan_inputs,
+                                                       rglru_scan_bwd_cuda,
+                                                       rglru_scan_cuda)
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
+    la, x = _model_gates(gen, B, S, W)
+    h0 = torch.randn((B, W), generator=gen, device="cuda")
+    dy = torch.randn((B, S, W), generator=gen, device="cuda")
+    y = rglru_scan_cuda(la, x, h0)
+
+    def kern():
+        return rglru_scan_bwd_cuda(la, h0, y, dy)
+
+    def plain():
+        return rglru_scan_bwd_ref(la, h0, y, dy)
+    got, want = kern(), plain()
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    rel = [e / float(w.abs().max()) for e, w in zip(errs, want)]
+    rev = reverse_scan_inputs(la, dy)
+    ms = cuda_ms(kern, 20)
+    scan_ms = cuda_ms(lambda: _scan(*rev), 20)
+    b_ms, b_by = bound_ms(4.0 * 3 * B * S * W, 2.0 * B * S * W,
+                          torch.float32)
+    return {"shape": f"B={B} S={S} W={W} model gates",
+            "dtype": str(torch.float32), "err": max(errs), "rel_err": rel,
+            "ok": max(rel) <= BWD_TOL[torch.float32], "ms": ms,
+            "reverse_scan_ms": scan_ms, "elementwise_ms": ms - scan_ms,
+            "plain_ms": cuda_ms(plain, 3), "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 def phase_kernels(report: dict) -> dict:
     """Returns the main-path case of each kernel, for the table: bf16
     attention at the llama serve's shapes, the scan at the hybrid serve's
@@ -652,13 +838,33 @@ def phase_kernels(report: dict) -> dict:
                                 (2, 300, 2, 256, True)):
         cases["mlstm_chunk"].append(_mlstm_case(B, S, nh, hd, given, gen))
     main["mlstm_chunk"] = cases["mlstm_chunk"][0]
+    # the backwards at the training shapes: llama3.1-8b and
+    # recurrentgemma-2b at S=4096, whisper-large-v3's cross-attention, an
+    # fp32 ragged case; B3 at the hybrid's training shape
+    cases["flash_attention_bwd"] = [
+        _flash_bwd_case(4096, 4096, LLAMA_HEADS, bf16, gen),
+        _flash_bwd_case(4096, 4096, RG_HEADS, bf16, gen, window=2048),
+        _flash_bwd_case(448, 1500, WHISPER_HEADS, bf16, gen, causal=False),
+        _flash_bwd_case(1000, 1000, (16, 4, 128), torch.float32, gen,
+                        window=256)]
+    main["flash_attention_bwd"] = cases["flash_attention_bwd"][0]
+    main["flash_attention_bwd_rg"] = cases["flash_attention_bwd"][1]
+    cases["rglru_scan_bwd"] = [_scan_bwd_case(1, 4096, 2560, gen)]
+    main["rglru_scan_bwd"] = cases["rglru_scan_bwd"][0]
+    log(f"[kernel] rglru_scan_bwd B=1 S=4096 W=2560: "
+        f"{main['rglru_scan_bwd']['ms']:.4f} ms, of which the reverse scan "
+        f"{main['rglru_scan_bwd']['reverse_scan_ms']:.4f} ms and the "
+        f"flips and elementwise products "
+        f"{main['rglru_scan_bwd']['elementwise_ms']:.4f} ms")
     tols = {"rglru_scan": SCAN_TOL,
-            "mlstm_chunk": f"{MLSTM_TOL}, state {MLSTM_STATE_TOL}"}
+            "mlstm_chunk": f"{MLSTM_TOL}, state {MLSTM_STATE_TOL}",
+            "rglru_scan_bwd": "1e-4 max|plain|"}
     failed = []
     for name, rows in cases.items():
         for c in rows:
             dtype = getattr(torch, c["dtype"].split(".")[1])
-            tol = tols.get(name, TOL_TEXT[dtype])
+            tol = tols.get(name, BWD_TOL_TEXT[dtype] if name.endswith(
+                "_bwd") else TOL_TEXT[dtype])
             lib = "none" if c["library_ms"] is None else \
                 f"{c['library_ms']:.4f} ms"
             ok = c["ok"]
@@ -668,6 +874,11 @@ def phase_kernels(report: dict) -> dict:
                 state += (f" against the plain version in fp64 (the plain "
                           f"version in fp32: {c['plain_fp32_err']:.3g})")
             route = f" [{c['route']}]" if "route" in c else ""
+            if "rel_err" in c:
+                state += (" (relative to max |plain|: "
+                          f"{', '.join(f'{r:.3g}' for r in c['rel_err'])})")
+            if "library_backend" in c:
+                lib += f" backward, {c['library_backend']}"
             if c.get("library_causal_ms") is not None:
                 lib += f" (causal, no window {c['library_causal_ms']:.4f} ms)"
             if "library_per_slot_ms" in c:
@@ -785,6 +996,259 @@ def phase_reduced(report: dict) -> None:
         out[cfg.name] = {"logit_err": max(errs), "loss_err": loss_err,
                          "finished": s.n_finished}
     report["reduced"] = out
+
+
+def _loss_and_grads(lm, params, batch: dict, device: str) -> tuple:
+    """``LM.loss`` with remat and its gradient leaves on ``device``, from
+    copies of ``params``."""
+    from repro_torch.models.params import flatten, map_leaves
+    p = map_leaves(lambda t: t.detach().to(device).requires_grad_(), params)
+    leaves = flatten(p)
+    loss = lm.loss(p, {k: torch.from_numpy(v).to(device)
+                       for k, v in batch.items()}, remat=True)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss.detach()), dict(zip(leaves, grads))
+
+
+def phase_train_reduced(report: dict) -> None:
+    """One training step of each reduced arch in fp32 on the card against
+    the CPU: the loss, every gradient leaf, and AdamW on the card from the
+    CPU's gradients; the xLSTM's refusal; then train(), a serve of what it
+    trained, and a checkpoint from the card restored on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.models.params import flatten, map_leaves, rebuild
+    from repro_torch.serving.engine import DisaggEngine
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.data import TokenStream
+    from repro_torch.training.optimizer import (AdamWConfig, apply_updates,
+                                                init_state)
+    from repro_torch.training.train_loop import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch in TRAIN_ARCHS:
+        cfg = get_config(arch).reduced()
+        lm = LM(cfg)
+        params = lm.init(torch.Generator(device="cuda").manual_seed(2),
+                         device="cuda")
+        # S=40: past the reduced hybrid's window of 32
+        batch = TokenStream(cfg, seed=0).batch(2, 40)
+        loss, grads = _loss_and_grads(lm, params, batch, "cuda")
+        cpu_loss, cpu_grads = _loss_and_grads(lm, params, batch, "cpu")
+        grad_err = max(float((grads[k].cpu() - g).abs().max()) /
+                       max(1.0, float(g.abs().max()))
+                       for k, g in cpu_grads.items())
+        # AdamW from the CPU's gradients, on the card and on the CPU
+        ocfg = AdamWConfig(warmup_steps=1, total_steps=10)
+        new = {}
+        for d in ("cuda", "cpu"):
+            p = map_leaves(lambda t: t.detach().to(d).clone(), params)
+            g = rebuild(p, [cpu_grads[k].to(d) for k in flatten(p)])
+            p, st, _ = apply_updates(ocfg, p, g, init_state(ocfg, p))
+            new[d] = [flatten(t) for t in (p, st["m"], st["v"])]
+        upd_err = max(float((a[k].cpu() - b[k]).abs().max())
+                      for a, b in zip(new["cuda"], new["cpu"]) for k in b)
+        log(f"[train-reduced] {cfg.name}: loss card {loss:.6f} cpu "
+            f"{cpu_loss:.6f} (tol {TRAIN_TOL}); worst gradient leaf "
+            f"{grad_err:.3g} of max(1, max |g_cpu|) (tol {TRAIN_TOL}); "
+            f"AdamW on the card vs the CPU {upd_err:.3g} (tol {UPDATE_TOL})")
+        if not (abs(loss - cpu_loss) < TRAIN_TOL and grad_err <= TRAIN_TOL
+                and upd_err <= UPDATE_TOL):
+            raise SystemExit(f"{arch}: a training step on the card differs "
+                             "from the CPU's")
+        out[cfg.name] = {"loss_err": abs(loss - cpu_loss),
+                         "grad_err": grad_err, "update_err": upd_err}
+    # the ssm family: no backward for the mLSTM kernel (B4) yet, so its
+    # loss must refuse autograd on the card rather than cut the graph
+    lm = LM(get_config("xlstm-350m").reduced())
+    params = map_leaves(lambda t: t.requires_grad_(), lm.init(
+        torch.Generator(device="cuda").manual_seed(2), device="cuda"))
+    batch = TokenStream(lm.cfg, seed=0).batch(2, 40)
+    try:
+        lm.loss(params, {k: torch.from_numpy(v).cuda()
+                         for k, v in batch.items()}).backward()
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        log(f"[train-reduced] {lm.cfg.name}: refuses autograd on the card "
+            f"({str(e)[:90]}...)")
+    else:
+        raise SystemExit("xlstm-350m: LM.loss(...).backward() on the card "
+                         "did not refuse")
+    # train() as test_training.py's test_loss_decreases, then serve it
+    cfg = get_config("qwen1.5-4b").reduced()
+    ocfg = AdamWConfig(lr=3e-3, grad_clip=10.0, total_steps=40,
+                       warmup_steps=4, weight_decay=0.0)
+    t0 = time.perf_counter()
+    params, hist = train(cfg, steps=40, batch_size=4, seq_len=64,
+                         log_every=0, remat=False, opt_cfg=ocfg,
+                         device="cuda")
+    secs = time.perf_counter() - t0
+    log(f"[train-reduced] {cfg.name}: train() 40 steps in {secs:.1f} s, "
+        f"loss {hist[0]:.4f} -> min of the last 10 {min(hist[-10:]):.4f}")
+    if not min(hist[-10:]) < hist[0] - 0.15:
+        raise SystemExit(f"{cfg.name}: the loss did not decrease: {hist}")
+    eng = DisaggEngine(cfg, n_prefill=1, n_decode=1, max_len=48,
+                       decode_slots=2, device="cuda")
+    eng.params = params                     # serve the trained weights
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        eng.submit(rng.integers(0, cfg.vocab_size, 12).astype(np.int32),
+                   6, 0.0)
+    s = eng.run()
+    if s.n_finished != 3:
+        raise SystemExit(f"{cfg.name}: {s.n_finished}/3 requests of the "
+                         "trained model finished")
+    path = str(ROOT / "build" / "chip_smoke_ckpt.npz")
+    ckpt.save(path, {"params": params}, step=40)
+    template = {"params": LM(cfg).init(torch.Generator().manual_seed(9),
+                                       device="cpu")}
+    restored, step = ckpt.restore(path, template)
+    same = step == 40 and all(
+        torch.equal(t, params_t.cpu()) for t, params_t in
+        zip(flatten(restored).values(), flatten({"params": params}).values()))
+    log(f"[train-reduced] {cfg.name}: the trained model served 3/3; its "
+        f"checkpoint from the card restores on the CPU bit for bit: {same}")
+    if not same:
+        raise SystemExit("the card's checkpoint does not restore on the CPU")
+    report["train_reduced"] = {"steps": out, "loss_history": hist,
+                               "train_s": secs}
+
+
+def train_plan(cfg) -> dict:
+    """Launches a training step with remat must make, from the model's
+    structure: each attention layer inside a rematerialised group runs B1
+    forward twice and backward once, each rec layer there B3 twice and its
+    reverse scan once; the hybrid's unrolled rest layers once each."""
+    from repro_torch.models import rglru
+    if cfg.family == "hybrid":
+        G, pat, rest = rglru._plan(cfg)
+        attn, rec = G * pat.count("attn"), G * pat.count("rec")
+        attn_rest, rec_rest = rest.count("attn"), rest.count("rec")
+    else:
+        attn, rec, attn_rest, rec_rest = cfg.n_layers, 0, 0, 0
+    plan = {"flash_attention": 2 * attn + attn_rest,
+            "flash_attention_bwd": attn + attn_rest}
+    if rec or rec_rest:
+        plan.update(rglru_scan=2 * rec + rec_rest,
+                    rglru_scan_bwd=rec + rec_rest)
+    return plan
+
+
+def phase_train(report: dict, tag: str, arch: str) -> dict:
+    """Train ``arch`` at its published shape on one card through
+    ``train()``: bf16 parameters (the RG-LRU's lam fp32), AdamW with bf16
+    moments, B=1, S=4096 from ``TokenStream(seed=0)``, remat on, 4 steps.
+    Prints each step's wall, loss, grad norm and lr, the peak memory, and
+    the device-busy share of step 2 by torch.profiler; fails on a
+    non-finite loss or norm, on launch counts a step that differ from
+    ``train_plan``, and on a bf16 B1 forward off the tensor-core kernel.
+    Returns the launches of the whole run, for the table."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.kernels.rglru_scan.kernel import (rglru_scan_bwd_cuda,
+                                                       rglru_scan_cuda)
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import train
+    cfg = get_config(arch)
+    plan = train_plan(cfg)
+    counters = {"flash_attention": (flash_attention_cuda, "launches_sm90"),
+                "flash_attention_bwd": (flash_attention_bwd_cuda,
+                                        "launches"),
+                "rglru_scan": (rglru_scan_cuda, "launches"),
+                "rglru_scan_bwd": (rglru_scan_bwd_cuda, "launches")}
+    counters = {k: v for k, v in counters.items() if k in plan}
+    gc.collect()                   # the last serve's engine
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn, _ in counters.values():
+        fn.launches = 0
+    flash_attention_cuda.launches_sm90 = 0
+    total = {k: 0 for k in counters}
+    steps = []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        cuda_core = flash_attention_cuda.launches - \
+            flash_attention_cuda.launches_sm90
+        for fn, _ in counters.values():
+            fn.launches = 0
+        flash_attention_cuda.launches_sm90 = 0
+        for k, n in got.items():
+            total[k] += n
+        row = {"step": step, "wall_s": metrics["step_s"],
+               "loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"]),
+               "lr": float(metrics["lr"]), "launches": got,
+               "cuda_core_flash": cuda_core}
+        steps.append(row)
+        log(f"[{tag}] step {step}: wall {row['wall_s']:.3f} s  loss "
+            f"{row['loss']:.4f}  grad norm {row['grad_norm']:.4f}  lr "
+            f"{row['lr']:.3e}  launches {got} (plan {plan}); CUDA-core B1 "
+            f"forward {cuda_core}")
+        if not (np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])):
+            raise SystemExit(f"{arch}: step {step} is not finite: {row}")
+        if got != plan or cuda_core:
+            raise SystemExit(f"{arch}: step {step} launched {got} and "
+                             f"{cuda_core} CUDA-core B1 forwards, the plan "
+                             f"is {plan} and none")
+        if step == 1:              # profile step 2
+            prof.start()
+        elif step == 2:
+            prof.stop()
+
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers at the published "
+        f"widths, bf16, AdamW moments in bf16, B=1 S={TRAIN_SEQ}, remat on, "
+        f"{TRAIN_STEPS} steps; launches a step by the plan: {plan}")
+    t0 = time.perf_counter()
+    params, hist = train(
+        cfg, steps=TRAIN_STEPS, batch_size=1, seq_len=TRAIN_SEQ, seed=0,
+        param_dtype=torch.bfloat16,
+        opt_cfg=AdamWConfig(state_dtype=torch.bfloat16,
+                            total_steps=TRAIN_STEPS, warmup_steps=1),
+        log_every=0, remat=True, device="cuda", on_step=on_step)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    del params
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            by_kernel[e.key] = (e.count, e.self_device_time_total / 1e3)
+    device_ms = sum(ms for _, ms in by_kernel.values())
+    wall_ms = 1e3 * steps[2]["wall_s"]
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:8]
+    shares = {}
+    for name, (_, ms) in by_kernel.items():
+        kind = next((k for k, pat in DEVICE_KINDS
+                     if re.search(pat, name, re.IGNORECASE)),
+                    "other")
+        shares[kind] = shares.get(kind, 0.0) + ms
+    log(f"[{tag}] {n_params} parameters; {run_s:.1f} s in all (weights and "
+        f"moments drawn included); peak memory {peak_gb:.2f} GB")
+    log(f"[{tag}] step 2 under torch.profiler: device busy {device_ms:.1f} "
+        f"ms of {wall_ms:.1f} ms wall = {device_ms / wall_ms:.3f}; top "
+        "device kernels (launches, ms): " +
+        "; ".join(f"{k[:60]}: {n}, {ms:.1f}" for k, (n, ms) in top))
+    log(f"[{tag}] step 2's device ms by kind: " + ", ".join(
+        f"{k} {ms:.1f}" for k, ms in sorted(shares.items(),
+                                             key=lambda kv: -kv[1])))
+    report[tag] = {"arch": arch, "n_layers": cfg.n_layers,
+                   "parameters": n_params, "seq_len": TRAIN_SEQ,
+                   "steps": steps, "plan": plan, "run_s": run_s,
+                   "peak_gb": peak_gb, "busy_ms": device_ms,
+                   "profiled_wall_ms": wall_ms,
+                   "busy_share": device_ms / wall_ms,
+                   "device_ms_by_kind": shares,
+                   "top_kernels": {k: v for k, v in top}}
+    return total
 
 
 def _prompt_batch(eng, prompt) -> dict:
@@ -914,8 +1378,15 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
     report: dict = {}
     smi = phase_environment(report)
+    secs = {}
+    t0 = time.perf_counter()
     main_cases = phase_kernels(report)
+    secs["2 kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     phase_reduced(report)
+    phase_train_reduced(report)
+    secs["3 reduced"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_cuda,
     )
@@ -949,6 +1420,15 @@ def main() -> int:
     whisper_lengths = np.random.default_rng(0).integers(4, 224, 12)
     by_path[WHISPER] = phase_serve(report, "serve-whisper", WHISPER,
                                    whisper_lengths, 448, attention)
+    secs["4 serves"] = time.perf_counter() - t0
+    # phase 5: training at the published widths
+    t0 = time.perf_counter()
+    for arch in ("llama3.1-8b", "recurrentgemma-2b"):
+        by_path[f"train-{arch}"] = phase_train(report, f"train-{arch}", arch)
+    secs["5 train"] = time.perf_counter() - t0
+    log(f"[time] seconds by phase: "
+        f"{ {k: round(v, 1) for k, v in secs.items()} }")
+    report["phase_s"] = secs
     table = {"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
@@ -991,6 +1471,16 @@ def main() -> int:
         {"name": "mlstm_chunk", "route": "cuda",
          "source": "src/repro_torch/csrc/mlstm_chunk.cu",
          "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:76"},
+        # the backwards: the gradients of the JAX functions that jax.grad
+        # differentiates where the port runs B1 and B3
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:84",
+         "grad_of": "src/repro/models/layers.py:105 gqa_attention"},
+        {"name": "rglru_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan/kernel.py:54",
+         "grad_of": "src/repro/models/rglru.py:114 associative_scan"},
     ]}
     for row in table["kernels"]:
         # a row's case: the kernel's main case, or the one it names; B2 has
@@ -1010,6 +1500,9 @@ def main() -> int:
             row["library_per_slot_ms"] = c["library_per_slot_ms"]
         if c.get("passes"):   # B4's three launches, by torch.profiler
             row["passes_ms"] = {k: ms for k, (_, ms) in c["passes"].items()}
+        if "elementwise_ms" in c:   # B3's backward: the scan and the rest
+            row.update(reverse_scan_ms=c["reverse_scan_ms"],
+                       elementwise_ms=c["elementwise_ms"])
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(

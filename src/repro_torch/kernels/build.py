@@ -23,7 +23,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("flash_attention", "decode_attention", "rglru_scan",
-           "mlstm_chunk", "flash_attention_sm90", "decode_attention_sm90")
+           "mlstm_chunk", "flash_attention_sm90", "decode_attention_sm90",
+           "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -88,15 +89,20 @@ def check_operands(align: int = 16, **tensors) -> None:
     """Raise unless every tensor lies on one CUDA device, is contiguous and
     ``align``-byte aligned (16 for the attention kernels' vector loads), and
     all share one dtype the kernels take. Raise ``RuntimeError`` first if
-    autograd would record the call: the kernels have no backward yet, and
-    their outputs would silently cut the graph."""
+    autograd would record the call: a raw wrapper never records a graph,
+    and its output would silently cut it. Flash attention (B1) and the
+    RG-LRU scan (B3) are differentiated through their autograd functions,
+    which call the wrappers with grad mode off; decode attention (B2), which
+    no training path differentiates, and the mLSTM (B4), whose backward is
+    still to come, have none."""
     if torch.is_grad_enabled():
         needs = [name for name, t in tensors.items() if t.requires_grad]
         if needs:
             raise RuntimeError(
-                f"{', '.join(needs)} require grad, but the CUDA kernels have "
-                "no backward yet (ROADMAP A6); call them under "
-                "torch.no_grad() or detach the operands")
+                f"{', '.join(needs)} require grad, but this CUDA kernel has "
+                "no backward: decode attention (B2) is never differentiated "
+                "and the mLSTM (B4) waits for its backward (ROADMAP A6b); "
+                "call it under torch.no_grad() or detach the operands")
     first = next(iter(tensors.values()))
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != first.device:

@@ -1,6 +1,16 @@
-"""ctypes wrapper of the CUDA RG-LRU scan (``csrc/rglru_scan.cu``).
+"""ctypes wrapper of the CUDA RG-LRU scan (``csrc/rglru_scan.cu``), and its
+backward.
 
 ``rglru_scan_cuda.launches`` counts the kernel's launches (one per call).
+
+The backward is the same kernel run on reversed time: the gradient g of
+the states obeys g_t = dy_t + a_{t+1} g_{t+1} (g_S = dy_S, a_t =
+exp(log_a_t)), the forward recurrence on flipped time with the decays
+shifted by one step. ``rglru_scan_bwd_cuda`` runs that scan, then the
+elementwise products dx = g, d log_a_t = g_t a_t h_{t-1} (h_{-1} = h0) and
+dh0 = a_0 g_0 as torch ops; ``rglru_scan_bwd_cuda.launches`` counts its
+reverse scans apart from the forward's. ``RGLRUScan`` is the autograd
+function that joins the two.
 
 The kernel passes each chunk's state to the next through records in a
 workspace that the library counts (``rglru_scan_workspace_floats``). The
@@ -58,10 +68,8 @@ def release_workspaces() -> None:
     _workspaces.clear()
 
 
-def rglru_scan_cuda(log_a, x, h0):
-    """log_a, x: (B, S, W); h0: (B, W); contiguous fp32 CUDA tensors, any
-    S >= 1 and W >= 1. Returns (B, S, W) fp32. Raises on input the kernel
-    does not take and on any CUDA error of the launch."""
+def _scan(log_a, x, h0):
+    """One launch of the scan kernel (uncounted: the wrappers count)."""
     if log_a.ndim != 3 or log_a.shape != x.shape or \
             tuple(h0.shape) != (x.shape[0], x.shape[2]):
         raise ValueError(f"shapes log_a {tuple(log_a.shape)}, x "
@@ -82,8 +90,58 @@ def rglru_scan_cuda(log_a, x, h0):
                  out.data_ptr(), ws.data_ptr(), ws.numel(), epoch, B, S, W,
                  stream)
     build.raise_on_error(lib, "rglru_scan_fwd", err)
+    return out
+
+
+def rglru_scan_cuda(log_a, x, h0):
+    """log_a, x: (B, S, W); h0: (B, W); contiguous fp32 CUDA tensors, any
+    S >= 1 and W >= 1. Returns (B, S, W) fp32. Raises on input the kernel
+    does not take and on any CUDA error of the launch."""
+    out = _scan(log_a, x, h0)
     rglru_scan_cuda.launches += 1
     return out
 
 
 rglru_scan_cuda.launches = 0  # type: ignore[attr-defined]
+
+
+def reverse_scan_inputs(log_a, dy):
+    """The reverse scan's (log_a', x', h0'): the decays shifted one step
+    on and flipped in time, dy flipped, a zero state."""
+    shifted = torch.cat([log_a[:, 1:], torch.zeros_like(log_a[:, :1])], 1)
+    return (torch.flip(shifted, (1,)), torch.flip(dy, (1,)),
+            torch.zeros_like(log_a[:, 0]))
+
+
+def bwd_products(log_a, h0, y, g):
+    """(d log_a, dx, dh0) from the states' gradient g."""
+    a = torch.exp(log_a)
+    h_prev = torch.cat([h0[:, None], y[:, :-1]], 1)
+    return g * a * h_prev, g, a[:, 0] * g[:, 0]
+
+
+def rglru_scan_bwd_cuda(log_a, h0, y, dy):
+    """The gradient of ``rglru_scan_cuda``: log_a, y (its output), dy
+    (B, S, W) and h0 (B, W) fp32 CUDA tensors. Returns (d log_a, dx, dh0).
+    The scan runs on the kernel, once; raises as ``rglru_scan_cuda``."""
+    g = torch.flip(_scan(*reverse_scan_inputs(log_a, dy)), (1,))
+    rglru_scan_bwd_cuda.launches += 1
+    return bwd_products(log_a, h0, y, g)
+
+
+rglru_scan_bwd_cuda.launches = 0  # type: ignore[attr-defined]
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The RG-LRU scan on the card with its backward on the same kernel."""
+
+    @staticmethod
+    def forward(ctx, log_a, x, h0):
+        y = rglru_scan_cuda(log_a, x, h0)
+        ctx.save_for_backward(log_a, h0, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        log_a, h0, y = ctx.saved_tensors
+        return rglru_scan_bwd_cuda(log_a, h0, y, dy.contiguous())

@@ -1,8 +1,9 @@
 """Plain PyTorch RG-LRU scan: the sequential recurrence in fp32, as
 ``repro.kernels.rglru_scan.ref``.
 
-The CPU path of ``ops.rglru_scan`` and the version the CUDA kernel is held
-against on the card.
+The CPU path of ``ops.rglru_scan`` (autograd differentiates it there) and
+the version the CUDA kernel is held against on the card; beside it the
+plain backward that the CUDA backward is held against.
 """
 from __future__ import annotations
 
@@ -22,3 +23,18 @@ def rglru_scan_ref(log_a, x, h0):
         h = a[:, t] * h + xf[:, t]
         out[:, t] = h
     return out
+
+
+def rglru_scan_bwd_ref(log_a, h0, y, dy):
+    """The scan's gradient by the plain scan run on reversed time:
+    g_t = dy_t + a_{t+1} g_{t+1}, g_S = dy_S; then dx = g,
+    d log_a_t = g_t a_t h_{t-1} (h_{-1} = h0, h the forward's output y) and
+    dh0 = a_0 g_0. Returns (d log_a, dx, dh0), fp32."""
+    log_a, h0, y, dy = (t.float() for t in (log_a, h0, y, dy))
+    shifted = torch.cat([log_a[:, 1:], torch.zeros_like(log_a[:, :1])], 1)
+    g = torch.flip(rglru_scan_ref(torch.flip(shifted, (1,)),
+                                  torch.flip(dy, (1,)),
+                                  torch.zeros_like(h0)), (1,))
+    a = torch.exp(log_a)
+    h_prev = torch.cat([h0[:, None], y[:, :-1]], 1)
+    return g * a * h_prev, g, a[:, 0] * g[:, 0]

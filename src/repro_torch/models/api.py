@@ -5,7 +5,7 @@ per family (dense, moe and vlm: ``transformer``, hybrid: ``rglru``, ssm:
 Usage:
     lm = LM(cfg)
     params = lm.init(torch.Generator(device).manual_seed(0), device=device)
-    logits, aux = lm.forward_train(params, batch)
+    logits, aux = lm.forward_train(params, batch)      # remat=True
     loss = lm.loss(params, batch)
     cache = lm.init_cache(batch_size, max_len, device=device)
     logits, cache = lm.prefill(params, batch, cache)
@@ -63,9 +63,11 @@ class LM:
                                    device=resolve_device(device))
 
     # -- forward passes ------------------------------------------------------
-    def forward_train(self, params, batch, *, window=None):
+    def forward_train(self, params, batch, *, window=None, remat=True):
+        """Full-sequence forward; ``remat`` recomputes each layer group's
+        activations in the backward rather than keeping them."""
         return self.mod.forward_train(params, self.cfg, batch,
-                                      window=window)
+                                      window=window, remat=remat)
 
     def prefill(self, params, batch, cache, *, window=None):
         return self.mod.prefill(params, self.cfg, batch, cache,
@@ -76,9 +78,10 @@ class LM:
                                     window=window)
 
     # -- losses ---------------------------------------------------------------
-    def loss(self, params, batch, *, window=None):
+    def loss(self, params, batch, *, window=None, remat=True):
         """Causal LM loss: tokens predict labels; labels < 0 are masked."""
-        logits, aux = self.forward_train(params, batch, window=window)
+        logits, aux = self.forward_train(params, batch, window=window,
+                                         remat=remat)
         labels = batch["labels"]
         lse = torch.logsumexp(logits.float(), dim=-1)
         gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long()

@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -25,6 +26,13 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 # gqa_attention and decode_attention run the hand-written kernels on CUDA
 # tensors and their plain versions on CPU tensors (the JAX layers' contract).
 gqa_attention = flash_attention
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward
+    rather than kept, as the JAX package's ``jax.checkpoint`` of a layer
+    group's body (``remat``)."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------

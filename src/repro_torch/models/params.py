@@ -85,9 +85,52 @@ def init_from_specs(specs: Dict[str, tuple], generator: torch.Generator,
     return unflatten(flat)
 
 
+def flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The leaves of a tree of dicts and tuples keyed by their paths joined
+    with "/", as ``repro.training.checkpoint._flatten`` joins them (a
+    tuple's entries under their index); ``unflatten`` inverts it for a
+    parameter tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, tuple):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    flat = {}
+    for k, v in items:
+        flat.update(flatten(v, f"{prefix}/{k}" if prefix else str(k)))
+    return flat
+
+
+def map_leaves(fn, tree):
+    """``tree`` with every tensor leaf replaced by ``fn(leaf)``."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(map_leaves(fn, v) for v in tree)
+    return fn(tree)
+
+
+def rebuild(like, leaves) -> dict:
+    """A tree of ``like``'s structure whose leaves are ``leaves``, in the
+    order ``flatten(like)`` lists them."""
+    it = iter(leaves)
+    return map_leaves(lambda _: next(it), like)
+
+
+def unbind_layers(tree):
+    """A stacked subtree with each leaf split into the list of its layers
+    (``unbind`` views), which ``layer_of`` indexes. The models take their
+    layers from these: in training, the backward of one ``unbind`` stacks
+    the layers' gradients once, where a ``select`` for each layer would add
+    a zero-filled gradient of the whole stacked leaf for every layer."""
+    return map_leaves(lambda t: list(t.unbind(0)), tree)
+
+
 def layer_of(tree, g: int):
     """Layer ``g`` of a stacked subtree (dicts and tuples of tensors with a
-    leading layer dim), as views."""
+    leading layer dim, or of the lists ``unbind_layers`` makes), as
+    views."""
     if isinstance(tree, dict):
         return {k: layer_of(v, g) for k, v in tree.items()}
     if isinstance(tree, tuple):

@@ -25,7 +25,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rglru_scan.ops import rglru_scan
 from repro_torch.models import layers as L
-from repro_torch.models.params import LRU_LAMBDA, layer_of, prefixed
+from repro_torch.models.params import (LRU_LAMBDA, layer_of, prefixed,
+                                      unbind_layers)
 
 _N_BLOCKS = 8   # block-diagonal gate projections (Griffin Appendix A)
 _LRU_C = 8.0
@@ -211,7 +212,10 @@ def _rec_apply(p, x, cfg, state, mode):
     return x + L.mlp_forward(p["ffn"], h, cfg)
 
 
-def _run_stack(params, x, cfg, mode: str, cache=None):
+def _run_stack(params, x, cfg, mode: str, cache=None, remat=False):
+    """The pattern's groups, then the unrolled ``rest`` layers; in training
+    each group is rematerialised where ``remat`` asks (the ``rest`` layers
+    are not, as in the JAX package)."""
     G, pat, rest = _plan(cfg)
     pos = cache["pos"] if cache is not None else None
 
@@ -220,11 +224,17 @@ def _run_stack(params, x, cfg, mode: str, cache=None):
             return _rec_apply(p, x, cfg, state, mode)
         return _attn_apply(p, x, cfg, state, mode, pos)
 
-    for g in range(G):
+    def group(slots, x, g):
         for i, kind in enumerate(pat):
             state = layer_of(cache["slots"][i], g) if cache is not None \
                 else None
-            x = apply(kind, layer_of(params["slots"][i], g), x, state)
+            x = apply(kind, slots[i], x, state)
+        return x
+
+    slots = unbind_layers(params["slots"])
+    for g in range(G):
+        args = (layer_of(slots, g), x, g)
+        x = L.checkpointed(group, *args) if remat else group(*args)
     for j, kind in enumerate(rest):
         x = apply(kind, params["rest"][j], x,
                   cache["rest"][j] if cache is not None else None)
@@ -236,10 +246,12 @@ def _logits(params, x, cfg):
     return x @ params["unembed"]
 
 
-def forward_train(params, cfg, batch, *, window=None):
-    """Full-sequence forward. Returns (logits (B, S, V), aux loss 0)."""
+def forward_train(params, cfg, batch, *, window=None, remat=True):
+    """Full-sequence forward, each group of the pattern rematerialised in
+    the backward where ``remat`` asks. Returns (logits (B, S, V), aux loss
+    0)."""
     x = params["embed"][batch["tokens"]]
-    x = _run_stack(params, x, cfg, "train")
+    x = _run_stack(params, x, cfg, "train", remat=remat)
     return _logits(params, x, cfg), torch.zeros((), device=x.device)
 
 

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.moe_layer import init_moe, moe_forward
-from repro_torch.models.params import layer_of, prefixed
+from repro_torch.models.params import layer_of, prefixed, unbind_layers
 
 
 def _slot_kinds(cfg):
@@ -68,34 +68,45 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _run_stack(params, x, cfg, mode: str, cache=None, window=None):
-    """The layers in order (group g, then slot i). Returns (x, the summed
-    aux loss of the MoE FFNs)."""
+def _group(slots, x, aux, cfg, mode: str, cache, g: int, window):
+    """Group g's layers (slot i of ``slots``, its parameters). Returns
+    (x, aux plus their MoE FFNs' aux loss)."""
+    for i, kind in enumerate(_slot_kinds(cfg)):
+        p = slots[i]
+        h = L.apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
+        if mode == "train":
+            a = L.attn_forward(p["attn"], h, cfg, window=window)
+        else:
+            kv = cache["slots"][i]
+            if mode == "prefill":
+                a, _, _ = L.attn_prefill(p["attn"], h, cfg, kv["k"][g],
+                                         kv["v"][g], window=window)
+            else:
+                a, _, _ = L.attn_decode(p["attn"], h, cfg, kv["k"][g],
+                                        kv["v"][g], cache["pos"],
+                                        window=window)
+        x = x + a
+        h = L.apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps)
+        if kind == "moe":
+            f, aux_i = moe_forward(p["ffn"], h, cfg,
+                                   dropless=(mode == "decode"))
+            aux = aux + aux_i
+        else:
+            f = L.mlp_forward(p["ffn"], h, cfg)
+        x = x + f
+    return x, aux
+
+
+def _run_stack(params, x, cfg, mode: str, cache=None, window=None,
+               remat=False):
+    """The layers in order (group g, then slot i); in training each group
+    is rematerialised where ``remat`` asks. Returns (x, the summed aux loss
+    of the MoE FFNs)."""
     aux = torch.zeros((), device=x.device)
+    slots = unbind_layers(params["slots"])
     for g in range(_n_groups(cfg)):
-        for i, kind in enumerate(_slot_kinds(cfg)):
-            p = layer_of(params["slots"][i], g)
-            h = L.apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
-            if mode == "train":
-                a = L.attn_forward(p["attn"], h, cfg, window=window)
-            else:
-                kv = cache["slots"][i]
-                if mode == "prefill":
-                    a, _, _ = L.attn_prefill(p["attn"], h, cfg, kv["k"][g],
-                                             kv["v"][g], window=window)
-                else:
-                    a, _, _ = L.attn_decode(p["attn"], h, cfg, kv["k"][g],
-                                            kv["v"][g], cache["pos"],
-                                            window=window)
-            x = x + a
-            h = L.apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps)
-            if kind == "moe":
-                f, aux_i = moe_forward(p["ffn"], h, cfg,
-                                       dropless=(mode == "decode"))
-                aux = aux + aux_i
-            else:
-                f = L.mlp_forward(p["ffn"], h, cfg)
-            x = x + f
+        args = (layer_of(slots, g), x, aux, cfg, mode, cache, g, window)
+        x, aux = L.checkpointed(_group, *args) if remat else _group(*args)
     return x, aux
 
 
@@ -104,11 +115,12 @@ def _logits(params, x, cfg):
     return x @ params["unembed"]
 
 
-def forward_train(params, cfg, batch, *, window=None):
-    """Full-sequence forward. Returns (logits (B, S, V), the MoE FFNs'
+def forward_train(params, cfg, batch, *, window=None, remat=True):
+    """Full-sequence forward, each group of layers rematerialised in the
+    backward where ``remat`` asks. Returns (logits (B, S, V), the MoE FFNs'
     summed aux loss, 0 without them)."""
     x = params["embed"][batch["tokens"]]
-    x, aux = _run_stack(params, x, cfg, "train", window=window)
+    x, aux = _run_stack(params, x, cfg, "train", window=window, remat=remat)
     return _logits(params, x, cfg), aux
 
 

@@ -23,7 +23,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models.params import layer_of, prefixed
+from repro_torch.models.params import layer_of, prefixed, unbind_layers
 
 
 def param_specs(cfg) -> Dict[str, tuple]:
@@ -71,8 +71,9 @@ def encode(params, cfg, enc_feats):
     x = enc_feats + L.sinusoidal_pos(
         torch.arange(S, device=enc_feats.device), cfg.d_model,
         enc_feats.dtype)
+    enc = unbind_layers(params["enc"])
     for g in range(cfg.n_encoder_layers):
-        p = layer_of(params["enc"], g)
+        p = layer_of(enc, g)
         h = L.apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
         x = x + L.attn_forward(p["attn"], h, cfg, causal=False)
         h = L.apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps)
@@ -91,33 +92,40 @@ def _dec_embed(params, cfg, tokens, pos0):
     return x + L.sinusoidal_pos(positions, cfg.d_model, x.dtype)
 
 
+def _dec_layer(p, x, cfg, mode: str, cache, g: int, enc_out, window):
+    """Decoder layer g (``p``, its parameters)."""
+    h = L.apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
+    if mode == "train":
+        a = L.attn_forward(p["attn"], h, cfg, window=window)
+        ck, cv = L.cross_attn_cache(p["cross"], enc_out, cfg)
+    elif mode == "prefill":
+        a, _, _ = L.attn_prefill(p["attn"], h, cfg, cache["k"][g],
+                                 cache["v"][g], window=window)
+        ck, cv = L.cross_attn_cache(p["cross"], enc_out, cfg)
+        cache["ck"][g].copy_(ck)
+        cache["cv"][g].copy_(cv)
+    else:
+        a, _, _ = L.attn_decode(p["attn"], h, cfg, cache["k"][g],
+                                cache["v"][g], cache["pos"],
+                                window=window)
+        ck, cv = cache["ck"][g], cache["cv"][g]
+    x = x + a
+    h = L.apply_norm(x, p["ln_c"], cfg.norm, cfg.norm_eps)
+    x = x + L.cross_attn_apply(p["cross"], h, cfg, ck, cv)
+    h = L.apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps)
+    return x + L.mlp_forward(p["ffn"], h, cfg)
+
+
 def _dec_stack(params, cfg, x, mode: str, cache=None, enc_out=None,
-               window=None):
+               window=None, remat=False):
     """mode: train, prefill or decode. Train and prefill take ``enc_out``;
     prefill stores its cross K and V in the cache, decode reads them
-    there."""
+    there. In training each decoder layer is rematerialised where
+    ``remat`` asks (the encoder's are not, as in the JAX package)."""
+    dec = unbind_layers(params["dec"])
     for g in range(cfg.n_layers):
-        p = layer_of(params["dec"], g)
-        h = L.apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
-        if mode == "train":
-            a = L.attn_forward(p["attn"], h, cfg, window=window)
-            ck, cv = L.cross_attn_cache(p["cross"], enc_out, cfg)
-        elif mode == "prefill":
-            a, _, _ = L.attn_prefill(p["attn"], h, cfg, cache["k"][g],
-                                     cache["v"][g], window=window)
-            ck, cv = L.cross_attn_cache(p["cross"], enc_out, cfg)
-            cache["ck"][g].copy_(ck)
-            cache["cv"][g].copy_(cv)
-        else:
-            a, _, _ = L.attn_decode(p["attn"], h, cfg, cache["k"][g],
-                                    cache["v"][g], cache["pos"],
-                                    window=window)
-            ck, cv = cache["ck"][g], cache["cv"][g]
-        x = x + a
-        h = L.apply_norm(x, p["ln_c"], cfg.norm, cfg.norm_eps)
-        x = x + L.cross_attn_apply(p["cross"], h, cfg, ck, cv)
-        h = L.apply_norm(x, p["ln2"], cfg.norm, cfg.norm_eps)
-        x = x + L.mlp_forward(p["ffn"], h, cfg)
+        args = (layer_of(dec, g), x, cfg, mode, cache, g, enc_out, window)
+        x = L.checkpointed(_dec_layer, *args) if remat else _dec_layer(*args)
     return x
 
 
@@ -126,12 +134,15 @@ def _logits(params, x, cfg):
     return x @ params["unembed"]
 
 
-def forward_train(params, cfg, batch, *, window=None):
+def forward_train(params, cfg, batch, *, window=None, remat=True):
     """Full-sequence forward of ``batch["tokens"]`` over
-    ``batch["enc_feats"]``. Returns (logits (B, S, V), aux loss 0)."""
+    ``batch["enc_feats"]``, each decoder layer rematerialised in the
+    backward where ``remat`` asks. Returns (logits (B, S, V), aux loss
+    0)."""
     enc_out = encode(params, cfg, batch["enc_feats"])
     x = _dec_embed(params, cfg, batch["tokens"], 0)
-    x = _dec_stack(params, cfg, x, "train", enc_out=enc_out, window=window)
+    x = _dec_stack(params, cfg, x, "train", enc_out=enc_out, window=window,
+                   remat=remat)
     return _logits(params, x, cfg), torch.zeros((), device=x.device)
 
 

@@ -30,7 +30,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
 from repro_torch.kernels.mlstm_chunk.ref import NEG
 from repro_torch.models import layers as L
-from repro_torch.models.params import IF_BIAS, layer_of, prefixed
+from repro_torch.models.params import (IF_BIAS, layer_of, prefixed,
+                                      unbind_layers)
 
 
 def _slot_kinds(cfg):
@@ -168,8 +169,9 @@ def _mlstm_block(p, x, cfg, state, mode):
                           log_f[:, 0], state)[:, None]
     else:
         h, new = mlstm_chunk(q, k, v, log_i, log_f, state)
-        for leaf, t in zip(state, new):
-            leaf.copy_(t)
+        if mode != "train":
+            for leaf, t in zip(state, new):
+                leaf.copy_(t)
     h = h.reshape(B, S, -1).to(x.dtype)
     return x + (h * gate) @ p["w_down"]
 
@@ -211,8 +213,9 @@ def _slstm_block(p, x, cfg, state, mode):
         for t in range(x.shape[1]):
             st = _slstm_step(r, cfg, pre[:, t], st)
             hs.append(st[3])
-    for leaf, t in zip(state, st):
-        leaf.copy_(t)
+    if mode != "train":
+        for leaf, t in zip(state, st):
+            leaf.copy_(t)
     out = torch.stack(hs, dim=1).to(x.dtype) @ p["w_out"]
     return x + out
 
@@ -221,13 +224,23 @@ def _slstm_block(p, x, cfg, state, mode):
 # stack
 # ---------------------------------------------------------------------------
 
-def _run_stack(params, x, cfg, mode: str, cache):
+def _run_stack(params, x, cfg, mode: str, cache, remat=False):
+    """The groups of the period in order. Train reads the states of
+    ``cache`` and writes none back (autograd keeps what it read), each group
+    rematerialised where ``remat`` asks; prefill and decode write them in
+    place."""
     kinds = _slot_kinds(cfg)
-    for g in range(_n_groups(cfg)):
+
+    def group(slots, x, g):
         for i, kind in enumerate(kinds):
             blk = _mlstm_block if kind == "mlstm" else _slstm_block
-            x = blk(layer_of(params["slots"][i], g), x, cfg,
-                    layer_of(cache["slots"][i], g), mode)
+            x = blk(slots[i], x, cfg, layer_of(cache["slots"][i], g), mode)
+        return x
+
+    slots = unbind_layers(params["slots"])
+    for g in range(_n_groups(cfg)):
+        args = (layer_of(slots, g), x, g)
+        x = L.checkpointed(group, *args) if remat else group(*args)
     return x
 
 
@@ -236,12 +249,13 @@ def _logits(params, x, cfg):
     return x @ params["unembed"]
 
 
-def forward_train(params, cfg, batch, *, window=None):
-    """Full-sequence forward from a zero state. Returns (logits (B, S, V),
-    aux loss 0)."""
+def forward_train(params, cfg, batch, *, window=None, remat=True):
+    """Full-sequence forward from a zero state, each group rematerialised
+    in the backward where ``remat`` asks. Returns (logits (B, S, V), aux
+    loss 0)."""
     x = params["embed"][batch["tokens"]]
     cache = init_cache(cfg, x.shape[0], 0, device=x.device)
-    x = _run_stack(params, x, cfg, "prefill", cache)
+    x = _run_stack(params, x, cfg, "train", cache, remat=remat)
     return _logits(params, x, cfg), torch.zeros((), device=x.device)
 
 

@@ -11,8 +11,12 @@ differ by one bf16 step, at most 2^-7 of the value: each element must be
 within 1e-3 + 1e-2 |plain|, and never more than test_kernels.py's 3e-2 (the
 tensor-core flash kernel feeds P to its bf16 products as two bf16 halves,
 so its weights keep ~16 bits, as the plain version's fp32 ones).
-A long slot's output is ~0.05, so a lost split shows. The RG-LRU scan is
-fp32 only: 1e-4, as test_kernels.py (the carry across chunks is exp of a
+A long slot's output is ~0.05, so a lost split shows. The backwards:
+flash attention's dq, dk and dv within 1e-4 · max |plain| in fp32 and
+2e-2 · max |plain| in bf16 (the plain backward in fp32 from the same bf16
+inputs), the RG-LRU scan's within 1e-4 · max |plain|; a reduced model's
+gradients on the card within 1e-4 · max(1, max |g_cpu|) of the CPU's.
+The RG-LRU scan is fp32 only: 1e-4, as test_kernels.py (the carry across chunks is exp of a
 summed log decay where the plain version multiplies step by step). The
 chunkwise mLSTM is fp32 only: 2e-4 on h, as test_kernels.py (chunks of 64
 against the plain version's 256, products in split TF32, other sum orders;
@@ -486,39 +490,188 @@ def _requires_grad(tree):
     return tree.requires_grad_() if tree.is_floating_point() else tree
 
 
-def test_kernels_refuse_autograd(cuda):
-    """The kernels have no backward yet: under grad mode a call with an
-    operand that requires grad raises instead of cutting the graph, which
-    would leave wq, wk, wv and the norms before attention without a
-    gradient."""
+def _loss_grads(lm, params, batch, device):
+    """``LM.loss`` (remat on) and its gradients on ``device``, keyed by
+    leaf path."""
+    from repro_torch.models.params import flatten, unflatten
+    leaves = {k: v.detach().to(device).requires_grad_()
+              for k, v in flatten(params).items()}
+    loss = lm.loss(unflatten(leaves), {k: v.to(device)
+                                       for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss.detach()), {k: g.cpu() for k, g in zip(leaves, grads)}
+
+
+def _check_card_grads(arch):
+    """The reduced model's loss and every gradient leaf on the card (B1 and
+    B3 forward and backward kernels) against the CPU's (autograd through
+    the plain versions): 1e-4 on the loss, 1e-4 · max(1, max |g_cpu|) on a
+    leaf."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda)
     from repro_torch.models import LM
-    cfg = get_config("llama3.1-8b").reduced()
+    cfg = get_config(arch).reduced()
     lm = LM(cfg)
-    params = _requires_grad(lm.init(cuda, device="cuda"))
-    toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=cuda,
-                         device="cuda")
-    with pytest.raises(RuntimeError, match="no backward"):
-        lm.forward_train(params, {"tokens": toks})
+    params = lm.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    labels = toks.roll(-1, dims=1)
+    labels[:, -1] = -1
+    batch = {"tokens": toks, "labels": labels, **_frames(cfg, 2)}
+    before = flash_attention_bwd_cuda.launches
+    loss, grads = _loss_grads(lm, params, batch, "cuda")
+    assert flash_attention_bwd_cuda.launches > before   # the kernel ran
+    cpu_loss, cpu_grads = _loss_grads(lm, params, batch, "cpu")
+    assert abs(loss - cpu_loss) < 1e-4
+    for key, g in cpu_grads.items():
+        scale = max(1.0, float(g.abs().max()))
+        assert float((grads[key] - g).abs().max()) <= 1e-4 * scale, key
+
+
+def test_kernels_refuse_autograd(cuda):
+    """Flash attention differentiates on the card (the Llama reduced
+    model's gradients match the CPU's), through its autograd function; a
+    raw wrapper called with an operand that requires grad under grad mode
+    still raises, and decode attention (B2), which no training path
+    differentiates, raises "no backward" rather than cut the graph."""
+    _check_card_grads("llama3.1-8b")
     q = _randn(cuda, (1, 8, 4, 16), "float32").requires_grad_()
     k = _randn(cuda, (1, 8, 2, 16), "float32")
     with pytest.raises(RuntimeError, match="no backward"):
         flash_attention_cuda(q, k, k, causal=True)
+    qd = _randn(cuda, (2, 1, 4, 16), "float32").requires_grad_()
+    kc = _randn(cuda, (2, 32, 2, 16), "float32")
+    pos = torch.tensor([3, 9], dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        decode_attention_cuda(qd, kc, kc, pos)
     with torch.no_grad():                    # inference is untouched
         flash_attention_cuda(q, k, k, causal=True)
+        decode_attention_cuda(qd, kc, kc, pos)
 
 
 def test_loss_refuses_autograd(cuda):
-    """``LM.loss`` on the card with parameters that require grad stops at
-    the first kernel, as ``forward_train`` does."""
+    """``LM.loss`` of the reduced Chameleon (QK-norm) differentiates on the
+    card to the CPU's gradients; the xLSTM's, whose mLSTM kernel (B4) has
+    no backward yet, raises "no backward" instead of cutting the graph."""
+    _check_card_grads("chameleon-34b")
     from repro_torch.configs import get_config
     from repro_torch.models import LM
-    lm = LM(get_config("chameleon-34b").reduced())
+    lm = LM(get_config("xlstm-350m").reduced())
     params = _requires_grad(lm.init(cuda, device="cuda"))
     toks = torch.randint(0, lm.cfg.vocab_size, (2, 9), generator=cuda,
                          device="cuda")
     with pytest.raises(RuntimeError, match="no backward"):
-        lm.loss(params, {"tokens": toks, "labels": toks})
+        lm.loss(params, {"tokens": toks, "labels": toks}).backward()
     with torch.no_grad():
         assert torch.isfinite(lm.loss(params, {"tokens": toks,
                                                "labels": toks}))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "whisper-large-v3",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_reduced_model_grads_on_card_match_cpu(cuda, arch):
+    _check_card_grads(arch)
+
+
+# (B, Sq, Skv, Hq, K, hd, causal, window, q_pos_offset): ragged shapes and
+# tile edges in both dtypes (fp32 takes the CUDA-core passes, bf16 the
+# tensor-core ones, whose tiles are 64 rows and keys and whose head dims
+# pad to 64, 128 or 256)
+FLASH_BWD_CASES = [
+    (2, 37, 37, 4, 2, 16, True, None, 0),
+    (1, 45, 45, 4, 4, 32, True, 8, 0),
+    (2, 5, 29, 8, 2, 16, True, None, 24),
+    (1, 7, 19, 4, 1, 16, False, None, 0),
+    (1, 70, 70, 6, 3, 8, True, 33, 0),
+    (1, 200, 200, 2, 1, 256, True, None, 0),
+    (1, 100, 700, 8, 2, 128, True, None, 600),
+    (1, 50, 90, 4, 4, 64, False, 20, 40),
+    (1, 129, 129, 4, 2, 96, True, None, 0),
+    (1, 63, 63, 4, 2, 64, True, None, 0),
+    (1, 65, 65, 4, 2, 64, True, None, 0),
+    (1, 1000, 1000, 16, 4, 128, True, 256, 0),
+    (8, 1, 1500, 20, 20, 64, False, None, 0),
+]
+# the training shapes, bf16: G = 16, llama3.1-8b and recurrentgemma-2b at
+# S=4096, whisper-large-v3's cross-attention
+FLASH_BWD_TRAIN_CASES = [
+    (1, 1000, 1000, 128, 8, 128, True, None, 0),
+    (1, 4096, 4096, 32, 8, 128, True, None, 0),
+    (1, 4096, 4096, 10, 1, 256, True, 2048, 0),
+    (1, 448, 1500, 20, 20, 64, False, None, 0),
+]
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Skv,Hq,K,hd,causal,window,off,dtype",
+    [c + (d,) for c in FLASH_BWD_CASES for d in ("float32", "bfloat16")] +
+    [c + ("bfloat16",) for c in FLASH_BWD_TRAIN_CASES])
+def test_flash_backward_kernel_matches_plain(cuda, B, Sq, Skv, Hq, K, hd,
+                                             causal, window, off, dtype):
+    """dq, dk and dv against ``flash_attention_bwd_ref`` (fp32 math from
+    the same inputs): within 1e-4 · max |plain| in fp32, 2e-2 · max |plain|
+    in bf16 (P and dS enter the tensor-core products rounded to bf16, and
+    the results are rounded once more)."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref)
+    q = _randn(cuda, (B, Sq, Hq, hd), dtype)
+    k = _randn(cuda, (B, Skv, K, hd), dtype)
+    v = _randn(cuda, (B, Skv, K, hd), dtype)
+    do = _randn(cuda, (B, Sq, Hq, hd), dtype)
+    mask = dict(causal=causal, window=window, q_pos_offset=off)
+    with torch.no_grad():
+        o = flash_attention_cuda(q, k, v, **mask)
+    before = flash_attention_bwd_cuda.launches
+    got = flash_attention_bwd_cuda(q, k, v, o, do, **mask)
+    want = flash_attention_bwd_ref(q, k, v, o, do, **mask)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_cuda.launches == before + 1
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("B,S,W", [(2, 37, 200), (1, 1, 3), (3, 70, 33),
+                                   (1, 4096, 2560), (33, 200, 2561)])
+def test_rglru_scan_backward_matches_plain(cuda, B, S, W):
+    """d log_a, dx and dh0 of the reverse scan against
+    ``rglru_scan_bwd_ref``, within 1e-4 · max |plain|; the autograd
+    function counts its reverse scans apart from the forward's."""
+    from repro_torch.kernels.rglru_scan.kernel import (RGLRUScan,
+                                                       rglru_scan_bwd_cuda)
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
+    la, x = _model_gates(cuda, B, S, W)
+    h0 = torch.randn((B, W), generator=cuda, device="cuda")
+    dy = torch.randn((B, S, W), generator=cuda, device="cuda")
+    la, x, h0 = (t.requires_grad_() for t in (la, x, h0))
+    fwd, bwd = rglru_scan_cuda.launches, rglru_scan_bwd_cuda.launches
+    y = RGLRUScan.apply(la, x, h0)
+    got = torch.autograd.grad(y, (la, x, h0), dy)
+    want = rglru_scan_bwd_ref(la.detach(), h0.detach(), y.detach(), dy)
+    torch.cuda.synchronize()
+    assert (rglru_scan_cuda.launches, rglru_scan_bwd_cuda.launches) == \
+        (fwd + 1, bwd + 1)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_flash_backward_rejects_what_it_does_not_take(cuda):
+    """The bf16 backward takes head dims that are multiples of 8, the fp32
+    one multiples of 4; o and dO must have q's shape."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda)
+    for dtype, hd in (("bfloat16", 12), ("float32", 6)):
+        q = _randn(cuda, (1, 8, 4, hd), dtype)
+        k = _randn(cuda, (1, 8, 2, hd), dtype)
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_attention_bwd_cuda(q, k, k, q, q, causal=True)
+    q = _randn(cuda, (1, 8, 4, 16), "float32")
+    k = _randn(cuda, (1, 8, 2, 16), "float32")
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention_bwd_cuda(q, k, k, q[:, :4], q, causal=True)
