@@ -8,7 +8,7 @@ imports nothing from JAX or the JAX package ``repro``. Phases, each printing
 its own lines; any failure exits non-zero without the result line:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
-   CUDA versions, and the build of the seven CUDA libraries from ``csrc/``
+   CUDA versions, and the build of the eight CUDA libraries from ``csrc/``
    (one ``nvcc`` each, all at once, timed; their ``ptxas`` lines), and the
    count of tensor-core instructions in the SASS of the tensor-core
    kernels (``cuobjdump --dump-sass``): ``HGMMA`` in the bf16 flash
@@ -67,7 +67,11 @@ its own lines; any failure exits non-zero without the result line:
    takes the shape) and its bound (10 hd Hq flops per admitted pair); B3's
    (the scan kernel on reversed time, then the elementwise products) at
    B=1 S=4096 W=2560, with the reverse scan's share and the elementwise
-   share;
+   share; B4's (``mlstm_chunk_bwd.cu``, four CUDA-core launches) against
+   the plain backward evaluated in fp64 at xLSTM-350M's training shape
+   (B=1 S=4096 nh=4 hd=512, fresh state; the forward there too) and a
+   ragged multi-chunk case from a given state, with its launches by
+   ``torch.profiler`` beside ``plan_bwd`` and its workspace bytes;
 3. reduced llama3.1-8b, qwen1.5-4b, starcoder2-15b, chameleon-34b,
    granite-3-8b, phi3.5-moe, llama4-maverick, whisper-large-v3,
    recurrentgemma-2b and xlstm-350m in fp32 on the card: prefill and
@@ -76,11 +80,11 @@ its own lines; any failure exits non-zero without the result line:
    prefills 300 tokens, past the plain version's 256-step chunk; the
    encoder-decoder's frames drawn from the seed), and the engine's tokens
    for three ragged prompts against an isolated prefill + decode of each;
-   then one training step of each but the xLSTM (remat on) in fp32: the
-   loss within 1e-4 of the CPU's, every gradient leaf within
-   1e-4 max(1, max |g_cpu|), AdamW on the card from the CPU's gradients
-   within 1e-6 of the CPU's update; the xLSTM's ``LM.loss(...).backward()``
-   must raise B4's "no backward"; ``train()`` of the reduced qwen1.5-4b
+   then one training step of each (remat on) in fp32: the loss within
+   1e-4 of the CPU's, every gradient leaf within 1e-4 max(1, max |g_cpu|),
+   AdamW on the card from the CPU's gradients within 1e-6 of the CPU's
+   update (the xLSTM on a batch of 300 tokens, past the plain version's
+   256-step chunk); ``train()`` of the reduced qwen1.5-4b
    for 40 steps (test_training.py's settings and assertion), its trained
    parameters served through ``DisaggEngine`` (3 requests), and a
    checkpoint written on the card that restores on the CPU bit for bit;
@@ -114,14 +118,16 @@ its own lines; any failure exits non-zero without the result line:
    tokens.
 
 5. training at the published widths through ``train()``: Llama-3.1-8B (all
-   32 layers) and RecurrentGemma-2B (all 26), bf16 parameters and AdamW
-   moments, B=1 S=4096 (train_4k's sequence), remat on, 4 steps each,
-   printing each step's wall, loss, grad norm and lr, the peak memory and
-   step 2's device-busy share by ``torch.profiler``; each step's launches
-   must match the plan the model's structure gives (B1 forward twice and
-   backward once a rematerialised attention layer, B3 likewise a rec layer,
-   the hybrid's unrolled layers once), and bf16 B1 never runs on the
-   CUDA-core kernel.
+   32 layers), RecurrentGemma-2B (all 26) and xLSTM-350M (all 24: 21
+   mLSTM, 3 sLSTM), bf16 parameters and AdamW moments, B=1 S=4096
+   (train_4k's sequence), remat on, 4 steps each (the xLSTM 3: its sLSTM
+   loop makes a step ~45 s), printing each step's wall, loss, grad norm
+   and lr, the peak memory and step 2's device-busy share by
+   ``torch.profiler`` (for the xLSTM also the sLSTM loop's host share);
+   each step's launches must match the plan the model's structure
+   gives (B1 forward twice and backward once a rematerialised attention
+   layer, B3 likewise a rec layer, B4 an mLSTM layer, the hybrid's
+   unrolled layers once), and bf16 B1 never runs on the CUDA-core kernel.
 
 Each serve and each training run starts with the previous one's engine
 freed and the allocator's cache emptied, and prints its peak device
@@ -161,16 +167,20 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 BWD_TOL_TEXT = {torch.float32: "1e-4 max|plain|",
                 torch.bfloat16: "2e-2 max|plain|"}
 TRAIN_TOL, UPDATE_TOL = 1e-4, 1e-6
-# the reduced archs that train on the card (the xLSTM refuses: no B4
-# backward yet)
+# the reduced archs whose training step is held against the CPU
 TRAIN_ARCHS = ("llama3.1-8b", "qwen1.5-4b", "starcoder2-15b",
                "chameleon-34b", "granite-3-8b", "phi3.5-moe-42b-a6.6b",
                "llama4-maverick-400b-a17b", "whisper-large-v3",
-               "recurrentgemma-2b")
+               "recurrentgemma-2b", "xlstm-350m")
 TRAIN_SEQ, TRAIN_STEPS = 4096, 4   # train_4k's sequence length, B=1
+# the xLSTM's step is ~45 s (its sLSTM loop's ~1.2 million device kernels):
+# 3 steps keep the script within half its time limit; step 2 is profiled
+XLSTM_TRAIN_STEPS = 3
 # device kernels of a training step by kind, by name (the first that
 # matches); the rest is "other"
-DEVICE_KINDS = (("B1 backward", r"bwd_(dq|dkdv|lse)"),
+DEVICE_KINDS = (("B4 backward", r"mlstm_bwd_"),
+                ("B4", r"mlstm_(state|weight|output)_kernel"),
+                ("B1 backward", r"bwd_(dq|dkdv|lse)"),
                 ("B1 forward", r"flash_fwd"),
                 ("B3", r"rglru"),
                 ("GEMM", r"nvjet|gemm|cutlass|xmma|sm90_"),
@@ -540,6 +550,24 @@ def _device_kernels(fn) -> dict:
     return got
 
 
+def _passes(fn, pattern: str, n: int, what: str) -> dict:
+    """The device kernels of one call of fn whose names match ``pattern``,
+    by torch.profiler: {name: (launches, device ms)}; raises unless there
+    are n of them, each launched once. The profiler on the card has at
+    times recorded none of a call's kernels, so a call is profiled up to
+    three times before the check fails."""
+    for _ in range(3):
+        kernels = _device_kernels(fn)
+        passes = {re.search(pattern, k).group(): v
+                  for k, v in kernels.items() if re.search(pattern, k)}
+        if len(passes) == n and all(c == 1 for c, _ in passes.values()):
+            return passes
+    raise RuntimeError(
+        f"{what}: the profiler saw (launches, device ms) {passes} of "
+        f"{pattern} kernels in one call, not {n} passes launched once each; "
+        f"all it saw: {kernels}")
+
+
 def _mlstm_case(B: int, S: int, nh: int, hd: int, given: bool, gen) -> dict:
     from repro_torch.kernels.mlstm_chunk.kernel import (KERNEL_CHUNK,
                                                         _entry,
@@ -578,15 +606,7 @@ def _mlstm_case(B: int, S: int, nh: int, hd: int, given: bool, gen) -> dict:
     # the passes of one call: planned by the wrapper, and as profiled; each
     # pass must show as one launch of its own kernel
     p = plan(B, S, nh, hd)
-    kernels = _device_kernels(kern)
-    passes = {re.search(r"mlstm_\w+", k).group(): v
-              for k, v in kernels.items() if "mlstm_" in k}
-    if len(passes) != p["launches"] or \
-            any(n != 1 for n, _ in passes.values()):
-        raise RuntimeError(
-            f"mlstm_chunk {shape}: the profiler saw (launches, device ms) "
-            f"{passes} of mlstm_ kernels in one call, not {p['launches']} "
-            "passes launched once each")
+    passes = _passes(kern, r"mlstm_\w+", p["launches"], f"mlstm_chunk {shape}")
     # the workspace: the library's count, the plan's, and the memory one
     # call allocates past its outputs (the caching allocator rounds up)
     lib, _ = _entry()
@@ -605,8 +625,7 @@ def _mlstm_case(B: int, S: int, nh: int, hd: int, given: bool, gen) -> dict:
     del out
     log(f"[kernel] mlstm_chunk {shape}: one call launches "
         f"{p['launches']} passes on {p['blocks']} blocks (plan); profiled "
-        f"(launches, device ms): {passes}, "
-        f"{sum(n for n, _ in kernels.values())} device kernels in all; "
+        f"(launches, device ms): {passes}; "
         f"workspace {ws_bytes} bytes (the library's count), "
         f"{ws_alloc} allocated past the outputs (measured)")
     return {"shape": shape,
@@ -617,6 +636,70 @@ def _mlstm_case(B: int, S: int, nh: int, hd: int, given: bool, gen) -> dict:
             "workspace_bytes": ws_bytes, "workspace_alloc_bytes": ws_alloc,
             "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 5),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _mlstm_bwd_case(B: int, S: int, nh: int, hd: int, given: bool,
+                    gen) -> dict:
+    """B4's backward against its plain version evaluated in fp64 at the
+    kernel's chunk (each gradient within 1e-4 max |plain|); its time, the
+    plain version's (fp32), its launches by torch.profiler beside
+    ``plan_bwd``, its workspace bytes, and the bound: 8 B nh S hd^2 + 5 B
+    nh S 64 hd flops at fp32's peak (the dC' chain, C dnum, dC' v and
+    dC'^T k; the causal half of q k^T, dh v^T and the three intra-chunk
+    products), or q, k, v, h, dh, the gates and the chunks' states read
+    and the gradients written once."""
+    from repro_torch.kernels.mlstm_chunk.kernel import (KERNEL_CHUNK,
+                                                        _bwd_entry,
+                                                        forward_states,
+                                                        mlstm_chunk_bwd_cuda,
+                                                        mlstm_chunk_cuda,
+                                                        plan_bwd)
+    from repro_torch.kernels.mlstm_chunk.ref import (make_inputs,
+                                                     mlstm_chunk_bwd_ref)
+    (q, k, v, li, lf), state = make_inputs(gen, B, S, nh, hd, given)
+    dh = torch.randn(q.shape, generator=gen, device="cuda")
+    with torch.no_grad():
+        h, _, ws = mlstm_chunk_cuda(q, k, v, li, lf, *state,
+                                    keep_workspace=True)
+    states = forward_states(ws, B, S, nh, hd)
+
+    def kern():
+        return mlstm_chunk_bwd_cuda(q, k, v, li, lf, state, h, dh, states)
+
+    def plain():
+        return mlstm_chunk_bwd_ref(q, k, v, li, lf, state, dh)
+    got = kern()
+    want = mlstm_chunk_bwd_ref(*(t.double() for t in (q, k, v, li, lf)),
+                               tuple(t.double() for t in state), dh.double(),
+                               chunk=KERNEL_CHUNK)
+    errs = [float((g.double() - w).abs().max()) for g, w in zip(got, want)]
+    rel = [e / float(w.abs().max()) for e, w in zip(errs, want)]
+    del got, want
+    flops = 8.0 * B * nh * S * hd * hd + 5.0 * B * nh * S * KERNEL_CHUNK * hd
+    n_state = sum(t.numel() for t in (*state, *states))
+    n_bytes = 4.0 * (8 * B * S * nh * hd + 4 * B * S * nh + n_state)
+    b_ms, b_by = bound_ms(n_bytes, flops, torch.float32)
+    shape = (f"B={B} S={S} nh={nh} hd={hd} "
+             f"{'given' if given else 'fresh'} state")
+    p = plan_bwd(B, S, nh, hd)
+    passes = _passes(kern, r"mlstm_bwd_\w+", p["launches"],
+                     f"mlstm_chunk_bwd {shape}")
+    lib, _ = _bwd_entry()
+    ws_bytes = 4 * lib.mlstm_chunk_bwd_workspace_floats(B, S, nh, hd)
+    if ws_bytes != p["workspace_bytes"]:
+        raise RuntimeError(f"mlstm_chunk_bwd {shape}: the library needs "
+                           f"{ws_bytes} bytes of workspace, the plan "
+                           f"{p['workspace_bytes']}")
+    log(f"[kernel] mlstm_chunk_bwd {shape}: one call launches "
+        f"{p['launches']} passes on {p['blocks']} blocks (plan); profiled "
+        f"(launches, device ms): {passes}; workspace {ws_bytes} bytes (the "
+        f"library's count); {flops / 1e9:.2f} GFLOP")
+    return {"shape": shape, "dtype": str(torch.float32), "err": max(errs),
+            "rel_err": rel, "ok": max(rel) <= BWD_TOL[torch.float32],
+            "passes": passes, "blocks": p["blocks"],
+            "workspace_bytes": ws_bytes, "ms": cuda_ms(kern, 10),
+            "plain_ms": cuda_ms(plain, 3), "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def _sdpa_backward(q, k, v, do, causal: bool, window) -> tuple:
@@ -833,9 +916,11 @@ def phase_kernels(report: dict) -> dict:
                                           model_gates=True))
     main["rglru_scan"] = cases["rglru_scan"][0]
     report["rglru_scan_serve"] = _scan_serve(gen)
-    # xlstm-350m's prefill (4 heads of 512), then ragged chunks from a state
+    # xlstm-350m's prefill (4 heads of 512), then ragged chunks from a
+    # state, then its training shape
     for B, S, nh, hd, given in ((1, 2048, 4, 512, False),
-                                (2, 300, 2, 256, True)):
+                                (2, 300, 2, 256, True),
+                                (1, TRAIN_SEQ, 4, 512, False)):
         cases["mlstm_chunk"].append(_mlstm_case(B, S, nh, hd, given, gen))
     main["mlstm_chunk"] = cases["mlstm_chunk"][0]
     # the backwards at the training shapes: llama3.1-8b and
@@ -851,6 +936,11 @@ def phase_kernels(report: dict) -> dict:
     main["flash_attention_bwd_rg"] = cases["flash_attention_bwd"][1]
     cases["rglru_scan_bwd"] = [_scan_bwd_case(1, 4096, 2560, gen)]
     main["rglru_scan_bwd"] = cases["rglru_scan_bwd"][0]
+    # B4's at xlstm-350m's training shape, then ragged chunks from a state
+    cases["mlstm_chunk_bwd"] = [
+        _mlstm_bwd_case(1, TRAIN_SEQ, 4, 512, False, gen),
+        _mlstm_bwd_case(2, 300, 2, 256, True, gen)]
+    main["mlstm_chunk_bwd"] = cases["mlstm_chunk_bwd"][0]
     log(f"[kernel] rglru_scan_bwd B=1 S=4096 W=2560: "
         f"{main['rglru_scan_bwd']['ms']:.4f} ms, of which the reverse scan "
         f"{main['rglru_scan_bwd']['reverse_scan_ms']:.4f} ms and the "
@@ -858,7 +948,8 @@ def phase_kernels(report: dict) -> dict:
         f"{main['rglru_scan_bwd']['elementwise_ms']:.4f} ms")
     tols = {"rglru_scan": SCAN_TOL,
             "mlstm_chunk": f"{MLSTM_TOL}, state {MLSTM_STATE_TOL}",
-            "rglru_scan_bwd": "1e-4 max|plain|"}
+            "rglru_scan_bwd": "1e-4 max|plain|",
+            "mlstm_chunk_bwd": "1e-4 max|plain|, plain in fp64"}
     failed = []
     for name, rows in cases.items():
         for c in rows:
@@ -1013,8 +1104,8 @@ def _loss_and_grads(lm, params, batch: dict, device: str) -> tuple:
 def phase_train_reduced(report: dict) -> None:
     """One training step of each reduced arch in fp32 on the card against
     the CPU: the loss, every gradient leaf, and AdamW on the card from the
-    CPU's gradients; the xLSTM's refusal; then train(), a serve of what it
-    trained, and a checkpoint from the card restored on the CPU."""
+    CPU's gradients; then train(), a serve of what it trained, and a
+    checkpoint from the card restored on the CPU."""
     from repro_torch.configs import get_config
     from repro_torch.models import LM
     from repro_torch.models.params import flatten, map_leaves, rebuild
@@ -1031,8 +1122,10 @@ def phase_train_reduced(report: dict) -> None:
         lm = LM(cfg)
         params = lm.init(torch.Generator(device="cuda").manual_seed(2),
                          device="cuda")
-        # S=40: past the reduced hybrid's window of 32
-        batch = TokenStream(cfg, seed=0).batch(2, 40)
+        # S=40: past the reduced hybrid's window of 32; the xLSTM's 300 past
+        # the plain version's 256-step chunk (and the kernel's 64)
+        batch = TokenStream(cfg, seed=0).batch(
+            2, 300 if cfg.family == "ssm" else 40)
         loss, grads = _loss_and_grads(lm, params, batch, "cuda")
         cpu_loss, cpu_grads = _loss_and_grads(lm, params, batch, "cpu")
         grad_err = max(float((grads[k].cpu() - g).abs().max()) /
@@ -1058,23 +1151,6 @@ def phase_train_reduced(report: dict) -> None:
                              "from the CPU's")
         out[cfg.name] = {"loss_err": abs(loss - cpu_loss),
                          "grad_err": grad_err, "update_err": upd_err}
-    # the ssm family: no backward for the mLSTM kernel (B4) yet, so its
-    # loss must refuse autograd on the card rather than cut the graph
-    lm = LM(get_config("xlstm-350m").reduced())
-    params = map_leaves(lambda t: t.requires_grad_(), lm.init(
-        torch.Generator(device="cuda").manual_seed(2), device="cuda"))
-    batch = TokenStream(lm.cfg, seed=0).batch(2, 40)
-    try:
-        lm.loss(params, {k: torch.from_numpy(v).cuda()
-                         for k, v in batch.items()}).backward()
-    except RuntimeError as e:
-        if "no backward" not in str(e):
-            raise
-        log(f"[train-reduced] {lm.cfg.name}: refuses autograd on the card "
-            f"({str(e)[:90]}...)")
-    else:
-        raise SystemExit("xlstm-350m: LM.loss(...).backward() on the card "
-                         "did not refuse")
     # train() as test_training.py's test_loss_decreases, then serve it
     cfg = get_config("qwen1.5-4b").reduced()
     ocfg = AdamWConfig(lr=3e-3, grad_clip=10.0, total_steps=40,
@@ -1119,8 +1195,12 @@ def train_plan(cfg) -> dict:
     """Launches a training step with remat must make, from the model's
     structure: each attention layer inside a rematerialised group runs B1
     forward twice and backward once, each rec layer there B3 twice and its
-    reverse scan once; the hybrid's unrolled rest layers once each."""
+    reverse scan once, each mLSTM layer B4 twice and its backward once; the
+    hybrid's unrolled rest layers once each."""
     from repro_torch.models import rglru
+    if cfg.family == "ssm":   # every group rematerialised
+        mlstm = cfg.layer_kinds().count("mlstm")
+        return {"mlstm_chunk": 2 * mlstm, "mlstm_chunk_bwd": mlstm}
     if cfg.family == "hybrid":
         G, pat, rest = rglru._plan(cfg)
         attn, rec = G * pat.count("attn"), G * pat.count("rec")
@@ -1135,21 +1215,42 @@ def train_plan(cfg) -> dict:
     return plan
 
 
-def phase_train(report: dict, tag: str, arch: str) -> dict:
+def _kernel_times(prof) -> tuple:
+    """({device kernel: (launches, ms)}, {host span: ms}) of a finished
+    torch.profiler run, summed from its raw events: the profiler's own
+    function events take minutes to build for the million kernels of an
+    xLSTM step, and these sums need none of them."""
+    from torch.autograd import DeviceType
+    by_kernel, spans = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        ms = (e.end_ns() - e.start_ns()) / 1e6
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            n, total = by_kernel.get(e.name(), (0, 0.0))
+            by_kernel[e.name()] = (n + 1, total + ms)
+        elif e.device_type() == DeviceType.CPU and e.is_user_annotation():
+            spans[e.name()] = spans.get(e.name(), 0.0) + ms
+    return by_kernel, spans
+
+
+def phase_train(report: dict, tag: str, arch: str,
+                n_steps: int = TRAIN_STEPS) -> dict:
     """Train ``arch`` at its published shape on one card through
     ``train()``: bf16 parameters (the RG-LRU's lam fp32), AdamW with bf16
-    moments, B=1, S=4096 from ``TokenStream(seed=0)``, remat on, 4 steps.
+    moments, B=1, S=4096 from ``TokenStream(seed=0)``, remat on, ``n_steps``
+    steps.
     Prints each step's wall, loss, grad norm and lr, the peak memory, and
-    the device-busy share of step 2 by torch.profiler; fails on a
+    the device-busy share of step 2 by torch.profiler (and the host share
+    of the xLSTM's sLSTM loop, span ``xlstm.slstm_steps``); fails on a
     non-finite loss or norm, on launch counts a step that differ from
     ``train_plan``, and on a bf16 B1 forward off the tensor-core kernel.
     Returns the launches of the whole run, for the table."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.kernels.mlstm_chunk.kernel import (mlstm_chunk_bwd_cuda,
+                                                        mlstm_chunk_cuda)
     from repro_torch.kernels.rglru_scan.kernel import (rglru_scan_bwd_cuda,
                                                        rglru_scan_cuda)
     from repro_torch.training.optimizer import AdamWConfig
@@ -1160,7 +1261,9 @@ def phase_train(report: dict, tag: str, arch: str) -> dict:
                 "flash_attention_bwd": (flash_attention_bwd_cuda,
                                         "launches"),
                 "rglru_scan": (rglru_scan_cuda, "launches"),
-                "rglru_scan_bwd": (rglru_scan_bwd_cuda, "launches")}
+                "rglru_scan_bwd": (rglru_scan_bwd_cuda, "launches"),
+                "mlstm_chunk": (mlstm_chunk_cuda, "launches"),
+                "mlstm_chunk_bwd": (mlstm_chunk_bwd_cuda, "launches")}
     counters = {k: v for k, v in counters.items() if k in plan}
     gc.collect()                   # the last serve's engine
     torch.cuda.empty_cache()
@@ -1205,23 +1308,20 @@ def phase_train(report: dict, tag: str, arch: str) -> dict:
 
     log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers at the published "
         f"widths, bf16, AdamW moments in bf16, B=1 S={TRAIN_SEQ}, remat on, "
-        f"{TRAIN_STEPS} steps; launches a step by the plan: {plan}")
+        f"{n_steps} steps; launches a step by the plan: {plan}")
     t0 = time.perf_counter()
     params, hist = train(
-        cfg, steps=TRAIN_STEPS, batch_size=1, seq_len=TRAIN_SEQ, seed=0,
+        cfg, steps=n_steps, batch_size=1, seq_len=TRAIN_SEQ, seed=0,
         param_dtype=torch.bfloat16,
         opt_cfg=AdamWConfig(state_dtype=torch.bfloat16,
-                            total_steps=TRAIN_STEPS, warmup_steps=1),
+                            total_steps=n_steps, warmup_steps=1),
         log_every=0, remat=True, device="cuda", on_step=on_step)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
     del params
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    by_kernel = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            by_kernel[e.key] = (e.count, e.self_device_time_total / 1e3)
+    by_kernel, spans = _kernel_times(prof)
     device_ms = sum(ms for _, ms in by_kernel.values())
     wall_ms = 1e3 * steps[2]["wall_s"]
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:8]
@@ -1240,13 +1340,17 @@ def phase_train(report: dict, tag: str, arch: str) -> dict:
     log(f"[{tag}] step 2's device ms by kind: " + ", ".join(
         f"{k} {ms:.1f}" for k, ms in sorted(shares.items(),
                                              key=lambda kv: -kv[1])))
+    log(f"[{tag}] step 2: {sum(n for n, _ in by_kernel.values())} device "
+        "kernels" + "".join(f"; span {k} {ms:.1f} ms host = "
+                            f"{ms / wall_ms:.3f} of the wall"
+                            for k, ms in spans.items()))
     report[tag] = {"arch": arch, "n_layers": cfg.n_layers,
                    "parameters": n_params, "seq_len": TRAIN_SEQ,
                    "steps": steps, "plan": plan, "run_s": run_s,
                    "peak_gb": peak_gb, "busy_ms": device_ms,
                    "profiled_wall_ms": wall_ms,
                    "busy_share": device_ms / wall_ms,
-                   "device_ms_by_kind": shares,
+                   "device_ms_by_kind": shares, "spans_host_ms": spans,
                    "top_kernels": {k: v for k, v in top}}
     return total
 
@@ -1425,6 +1529,8 @@ def main() -> int:
     t0 = time.perf_counter()
     for arch in ("llama3.1-8b", "recurrentgemma-2b"):
         by_path[f"train-{arch}"] = phase_train(report, f"train-{arch}", arch)
+    by_path["train-xlstm-350m"] = phase_train(
+        report, "train-xlstm-350m", "xlstm-350m", n_steps=XLSTM_TRAIN_STEPS)
     secs["5 train"] = time.perf_counter() - t0
     log(f"[time] seconds by phase: "
         f"{ {k: round(v, 1) for k, v in secs.items()} }")
@@ -1481,6 +1587,10 @@ def main() -> int:
          "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:54",
          "grad_of": "src/repro/models/rglru.py:114 associative_scan"},
+        {"name": "mlstm_chunk_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/mlstm_chunk_bwd.cu",
+         "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:76",
+         "grad_of": "src/repro/models/xlstm.py:83 _mlstm_chunk_scan"},
     ]}
     for row in table["kernels"]:
         # a row's case: the kernel's main case, or the one it names; B2 has
@@ -1498,7 +1608,7 @@ def main() -> int:
                    library_ms=c["library_ms"], shape=c["shape"])
         if "library_per_slot_ms" in c:   # B calls, so not the library call
             row["library_per_slot_ms"] = c["library_per_slot_ms"]
-        if c.get("passes"):   # B4's three launches, by torch.profiler
+        if c.get("passes"):   # B4's launches, by torch.profiler
             row["passes_ms"] = {k: ms for k, (_, ms) in c["passes"].items()}
         if "elementwise_ms" in c:   # B3's backward: the scan and the rest
             row.update(reverse_scan_ms=c["reverse_scan_ms"],

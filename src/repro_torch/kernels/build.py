@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("flash_attention", "decode_attention", "rglru_scan",
            "mlstm_chunk", "flash_attention_sm90", "decode_attention_sm90",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "mlstm_chunk_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -90,18 +90,18 @@ def check_operands(align: int = 16, **tensors) -> None:
     ``align``-byte aligned (16 for the attention kernels' vector loads), and
     all share one dtype the kernels take. Raise ``RuntimeError`` first if
     autograd would record the call: a raw wrapper never records a graph,
-    and its output would silently cut it. Flash attention (B1) and the
-    RG-LRU scan (B3) are differentiated through their autograd functions,
-    which call the wrappers with grad mode off; decode attention (B2), which
-    no training path differentiates, and the mLSTM (B4), whose backward is
-    still to come, have none."""
+    and its output would silently cut it. Flash attention (B1), the RG-LRU
+    scan (B3) and the mLSTM (B4) are differentiated through their autograd
+    functions, which call the wrappers with grad mode off; decode attention
+    (B2), which no training path differentiates, has none."""
     if torch.is_grad_enabled():
         needs = [name for name, t in tensors.items() if t.requires_grad]
         if needs:
             raise RuntimeError(
-                f"{', '.join(needs)} require grad, but this CUDA kernel has "
-                "no backward: decode attention (B2) is never differentiated "
-                "and the mLSTM (B4) waits for its backward (ROADMAP A6b); "
+                f"{', '.join(needs)} require grad, but a raw kernel wrapper "
+                "records no graph: decode attention (B2) has no backward (it "
+                "is never differentiated), and the others differentiate "
+                "through their ops (FlashAttention, RGLRUScan, MLSTMChunk); "
                 "call it under torch.no_grad() or detach the operands")
     first = next(iter(tensors.values()))
     for name, t in tensors.items():

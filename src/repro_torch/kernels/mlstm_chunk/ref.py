@@ -69,6 +69,115 @@ def mlstm_chunk_ref(q, k, v, log_i, log_f, state, chunk: int = CHUNK):
     return h, (C, n, m)
 
 
+def mlstm_chunk_bwd_ref(q, k, v, log_i, log_f, state, dh, chunk: int = CHUNK):
+    """The gradient of ``mlstm_chunk_ref``'s h, written out in the passes
+    the CUDA backward (``csrc/mlstm_chunk_bwd.cu``) makes: the forward's
+    chain for the state entering each chunk; each chunk's weights and the
+    gradients of h's numerator and denominator; a reverse chain over chunks
+    for the gradient of the state leaving each chunk, dC_c = scale_old_c
+    dC_{c+1} + sum_t e_t q_t dnum_t^T (and dn likewise); each chunk's local
+    gradients from C_c and dC_{c+1}; the gates' gradient, a reverse cumsum
+    within each chunk (F restarts at every chunk, and only the chunk-end
+    term dFL crosses it). Arguments as ``mlstm_chunk_ref``, plus dh (B, S,
+    nh, hd), the cotangent of h; the state leaving the scan takes none and
+    the state entering it gets none. Returns (dq, dk, dv, dlog_i, dlog_f),
+    in fp64 if q is fp64, else in fp32.
+
+    The stabilisers m_row, m_next and the state's m are constants: h is
+    the same for any value of them (m_row scales the numerator and the
+    denominator alike, the clamp exp(-m_row) with them, and (C, n, m) may
+    shift jointly), so no gradient flows through them. In the clamp's
+    branch (|a_t| < exp(-m_row_t)) h does not depend on a_t."""
+    B, S, nh, hd = q.shape
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
+
+    def prep(a, fill=0.0):
+        a = a.to(dt)
+        if pad:
+            a = torch.cat([a, a.new_full((B, pad, *a.shape[2:]), fill)], 1)
+        return a.reshape(B, nc, chunk, *a.shape[2:])
+    qc, kc, vc, dhc = prep(q), prep(k), prep(v), prep(dh)
+    lic, lfc = prep(log_i, NEG), prep(log_f)
+    F = torch.cumsum(lfc, dim=2)                         # (B, nc, L, nh)
+    FL = F[:, :, -1]                                     # (B, nc, nh)
+    log_w = FL[:, :, None] - F + lic
+    # the forward's chain: the state entering chunk c, the chunk-end weights
+    C, n, m = (t.to(dt) for t in state)
+    Cs, ns, ms, scales, ws = [], [], [], [], []
+    for c in range(nc):
+        Cs.append(C)
+        ns.append(n)
+        ms.append(m)
+        m_next = torch.maximum(m + FL[:, c], log_w[:, c].amax(dim=1))
+        scales.append(torch.exp(m + FL[:, c] - m_next))
+        ws.append(torch.exp(log_w[:, c] - m_next[:, None]))
+        C = C * scales[-1][..., None, None] + \
+            torch.einsum("bsh,bshd,bshe->bhde", ws[-1], kc[:, c], vc[:, c])
+        n = n * scales[-1][..., None] + \
+            torch.einsum("bsh,bshd->bhd", ws[-1], kc[:, c])
+        m = m_next
+    Cs, ns, ms, scale, w_s = (torch.stack(t, 1)
+                              for t in (Cs, ns, ms, scales, ws))
+    # 1. each chunk's weights and denominators; dnum = dh / den and da, the
+    #    gradient of the denominator's signed sum a (none in the clamp)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=q.device))[:, :, None]
+    Dm = F[:, :, :, None] - F[:, :, None] + lic[:, :, None]   # (B,nc,t,s,nh)
+    Dm = torch.where(tri, Dm, Dm.new_tensor(NEG))
+    m_row = torch.maximum(Dm.amax(dim=3), ms[:, :, None] + F)
+    P = torch.exp(Dm - m_row[:, :, :, None])
+    W = torch.einsum("bcthd,bcshd->bctsh", qc, kc) * P
+    e = torch.exp(ms[:, :, None] + F - m_row)               # (B, nc, L, nh)
+    qn = torch.einsum("bcthd,bchd->bcth", qc, ns)
+    a = W.sum(dim=3) + e * qn
+    floor = torch.exp(-m_row)
+    den = torch.maximum(a.abs(), floor)
+    X = torch.einsum("bcthe,bchde->bcthd", dhc, Cs)         # C_c dh_t
+    num = torch.einsum("bctsh,bcshd->bcthd", W, vc) + e[..., None] * \
+        torch.einsum("bcthd,bchde->bcthe", qc, Cs)
+    dnum = dhc / den[..., None]
+    dden = -(dhc * num).sum(dim=-1) / den ** 2
+    da = torch.where(a.abs() >= floor, torch.sign(a) * dden, 0.0)
+    # 2. the reverse chain: dC'_c, dn'_c, the gradient of the state leaving
+    #    chunk c (none leaves the last)
+    dC = torch.zeros_like(Cs[:, 0])
+    dn = torch.zeros_like(ns[:, 0])
+    dCs, dns = [None] * nc, [None] * nc
+    for c in reversed(range(nc)):
+        dCs[c], dns[c] = dC, dn
+        eq = e[:, c, :, :, None] * qc[:, c]
+        dC = scale[:, c, :, None, None] * dC + \
+            torch.einsum("bthd,bthe->bhde", eq, dnum[:, c])
+        dn = scale[:, c, :, None] * dn + \
+            torch.einsum("bth,bthd->bhd", da[:, c], eq)
+    dCs, dns = torch.stack(dCs, 1), torch.stack(dns, 1)
+    # 3. each chunk's local gradients, from C_c and dC'_c
+    dW = torch.einsum("bcthe,bcshe->bctsh", dnum, vc) + da[:, :, :, None]
+    dS, dD = dW * P, dW * W
+    dq = e[..., None] * (X / den[..., None] + da[..., None] * ns[:, :, None]) \
+        + torch.einsum("bctsh,bcshd->bcthd", dS, kc)
+    G = torch.einsum("bcshe,bchde->bcshd", vc, dCs) + dns[:, :, None]
+    dk = w_s[..., None] * G + torch.einsum("bctsh,bcthd->bcshd", dS, qc)
+    dv = w_s[..., None] * torch.einsum("bcshd,bchde->bcshe", kc, dCs) + \
+        torch.einsum("bctsh,bcthe->bcshe", W, dnum)
+    # 4. the gates: D[t, s] = F_t - F_s + log_i_s, e_t = exp(m + F_t - ...),
+    #    log_w_s = F_L - F_s + log_i_s, scale_old = exp(m + F_L - m_next);
+    #    then dlog_f_s = sum_{t >= s} dF_t within the chunk
+    de = (qc * X).sum(dim=-1) / den + da * qn
+    dlog_w = w_s * (kc * G).sum(dim=-1)
+    dscale = (dCs * Cs).sum(dim=(-2, -1)) + (dns * ns).sum(dim=-1)
+    dF = dD.sum(dim=3) - dD.sum(dim=2) + de * e - dlog_w
+    dF[:, :, -1] += dlog_w.sum(dim=2) + dscale * scale
+    dlog_i = dD.sum(dim=2) + dlog_w
+    dlog_f = torch.flip(torch.cumsum(torch.flip(dF, (2,)), 2), (2,))
+
+    def unpad(t):
+        return t.reshape(B, nc * chunk, *t.shape[3:])[:, :S]
+    return tuple(unpad(t) for t in (dq, dk, dv, dlog_i, dlog_f))
+
+
 def make_inputs(gen: torch.Generator, B: int, S: int, nh: int, hd: int,
                 given: bool):
     """Random fp32 inputs on ``gen``'s device, drawn as the JAX package's

@@ -14,8 +14,10 @@ so its weights keep ~16 bits, as the plain version's fp32 ones).
 A long slot's output is ~0.05, so a lost split shows. The backwards:
 flash attention's dq, dk and dv within 1e-4 · max |plain| in fp32 and
 2e-2 · max |plain| in bf16 (the plain backward in fp32 from the same bf16
-inputs), the RG-LRU scan's within 1e-4 · max |plain|; a reduced model's
-gradients on the card within 1e-4 · max(1, max |g_cpu|) of the CPU's.
+inputs), the RG-LRU scan's within 1e-4 · max |plain|, the chunkwise
+mLSTM's (dq, dk, dv, dlog_i, dlog_f) within 1e-4 · max |plain| of the
+plain backward evaluated in fp64; a reduced model's gradients on the card
+within 1e-4 · max(1, max |g_cpu|) of the CPU's.
 The RG-LRU scan is fp32 only: 1e-4, as test_kernels.py (the carry across chunks is exp of a
 summed log decay where the plain version multiplies step by step). The
 chunkwise mLSTM is fp32 only: 2e-4 on h, as test_kernels.py (chunks of 64
@@ -503,25 +505,30 @@ def _loss_grads(lm, params, batch, device):
 
 
 def _check_card_grads(arch):
-    """The reduced model's loss and every gradient leaf on the card (B1 and
-    B3 forward and backward kernels) against the CPU's (autograd through
+    """The reduced model's loss and every gradient leaf on the card (B1, B3
+    and B4 forward and backward kernels) against the CPU's (autograd through
     the plain versions): 1e-4 on the loss, 1e-4 · max(1, max |g_cpu|) on a
-    leaf."""
+    leaf. The xLSTM's batch is 300 tokens, past the plain version's
+    256-step chunk."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda)
+    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_bwd_cuda
     from repro_torch.models import LM
     cfg = get_config(arch).reduced()
     lm = LM(cfg)
     params = lm.init(torch.Generator().manual_seed(0), device="cpu")
-    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+    S = 300 if cfg.family == "ssm" else 40
+    toks = torch.randint(0, cfg.vocab_size, (2, S),
                          generator=torch.Generator().manual_seed(1))
     labels = toks.roll(-1, dims=1)
     labels[:, -1] = -1
     batch = {"tokens": toks, "labels": labels, **_frames(cfg, 2)}
-    before = flash_attention_bwd_cuda.launches
+    bwd = mlstm_chunk_bwd_cuda if cfg.family == "ssm" else \
+        flash_attention_bwd_cuda
+    before = bwd.launches
     loss, grads = _loss_grads(lm, params, batch, "cuda")
-    assert flash_attention_bwd_cuda.launches > before   # the kernel ran
+    assert bwd.launches > before   # the kernel ran
     cpu_loss, cpu_grads = _loss_grads(lm, params, batch, "cpu")
     assert abs(loss - cpu_loss) < 1e-4
     for key, g in cpu_grads.items():
@@ -551,18 +558,18 @@ def test_kernels_refuse_autograd(cuda):
 
 
 def test_loss_refuses_autograd(cuda):
-    """``LM.loss`` of the reduced Chameleon (QK-norm) differentiates on the
-    card to the CPU's gradients; the xLSTM's, whose mLSTM kernel (B4) has
-    no backward yet, raises "no backward" instead of cutting the graph."""
+    """``LM.loss`` of the reduced Chameleon (QK-norm) and of the reduced
+    xLSTM, whose mLSTM layers now differentiate through B4's backward,
+    give the CPU's gradients on the card; under no_grad the xLSTM's loss
+    is finite. (The name is kept from when the xLSTM refused autograd.)"""
     _check_card_grads("chameleon-34b")
+    _check_card_grads("xlstm-350m")
     from repro_torch.configs import get_config
     from repro_torch.models import LM
     lm = LM(get_config("xlstm-350m").reduced())
-    params = _requires_grad(lm.init(cuda, device="cuda"))
+    params = lm.init(cuda, device="cuda")
     toks = torch.randint(0, lm.cfg.vocab_size, (2, 9), generator=cuda,
                          device="cuda")
-    with pytest.raises(RuntimeError, match="no backward"):
-        lm.loss(params, {"tokens": toks, "labels": toks}).backward()
     with torch.no_grad():
         assert torch.isfinite(lm.loss(params, {"tokens": toks,
                                                "labels": toks}))
@@ -675,3 +682,52 @@ def test_flash_backward_rejects_what_it_does_not_take(cuda):
     k = _randn(cuda, (1, 8, 2, 16), "float32")
     with pytest.raises(ValueError, match="shape"):
         flash_attention_bwd_cuda(q, k, k, q[:, :4], q, causal=True)
+
+
+# the training shape, the ragged case of chip_smoke.py, one chunk, chunk
+# edges, head widths that are not multiples of the 128-column slices
+MLSTM_BWD_CASES = [(1, 4096, 4, 512, False), (2, 300, 2, 256, True),
+                   (1, 1, 1, 32, False), (2, 37, 2, 64, True),
+                   (1, 64, 2, 64, False), (1, 65, 2, 96, True),
+                   (3, 130, 3, 96, True), (1, 257, 2, 160, False),
+                   (1, 520, 4, 512, True)]
+
+
+@pytest.mark.parametrize("B,S,nh,hd,given", MLSTM_BWD_CASES)
+def test_mlstm_chunk_backward_matches_plain(cuda, B, S, nh, hd, given):
+    """dq, dk, dv, dlog_i and dlog_f through ``MLSTMChunk`` against
+    ``mlstm_chunk_bwd_ref`` evaluated in fp64 (at the kernel's chunk),
+    each within 1e-4 · max |plain|; one forward and one backward launch."""
+    from repro_torch.kernels.mlstm_chunk.kernel import (KERNEL_CHUNK,
+                                                        MLSTMChunk,
+                                                        mlstm_chunk_bwd_cuda)
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_bwd_ref
+    ins, state = make_inputs(cuda, B, S, nh, hd, given)
+    dh = torch.randn(ins[0].shape, generator=cuda, device="cuda")
+    ins = [t.requires_grad_() for t in ins]
+    fwd, bwd = mlstm_chunk_cuda.launches, mlstm_chunk_bwd_cuda.launches
+    h, *_ = MLSTMChunk.apply(*ins, *state)
+    got = torch.autograd.grad(h, ins, dh)
+    want = mlstm_chunk_bwd_ref(*(t.detach().double() for t in ins),
+                               tuple(t.double() for t in state),
+                               dh.double(), chunk=KERNEL_CHUNK)
+    torch.cuda.synchronize()
+    assert (mlstm_chunk_cuda.launches, mlstm_chunk_bwd_cuda.launches) == \
+        (fwd + 1, bwd + 1)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert float((g.double() - w).abs().max()) <= \
+            1e-4 * float(w.abs().max())
+
+
+def test_mlstm_chunk_autograd_refuses_the_state(cuda):
+    """A gradient on the state ``MLSTMChunk`` returns, or a state entering
+    it that requires grad, raises rather than be dropped."""
+    from repro_torch.kernels.mlstm_chunk.kernel import MLSTMChunk
+    ins, state = make_inputs(cuda, 1, 70, 2, 64, True)
+    ins = [t.requires_grad_() for t in ins]
+    h, C, n, m = MLSTMChunk.apply(*ins, *state)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        torch.autograd.grad(h.sum() + C.sum(), ins)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        MLSTMChunk.apply(*ins, state[0].clone().requires_grad_(), *state[1:])

@@ -223,8 +223,9 @@ def test_plan_splits_covers_rows_and_fills_the_card():
 
 def test_check_operands_refuses_autograd():
     """Under grad mode an operand that requires grad raises before any
-    other check (the kernels have no backward yet); under no_grad, or with
-    no such operand, the next check (here: the device) decides."""
+    other check (a raw wrapper records no graph; the kernels differentiate
+    through their autograd functions); under no_grad, or with no such
+    operand, the next check (here: the device) decides."""
     from repro_torch.kernels import build
     x = torch.zeros(4, requires_grad=True)
     y = torch.zeros(4)
