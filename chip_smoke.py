@@ -12,9 +12,9 @@ its own lines; any failure exits non-zero without the result line:
    (one ``nvcc`` each, all at once, timed; their ``ptxas`` lines), and the
    count of tensor-core instructions in the SASS of the tensor-core
    kernels (``cuobjdump --dump-sass``): ``HGMMA`` in the bf16 flash
-   kernel's, ``HMMA`` in the bf16 decode kernel's, in the mLSTM's split
-   TF32 passes and in the backward flash library's bf16 passes (none fails
-   the run);
+   kernel's and in the backward flash library's bf16 passes, ``HMMA`` in
+   the bf16 decode kernel's and in the mLSTM's split TF32 passes (a
+   library with none fails the run);
 2. each kernel against its plain PyTorch version on the card, with its time
    (CUDA events, median, the host queued ahead of the card), the plain
    version's time, the least time the card could take (bytes over 3.35 TB/s
@@ -59,12 +59,20 @@ its own lines; any failure exits non-zero without the result line:
    count, and what one call allocates past its outputs); the backwards
    (each gradient within 1e-4 max |plain| in fp32, 2e-2 max |plain| in
    bf16, the plain version computing in fp32 from the same bf16 inputs):
-   B1's (``flash_attention_bwd.cu``: bf16 on ``mma.sync``, fp32 on the
-   CUDA cores) at llama3.1-8b's and
+   B1's (``flash_attention_bwd.cu``: bf16 on ``wgmma`` fed by TMA, fp32 on
+   the CUDA cores; both read L, which the forward kernel writes, and the
+   plain backward forms its own) at llama3.1-8b's and
    recurrentgemma-2b's training shapes (S=4096, the latter with its 2048
    window), whisper-large-v3's cross-attention (448 over 1500) and an fp32
    ragged case, timed beside SDPA's backward alone (flash backend where it
-   takes the shape) and its bound (10 hd Hq flops per admitted pair); B3's
+   takes the shape) and its bound (10 hd Hq flops per admitted pair), with
+   the device kernels one call launches (by ``torch.profiler``; the phase
+   fails unless they are ``plan_bwd``'s, each launched once), the
+   workspace, the split of the query heads, each kernel's registers and
+   spills (``ptxas``) and two calls compared bit for bit; every B1 forward
+   case also writes L, which must be within 1e-5 max(1, |L|) of the plain
+   L, with its output bitwise equal to the output without L, and is timed
+   both ways; B3's
    (the scan kernel on reversed time, then the elementwise products) at
    B=1 S=4096 W=2560, with the reverse scan's share and the elementwise
    share; B4's (``mlstm_chunk_bwd.cu``, four CUDA-core launches) against
@@ -167,6 +175,7 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 BWD_TOL_TEXT = {torch.float32: "1e-4 max|plain|",
                 torch.bfloat16: "2e-2 max|plain|"}
 TRAIN_TOL, UPDATE_TOL = 1e-4, 1e-6
+LSE_TOL = 1e-5     # B1's L against the plain L, of max(1, |L|)
 # the reduced archs whose training step is held against the CPU
 TRAIN_ARCHS = ("llama3.1-8b", "qwen1.5-4b", "starcoder2-15b",
                "chameleon-34b", "granite-3-8b", "phi3.5-moe-42b-a6.6b",
@@ -178,9 +187,10 @@ TRAIN_SEQ, TRAIN_STEPS = 4096, 4   # train_4k's sequence length, B=1
 XLSTM_TRAIN_STEPS = 3
 # device kernels of a training step by kind, by name (the first that
 # matches); the rest is "other"
+B1_BWD_KERNELS = r"bwd_(?:dq|dkdv|reduce)_sm90|bwd_(?:delta|dkdv|dq)_kernel"
 DEVICE_KINDS = (("B4 backward", r"mlstm_bwd_"),
                 ("B4", r"mlstm_(state|weight|output)_kernel"),
-                ("B1 backward", r"bwd_(dq|dkdv|lse)"),
+                ("B1 backward", B1_BWD_KERNELS),
                 ("B1 forward", r"flash_fwd"),
                 ("B3", r"rglru"),
                 ("GEMM", r"nvjet|gemm|cutlass|xmma|sm90_"),
@@ -253,6 +263,31 @@ def count_sass(lib: Path, opcode: str) -> int:
                for line in sass.splitlines())
 
 
+def ptxas_registers(name: str) -> dict:
+    """{kernel<template arguments>: (registers, spill store bytes)} of the
+    B1 backward's kernels in a built library, from its ``ptxas -v`` log."""
+    from repro_torch.kernels import build
+    out, kernel, spill = {}, None, 0
+    log_path = build.library_path(name).with_suffix(".log")
+    for line in log_path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            base = re.search(f"(?:{B1_BWD_KERNELS})(?=[IE])", m.group(1))
+            kernel = None
+            if base:
+                args = re.match(r"I((?:Li\d+E)+)E", m.group(1)[base.end():])
+                kernel = base.group() + (
+                    "<" + ", ".join(re.findall(r"Li(\d+)E", args.group(1)))
+                    + ">" if args else "")
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out[kernel] = (int(m.group(1)), spill)
+    return out
+
+
 def phase_environment(report: dict) -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -275,7 +310,7 @@ def phase_environment(report: dict) -> str:
     for name, opcode in (("flash_attention_sm90", "HGMMA"),
                          ("decode_attention_sm90", "HMMA"),
                          ("mlstm_chunk", "HMMA"),
-                         ("flash_attention_bwd", "HMMA")):
+                         ("flash_attention_bwd", "HGMMA")):
         n = count_sass(build.library_path(name), opcode)
         log(f"[env] {name}: {n} {opcode} instructions in its SASS")
         if n == 0:
@@ -284,7 +319,9 @@ def phase_environment(report: dict) -> str:
         tensor_core[name] = n
     report["env"] = {"nvidia_smi": smi, "torch": torch.__version__,
                      "cuda": torch.version.cuda, "build_s": secs,
-                     "tensor_core_instructions": tensor_core}
+                     "tensor_core_instructions": tensor_core,
+                     "b1_backward_registers":
+                     ptxas_registers("flash_attention_bwd")}
     return smi
 
 
@@ -305,9 +342,14 @@ def _flash_case(S: int, window, dtype, gen, heads, causal: bool = True,
     q = torch.randn((B, Sq, HQ, HD), generator=gen, device="cuda").to(dtype)
     k = torch.randn((B, S, KV, HD), generator=gen, device="cuda").to(dtype)
     v = torch.randn((B, S, KV, HD), generator=gen, device="cuda").to(dtype)
+    lse = torch.empty((B, HQ, Sq), device="cuda")
 
     def kern():
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+    def kern_lse():
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    lse=lse)
 
     def plain():
         return flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -316,6 +358,14 @@ def _flash_case(S: int, window, dtype, gen, heads, causal: bool = True,
     route = "sm90 wgmma" if flash_attention_cuda.launches_sm90 > sm90 else \
         "cuda-core fp32"
     err, ok = float((out.float() - ref.float()).abs().max()), close(out, ref)
+    # L, which the backward reads: against the plain L, and the output
+    # with it bit for bit the output without it
+    same = bool(torch.equal(kern_lse(), out))
+    plain_lse = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    return_lse=True)[1]
+    lse_err = float(((lse - plain_lse).abs() /
+                     plain_lse.abs().clamp(min=1.0)).max())
+    ok = ok and same and lse_err <= LSE_TOL
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = None
     if window is not None:
@@ -342,8 +392,14 @@ def _flash_case(S: int, window, dtype, gen, heads, causal: bool = True,
              if causal and Sq == S and B == 1 else
              f"B={B} Sq={Sq} Skv={S} Hq={HQ} K={KV} hd={HD} "
              f"{'causal' if causal else 'non-causal'} window={window}")
+    ms, ms_lse = cuda_ms(kern, 20), cuda_ms(kern_lse, 20)
+    log(f"[kernel] flash_attention [{route}] {dtype} {shape}: L within "
+        f"{lse_err:.3g} of max(1, |plain L|) (tol {LSE_TOL}), output with L "
+        f"{'bitwise equal to' if same else 'DIFFERENT from'} the output "
+        f"without; {ms:.4f} ms without L, {ms_lse:.4f} ms with")
     return {"shape": shape, "dtype": str(dtype), "err": err,
-            "ok": ok, "route": route, "ms": cuda_ms(kern, 20),
+            "ok": ok, "route": route, "ms": ms, "ms_lse": ms_lse,
+            "lse_err": lse_err, "lse_bitwise_same_output": same,
             "plain_ms": cuda_ms(plain, 5),
             "library_ms": cuda_ms(library, 20),
             "library_causal_ms": None if window is None else
@@ -745,12 +801,15 @@ def _sdpa_backward(q, k, v, do, causal: bool, window) -> tuple:
 
 def _flash_bwd_case(Sq: int, Skv: int, heads, dtype, gen, causal=True,
                     window=None) -> dict:
-    """B1's backward against its plain version (fp32 math from the same
-    inputs and dO), with its time, the plain version's, SDPA's backward
-    and the bound: 10 hd Hq flops per admitted (query, key) pair at the
-    dtype's peak, or q, k, v, o, dO read and dq, dk, dv written once."""
+    """B1's backward, through the L the forward kernel wrote, against its
+    plain version (fp32 math from the same inputs and dO, its own L), with
+    its time, the plain version's, SDPA's backward and the bound: 10 hd Hq
+    flops per admitted (query, key) pair at the dtype's peak, or q, k, v,
+    o, dO read and dq, dk, dv written once. Also the device kernels of one
+    call against ``plan_bwd`` (by torch.profiler), its workspace and split,
+    the kernels' registers, and two calls compared bit for bit."""
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_bwd_cuda, flash_attention_cuda)
+        flash_attention_bwd_cuda, flash_attention_cuda, plan_bwd)
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref)
     HQ, KV, HD = heads
@@ -758,11 +817,13 @@ def _flash_bwd_case(Sq: int, Skv: int, heads, dtype, gen, causal=True,
     k = torch.randn((1, Skv, KV, HD), generator=gen, device="cuda").to(dtype)
     v = torch.randn((1, Skv, KV, HD), generator=gen, device="cuda").to(dtype)
     do = torch.randn((1, Sq, HQ, HD), generator=gen, device="cuda").to(dtype)
+    lse = torch.empty((1, HQ, Sq), device="cuda")
     with torch.no_grad():
-        o = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        o = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                 lse=lse)
 
     def kern():
-        return flash_attention_bwd_cuda(q, k, v, o, do, causal=causal,
+        return flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
                                         window=window)
 
     def plain():
@@ -772,7 +833,26 @@ def _flash_bwd_case(Sq: int, Skv: int, heads, dtype, gen, causal=True,
     errs = [float((g.float() - w.float()).abs().max()) for g, w in
             zip(got, want)]
     rel = [e / float(w.float().abs().max()) for e, w in zip(errs, want)]
+    same = all(torch.equal(a, b) for a, b in zip(got, kern()))
     del got, want
+    plan = plan_bwd(1, Sq, Skv, HQ, KV, HD, dtype)
+    shape = (f"Sq={Sq} Skv={Skv} Hq={HQ} K={KV} hd={HD} "
+             f"{'causal' if causal else 'non-causal'} window={window}")
+    kernels = _passes(kern, B1_BWD_KERNELS, plan["launches"],
+                      f"flash_attention_bwd {shape}")
+    # the registers of the kernels that ran, at this head dim's padding
+    hdp = next(p for p in (32, 64, 128, 256) if HD <= p and (
+        p > 32 or dtype == torch.float32))
+    regs = {k: v for k, v in ptxas_registers("flash_attention_bwd").items()
+            if k.split("<")[0] in kernels and
+            ("<" not in k or int(re.search(r"<(\d+)", k).group(1)) == hdp)}
+    log(f"[kernel] flash_attention_bwd {dtype} {shape}: one call launches "
+        f"{ {k: (n, round(t, 4)) for k, (n, t) in kernels.items()} } "
+        f"(device kernels: launches, ms; plan {plan['launches']}: "
+        f"{plan['grids']}); query heads split into {plan['shares']} "
+        f"share(s) of {plan['heads_per_share']}; workspace "
+        f"{plan['workspace_bytes']} bytes; registers, spill bytes "
+        f"{regs}; two calls {'bitwise equal' if same else 'DIFFER'}")
     qpos = np.arange(Sq)
     lo = np.maximum(0, qpos - window + 1) if window else np.zeros(Sq)
     hi = np.minimum(qpos, Skv - 1) if causal else np.full(Sq, Skv - 1)
@@ -780,13 +860,13 @@ def _flash_bwd_case(Sq: int, Skv: int, heads, dtype, gen, causal=True,
     n_bytes = q.element_size() * 4.0 * (q.numel() + k.numel())
     b_ms, b_by = bound_ms(n_bytes, 10.0 * HD * HQ * pairs, dtype)
     library, backend, refused = _sdpa_backward(q, k, v, do, causal, window)
-    case = {"shape": f"Sq={Sq} Skv={Skv} Hq={HQ} K={KV} hd={HD} "
-                     f"{'causal' if causal else 'non-causal'} "
-                     f"window={window}",
-            "route": "mma.sync" if dtype == torch.bfloat16 else
+    case = {"shape": shape,
+            "route": "wgmma" if dtype == torch.bfloat16 else
             "cuda-core fp32",
             "dtype": str(dtype), "err": max(errs), "rel_err": rel,
-            "ok": max(rel) <= BWD_TOL[dtype], "pairs": pairs,
+            "ok": max(rel) <= BWD_TOL[dtype] and same, "pairs": pairs,
+            "device_kernels": kernels, "plan": plan, "registers": regs,
+            "bitwise_repeatable": same,
             "ms": cuda_ms(kern, 5), "plain_ms": cuda_ms(plain, 3),
             "library_ms": cuda_ms(library, 10), "library_backend": backend,
             "flash_refused": refused, "bound_ms": b_ms, "bound_by": b_by}

@@ -7,7 +7,9 @@
 //   tails are masked, no tile-multiple requirement), causal and/or a sliding
 //   window, query positions offset by q_pos_offset. Query head h reads KV
 //   head h / (Hq / K) in place: GQA is never expanded in memory.
-// fp32 or bf16 in and out; scores, softmax and accumulation are fp32.
+// fp32 in and out (bf16 runs flash_attention_sm90.cu); scores, softmax and
+// accumulation are fp32. On request it writes each row's logsumexp L for
+// the backward.
 //
 // What bounds it on an H100: at prompt lengths of a few hundred tokens and
 // up, the work. Per (query, key) pair it does 4*hd flops and it reads each
@@ -58,9 +60,9 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* base,
 template <typename T, int HDP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int Sq,
-                 int Skv, int Hq, int K, int hd, int causal, int window,
-                 int q_off) {
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int Sq, int Skv, int Hq, int K,
+                 int hd, int causal, int window, int q_off) {
   constexpr int LDQ = HDP + 1;
   constexpr int DJ = HDP / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -173,6 +175,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= Sq) continue;
+    // the row's logsumexp, for the backward (the 16 threads of the row
+    // share m and l)
+    if (lse != nullptr && tx == 0)
+      lse[((long)b * Hq + h) * Sq + row] = m[i] + logf(l[i]);
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
     T* o = out + ((long)b * Sq + row) * q_stride + (long)h * hd;
 #pragma unroll
@@ -185,8 +191,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HDP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Skv, int Hq, int K, int hd, int causal,
-                   int window, int q_off, cudaStream_t stream) {
+                   float* lse, int B, int Sq, int Skv, int Hq, int K, int hd,
+                   int causal, int window, int q_off, cudaStream_t stream) {
   constexpr int LDQ = HDP + 1;
   const int smem = (int)sizeof(float) *
                    (kBQ * LDQ + kBK * LDQ + kBK * HDP + kBQ * kBK);
@@ -197,47 +203,45 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   flash_fwd_kernel<T, HDP><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, Hq, K, hd,
-      causal, window, q_off);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Skv, Hq, K,
+      hd, causal, window, q_off);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* out,
-                        int B, int Sq, int Skv, int Hq, int K, int hd,
-                        int causal, int window, int q_off,
+                        float* lse, int B, int Sq, int Skv, int Hq, int K,
+                        int hd, int causal, int window, int q_off,
                         cudaStream_t stream) {
   if (hd <= 32)
-    return launch<T, 32>(q, k, v, out, B, Sq, Skv, Hq, K, hd, causal, window,
-                         q_off, stream);
+    return launch<T, 32>(q, k, v, out, lse, B, Sq, Skv, Hq, K, hd,
+                         causal, window, q_off, stream);
   if (hd <= 64)
-    return launch<T, 64>(q, k, v, out, B, Sq, Skv, Hq, K, hd, causal, window,
-                         q_off, stream);
+    return launch<T, 64>(q, k, v, out, lse, B, Sq, Skv, Hq, K, hd,
+                         causal, window, q_off, stream);
   if (hd <= 128)
-    return launch<T, 128>(q, k, v, out, B, Sq, Skv, Hq, K, hd, causal, window,
-                          q_off, stream);
-  return launch<T, 256>(q, k, v, out, B, Sq, Skv, Hq, K, hd, causal, window,
-                        q_off, stream);
+    return launch<T, 128>(q, k, v, out, lse, B, Sq, Skv, Hq, K, hd,
+                          causal, window, q_off, stream);
+  return launch<T, 256>(q, k, v, out, lse, B, Sq, Skv, Hq, K, hd,
+                        causal, window, q_off, stream);
 }
 
 }  // namespace
 
-// C interface (bound with ctypes). Pointers are contiguous device tensors,
-// 16-byte aligned; window <= 0 means no window. Returns a cudaError_t.
+// C interface (bound with ctypes). Pointers are contiguous fp32 device
+// tensors, 16-byte aligned (bf16 runs flash_attention_sm90.cu); window <= 0
+// means no window. lse, when not null, is a (B, Hq, Sq) buffer that
+// receives each row's logsumexp of its masked, scaled scores, which the
+// backward reads. Returns a cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out, int B, int Sq,
-                                   int Skv, int Hq, int K, int hd, int causal,
-                                   int window, int q_off, int dtype,
-                                   void* stream) {
+                                   const void* v, void* out, void* lse, int B,
+                                   int Sq, int Skv, int Hq, int K, int hd,
+                                   int causal, int window, int q_off,
+                                   int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || K <= 0 || Hq % K != 0 || hd <= 0 ||
-      hd > 256 || hd % 4 != 0)
+      hd > 256 || hd % 4 != 0 || dtype != rt::kFloat32)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::kFloat32)
-    return (int)dispatch_hd<float>(q, k, v, out, B, Sq, Skv, Hq, K, hd,
-                                   causal, window, q_off, s);
-  if (dtype == rt::kBFloat16)
-    return (int)dispatch_hd<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, Hq, K,
-                                           hd, causal, window, q_off, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_hd<float>(q, k, v, out, static_cast<float*>(lse), B,
+                                 Sq, Skv, Hq, K, hd, causal, window, q_off,
+                                 static_cast<cudaStream_t>(stream));
 }

@@ -7,38 +7,38 @@
 // k/v (B, Skv, K, hd), K | Hq (G = Hq / K query heads read one KV head in
 // place), any Sq and Skv, causal and/or a sliding window, query positions
 // offset by q_off, head_dim up to 256, fp32 or bf16 in and out. Given q, k,
-// v, the forward's output o and dO, it returns dq, dk and dv in q's dtype;
-// every sum is fp32.
+// v, the forward's output o, its row logsumexp L and dO, it returns dq, dk
+// and dv in q's dtype; every sum is fp32.
 //
 // The FlashAttention-2 equations, with S = scale q k^T masked as the
 // forward masks it:
 //   L_i = logsumexp_j S_ij,  P_ij = exp(S_ij - L_i),  D_i = sum_d dO_id O_id,
 //   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - D),
 //   dQ = scale dS K,  dK = scale dS^T Q.
-// L is recomputed here (the forward kernels are left as they are and do
-// not write it). No atomics: each block owns the rows of the gradient it
-// writes, so the result is the same on every run. Tiles that the causal
-// diagonal or the window wholly exclude are skipped.
+// L is the forward's (both forward kernels write it on request). No
+// atomics: each block owns the rows of the gradient it writes, so the
+// result is the same on every run. Tiles that the causal diagonal or the
+// window wholly exclude are skipped.
 //
 // What bounds it on an H100: the work. The gradient's own products are
-// 10 hd flops per (query, key) pair and query head (S, dP, dV, dK, dQ);
-// recomputing L adds 2 hd and S is formed once more, 16 hd in all. The
-// bytes (q, k, v, o, dO read, dq, dk, dv written) are small beside that at
-// the training shapes.
+// 10 hd flops per (query, key) pair and query head (S, dP, dV, dK, dQ); as
+// dQ and dK/dV are summed in separate launches, S and dP are formed twice,
+// 14 hd in all. The bytes (q, k, v, o, dO read, dq, dk, dv written) are
+// small beside that at the training shapes.
 //
 // Two routes, by dtype (neither falls back to the other):
 // - fp32 (head_dim a multiple of 4): the products on the CUDA cores in
-//   fp32, three launches of 256 threads as 16 x 16: bwd_lse_kernel (L and
-//   D, one block per query tile, query head and batch), bwd_dkdv_kernel
-//   (one block per key tile and KV head, dK and dV summed in registers over
-//   the admitted query tiles of all G query heads of its KV head) and
-//   bwd_dq_kernel (one block per query tile and head). Tiles of 64 query
-//   rows and 64 keys (32 and 32 at head_dim 256) sit in shared memory as
-//   fp32 with rows padded by one float, P and dS with rows padded to a
-//   16-float offset; each thread owns TILE/16 rows x head_dim/16 columns.
-// - bf16 (head_dim a multiple of 8): the products on the tensor cores
-//   (mma.sync), two launches; see namespace tc below.
-#include "common.cuh"
+//   fp32, three launches of 256 threads: bwd_delta_kernel (D, a warp a
+//   row), bwd_dkdv_kernel (one block per key tile and KV head, dK and dV
+//   summed in registers over the admitted query tiles of all G query heads
+//   of its KV head) and bwd_dq_kernel (one block per query tile and head),
+//   the last two as 16 x 16 threads. Tiles of 64 query rows and 64 keys (32
+//   and 32 at head_dim 256) sit in shared memory as fp32 with rows padded
+//   by one float, P and dS with rows padded to a 16-float offset; each
+//   thread owns TILE/16 rows x head_dim/16 columns.
+// - bf16 (head_dim a multiple of 8): the products on wgmma, fed by TMA; see
+//   namespace wg below.
+#include "sm90.cuh"
 
 namespace {
 
@@ -95,9 +95,9 @@ __device__ __forceinline__ int key_range(int q0, int Sq, int Skv, int causal,
   return causal ? min(Skv, q_hi + 1) : Skv;
 }
 
-// S (scaled) and dP of the query rows ty + 16 i and keys tx + 16 j of the
-// tiles in shared memory; dP only where DP.
-template <int HDP, bool DP>
+// S (unscaled) and dP of the query rows ty + 16 i and keys tx + 16 j of the
+// tiles in shared memory.
+template <int HDP>
 __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
                                        const float* Ks, const float* Vs,
                                        int tx, int ty,
@@ -119,99 +119,34 @@ __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
     for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < R; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
-    if constexpr (DP) {
-      float g[R], vv[R];
+    float g[R], vv[R];
 #pragma unroll
-      for (int i = 0; i < R; ++i) g[i] = dOs[(ty + 16 * i) * LD + d];
+    for (int i = 0; i < R; ++i) g[i] = dOs[(ty + 16 * i) * LD + d];
 #pragma unroll
-      for (int j = 0; j < R; ++j) vv[j] = Vs[(tx + 16 * j) * LD + d];
+    for (int j = 0; j < R; ++j) vv[j] = Vs[(tx + 16 * j) * LD + d];
 #pragma unroll
-      for (int i = 0; i < R; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < R; ++j) dp[i][j] = fmaf(g[i], vv[j], dp[i][j]);
-    }
+      for (int j = 0; j < R; ++j) dp[i][j] = fmaf(g[i], vv[j], dp[i][j]);
   }
 }
 
-// Pass 1: L and D of each query row, laid out (B, Hq, Sq).
-template <int HDP>
+// Pass 1: D_i = sum_d dO_id O_id of each query row, laid out (B, Hq, Sq);
+// one warp a row. (L comes from the forward.)
 __global__ void __launch_bounds__(kThreads)
-bwd_lse_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ o, const float* __restrict__ dout,
-               float* __restrict__ lse, float* __restrict__ delta, int Sq,
-               int Skv, int Hq, int K, int hd, int causal, int window,
-               int q_off) {
-  constexpr int TILE = Tiling<HDP>::kTile, R = Tiling<HDP>::kR,
-                LD = Tiling<HDP>::kLd;
-  extern __shared__ float smem[];
-  float* Qs = smem;             // TILE x LD
-  float* Ks = Qs + TILE * LD;   // TILE x LD
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (Hq / K);
-  const long q_stride = (long)Hq * hd, kv_stride = (long)K * hd;
-  const long q_base = ((long)b * Sq * Hq + h) * hd;
-  const float* kb = k + ((long)b * Skv * K + kh) * hd;
-  const float scale = 1.0f / sqrtf((float)hd);
-
-  load_tile<HDP>(Qs, q + q_base, q_stride, q0, Sq, hd, tid);
-  int kv_begin;
-  const int kv_end =
-      key_range<TILE>(q0, Sq, Skv, causal, window, q_off, &kv_begin);
-
-  float m[R], l[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    m[i] = rt::kNegInf;
-    l[i] = 0.f;
-  }
-  for (int k0 = kv_begin; k0 < kv_end; k0 += TILE) {
-    __syncthreads();  // the previous key tile is consumed
-    load_tile<HDP>(Ks, kb, kv_stride, k0, Skv, hd, tid);
-    __syncthreads();
-    float s[R][R], unused[R][R];
-    scores<HDP, false>(Qs, nullptr, Ks, nullptr, tx, ty, s, unused);
-    // the online max and sum of each row; the 16 threads that share a row
-    // are one half-warp
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qpos = q_off + q0 + ty + 16 * i;
-      float mx = rt::kNegInf;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int c = k0 + tx + 16 * j;
-        s[i][j] = admitted(c, qpos, Skv, causal, window) ? s[i][j] * scale
-                                                         : rt::kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = rt::half_warp_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < R; ++j) psum += expf(s[i][j] - m_new);
-      psum = rt::half_warp_sum(psum);
-      l[i] = l[i] * expf(m[i] - m_new) + psum;
-      m[i] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty + 16 * i;
-    float dsum = 0.f;
-    if (row < Sq) {
-      const float* orow = o + q_base + row * q_stride;
-      const float* grow = dout + q_base + row * q_stride;
-      for (int d = tx; d < hd; d += 16)
-        dsum = fmaf(grow[d], orow[d], dsum);
-    }
-    dsum = rt::half_warp_sum(dsum);
-    if (row < Sq && tx == 0) {
-      const long at = ((long)b * Hq + h) * Sq + row;
-      lse[at] = m[i] + logf(l[i]);
-      delta[at] = dsum;
-    }
+bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
+                 float* __restrict__ delta, int B, int Sq, int Hq, int hd) {
+  const int lane = threadIdx.x & 31;
+  // the row's index in q's (B, Sq, Hq) order; a warp shares its row
+  const long row = (long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  if (row >= (long)B * Sq * Hq) return;
+  float sum = 0.f;
+  for (int d = lane; d < hd; d += 32)
+    sum = fmaf(dout[row * hd + d], o[row * hd + d], sum);
+  sum = rt::warp_sum(sum);
+  if (lane == 0) {
+    const long bs = row / Hq;
+    delta[(bs / Sq * Hq + row % Hq) * Sq + bs % Sq] = sum;
   }
 }
 
@@ -311,7 +246,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       load_rows<TILE>(Ls, Ds, lse, delta, row_base, q0, Sq, tid);
       __syncthreads();
       float s[R][R], dp[R][R];
-      scores<HDP, true>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
+      scores<HDP>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
       probs<HDP, true>(s, dp, Ls, Ds, Ps, dSs, q0, k0, Sq, Skv, causal,
                        window, q_off, scale, tx, ty);
       __syncthreads();
@@ -401,7 +336,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     load_tile<HDP>(Vs, v + kv_base, kv_stride, k0, Skv, hd, tid);
     __syncthreads();
     float s[R][R], dp[R][R];
-    scores<HDP, true>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
+    scores<HDP>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
     probs<HDP, false>(s, dp, Ls, Ds, nullptr, dSs, q0, k0, Sq, Skv, causal,
                       window, q_off, scale, tx, ty);
     __syncthreads();
@@ -442,33 +377,31 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 
 template <int HDP>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* o, const void* dout, void* dq, void* dk,
-                   void* dv, float* lse, float* delta, int B, int Sq,
+                   const void* o, const void* dout, const float* lse,
+                   void* dq, void* dk, void* dv, float* delta, int B, int Sq,
                    int Skv, int Hq, int K, int hd, int causal, int window,
                    int q_off, cudaStream_t stream) {
   constexpr int TILE = Tiling<HDP>::kTile, LD = Tiling<HDP>::kLd,
                 PLD = Tiling<HDP>::kPld;
-  const int smem_lse = (int)sizeof(float) * 2 * TILE * LD;
   const int smem_dkdv =
       (int)sizeof(float) * (4 * TILE * LD + 2 * TILE * PLD + 2 * TILE);
   const int smem_dq =
       (int)sizeof(float) * (4 * TILE * LD + TILE * PLD + 2 * TILE);
-  cudaError_t err = allow_smem(bwd_lse_kernel<HDP>, smem_lse);
-  if (err == cudaSuccess)
-    err = allow_smem(bwd_dkdv_kernel<HDP>, smem_dkdv);
+  cudaError_t err = allow_smem(bwd_dkdv_kernel<HDP>, smem_dkdv);
   if (err == cudaSuccess) err = allow_smem(bwd_dq_kernel<HDP>, smem_dq);
   if (err != cudaSuccess) return err;
   const float* qt = static_cast<const float*>(q);
   const float* kt = static_cast<const float*>(k);
   const float* vt = static_cast<const float*>(v);
   const float* gt = static_cast<const float*>(dout);
-  const dim3 q_grid((Sq + TILE - 1) / TILE, Hq, B);
-  bwd_lse_kernel<HDP><<<q_grid, kThreads, smem_lse, stream>>>(
-      qt, kt, static_cast<const float*>(o), gt, lse, delta, Sq, Skv, Hq, K,
-      hd, causal, window, q_off);
+  const long rows = (long)B * Sq * Hq;
+  bwd_delta_kernel<<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)),
+                     kThreads, 0, stream>>>(static_cast<const float*>(o), gt,
+                                            delta, B, Sq, Hq, hd);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 kv_grid((Skv + TILE - 1) / TILE, K, B);
+  const dim3 q_grid((Sq + TILE - 1) / TILE, Hq, B);
   bwd_dkdv_kernel<HDP><<<kv_grid, kThreads, smem_dkdv, stream>>>(
       qt, kt, vt, gt, lse, delta, static_cast<float*>(dk),
       static_cast<float*>(dv), Sq, Skv, Hq, K, hd, causal, window, q_off);
@@ -481,485 +414,671 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }
 
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v,
-                        const void* o, const void* dout, void* dq, void* dk,
-                        void* dv, float* lse, float* delta, int B, int Sq,
-                        int Skv, int Hq, int K, int hd, int causal,
+                        const void* o, const void* dout, const float* lse,
+                        void* dq, void* dk, void* dv, float* delta, int B,
+                        int Sq, int Skv, int Hq, int K, int hd, int causal,
                         int window, int q_off, cudaStream_t stream) {
   if (hd <= 32)
-    return launch<32>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq, Skv,
+    return launch<32>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, Sq, Skv,
                       Hq, K, hd, causal, window, q_off, stream);
   if (hd <= 64)
-    return launch<64>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq, Skv,
+    return launch<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, Sq, Skv,
                       Hq, K, hd, causal, window, q_off, stream);
   if (hd <= 128)
-    return launch<128>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq, Skv,
+    return launch<128>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, Sq, Skv,
                        Hq, K, hd, causal, window, q_off, stream);
-  return launch<256>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq, Skv,
+  return launch<256>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, Sq, Skv,
                      Hq, K, hd, causal, window, q_off, stream);
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the products on the tensor cores (mma.sync.m16n8k16, bf16 in, fp32
-// accumulators), two launches of 256 threads (8 warps):
-//   1. bwd_dq_mma, one block per (64 query rows, query head, batch): D of
-//      its rows, then L by an online max and sum over the admitted key
-//      tiles (S = Q K^T), then dQ over the same tiles (S and dP again, dS
-//      into shared memory as bf16, dQ += dS K); it writes L and D;
-//   2. bwd_dkdv_mma, one block per (64 keys, KV head, batch): for every
-//      admitted query tile of the G query heads, S^T = K Q^T and dP^T =
-//      V dO^T, P^T and dS^T into shared memory as bf16, then dV += P^T dO
-//      and dK += dS^T Q.
-// A warp computes 16 rows x 32 columns of each 64 x 64 score tile, and
-// accumulates 16 rows x half the head dim of its block's gradient. Tiles
-// of 64 rows sit in shared memory as bf16 with their 16-byte chunks
-// XOR-swizzled by the row (the eight rows of an ldmatrix hit eight bank
-// groups), head dims padded with zeros to 64, 128 or 256 (a multiple of 8
-// is the contract). P and dS enter the second products rounded once to
-// bf16, as FlashAttention-2 feeds them.
+// bf16: the products on wgmma (m64nNk16, bf16 in, fp32 accumulators in
+// registers), every tile fed by TMA into 128-byte-swizzled 64-column slabs
+// (csrc/sm90.cuh, the forward's pieces), no atomics. Two launches, and a
+// third where the dK/dV grid is split:
+//   1. bwd_dq_sm90, one block per (BQ query rows, query head, batch): BQ /
+//      64 consumer warpgroups (128 rows at head_dim <= 128, 64 at 256) and
+//      a producer warp. The warpgroups first take D_i = sum dO_i O_i of
+//      their rows from device memory (a quad a row pair) and write it for
+//      launch 2; L comes from the forward. The producer loads Q and dO once
+//      and keeps a 2-stage ring of K and V tiles of 64 keys in flight. For
+//      each admitted key tile: S = Q K^T and dP = dO V^T (both operands
+//      K-major in shared memory), P = exp2(S log2e / sqrt(hd) - L log2e)
+//      and dS = P (dP - D) in the accumulators' registers, then dQ += dS K
+//      with dS from registers as bf16 (the accumulator's layout is the A
+//      fragment's) and K through the transpose bit.
+//   2. bwd_dkdv_sm90, one block per (128 keys, 64 at head_dim 256, KV
+//      head, share of the G query heads, batch) on a 1-D grid, key blocks
+//      with the most admitted query tiles first, and two consumer
+//      warpgroups: up to head_dim 128 each owns 64 of the keys, at 256
+//      each owns half of dK's and dV's columns (and forms S^T and dP^T
+//      whole). K and V stay in shared memory; Q and dO tiles of 64 rows
+//      come through a ring (3 stages, 2 at head_dim 256), with their L and
+//      D. For each admitted query tile of each of its heads: S^T = K Q^T
+//      and dP^T = V dO^T, P^T and dS^T in registers, dV += P^T dO and dK
+//      += dS^T Q with dO and Q through the transpose bit. dK and dV stay in
+//      fp32 registers across the whole walk.
+//   3. bwd_reduce_sm90, only where (64-key tiles) x K x B is under 2 x 132
+//      (kernel.py::plan_bwd decides; RecurrentGemma's one KV head) and the
+//      G query heads are split over blocks: the shares of launch 2 wrote
+//      fp32 partial dK and dV to a workspace, and this pass sums them in
+//      share order and casts to bf16.
+// Masking (causal, window, offset, ragged tails) applies to S or S^T in the
+// accumulator's layout on tiles that cross an edge: keys at or past Skv and
+// query rows at or past Sq get P = 0 (TMA's zero fill gives them S = 0,
+// not -inf). P and dS enter the second products rounded once to bf16, as
+// FlashAttention-2 feeds them. Work: 14 hd flops per admitted (query, key)
+// pair and query head (S and dP twice, dV, dK, dQ), against the 10 hd of
+// the gradient's own products; an fp32 atomicAdd into dQ (FlashAttention-3)
+// would make it 10 hd, at the price of the bits changing from run to run.
+// Registers (ptxas, at head_dim 64 / 128 / 256): dQ 135 / 164 / 233, dK/dV
+// 186 / 254 / 232, no spills. The dK/dV kernel has no producer warp: beside
+// 256 consumer threads one caps a thread at 168 registers, and dK, dV, S^T
+// and dP^T take 192; one consumer warpgroup alone would leave the tensor
+// cores idle while it takes its exponentials. setmaxnreg, which would move
+// a producer's registers to the consumers, is not used: it hung the card in
+// the forward.
 // ---------------------------------------------------------------------------
 
-namespace tc {
+namespace wg {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kT = 64;  // query rows = keys of a tile
-
+using namespace sm90;
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-// c += a (16x16, row-major) * b (16x8, col-major), bf16 in, fp32 out
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+constexpr int kStages = 2;                 // K/V ring depth of dQ
+constexpr int kT = 64;                     // keys of a K/V tile; query rows
+                                           // of a Q/dO tile in dK/dV
+constexpr int kKS = kT / 16;               // k-steps over a 64-wide tile
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Element offset of (row, 16-byte chunk) in a tile of rows of W bf16.
-template <int W>
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * W + ((chunk ^ (row & 7)) << 3);
-}
-
-// Rows [row0, row0 + 64) of a (rows, stride) bf16 matrix into a swizzled
-// tile of width HDP, zero-filling rows past n_rows and chunks past hd.
-template <int HDP>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* base,
-                                          long stride, int row0, int n_rows,
-                                          int hd, int tid) {
-  constexpr int CH = HDP / 8;
-  for (int idx = tid; idx < kT * CH; idx += kThreads) {
-    const int r = idx / CH, c = idx - r * CH;
-    const int row = row0 + r;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row < n_rows && c * 8 < hd)
-      x = *reinterpret_cast<const uint4*>(base + row * stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + swz<HDP>(r, c)) = x;
-  }
-}
-
-// acc (16 rows from ar0 x 32 columns from bc0) = A B^T over the head dim:
-// A and B tiles of width HDP, rows of B the columns of the product.
-// acc[n][e]: row ar0 + g + 8 (e >> 1), column bc0 + 8 n + 2 t4 + (e & 1).
-template <int HDP>
-__device__ __forceinline__ void abt(const bf16* A, const bf16* Bm, int ar0,
-                                    int bc0, int lane, float (&acc)[4][4]) {
+// A 64 x 64 fp32 accumulator (m64n64 layout) as the bf16 A fragments of the
+// four k-steps of a product over its 64 columns.
+__device__ __forceinline__ void to_frags(const float (&s)[32],
+                                         uint32_t (&a)[kKS][4]) {
 #pragma unroll
-  for (int n = 0; n < 4; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const int mi = lane >> 3;
+  for (int kk = 0; kk < kKS; ++kk)
 #pragma unroll
-  for (int ks = 0; ks < HDP / 16; ++ks) {
-    uint32_t a[4];
-    ldmatrix_x4(a, A + swz<HDP>(ar0 + (lane & 15), 2 * ks + (lane >> 4)));
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      uint32_t b[4];
-      ldmatrix_x4(b, Bm + swz<HDP>(bc0 + 16 * j + (lane & 7) + 8 * (mi >> 1),
-                                   2 * ks + (mi & 1)));
-      mma16816(acc[2 * j], a, b[0], b[1]);
-      mma16816(acc[2 * j + 1], a, b[2], b[3]);
+    for (int r = 0; r < 4; ++r) {
+      const int base = 4 * (2 * kk + r / 2) + 2 * (r % 2);
+      a[kk][r] = pack_bf16(s[base], s[base + 1]);
     }
+}
+
+// The sum of the products of eight bf16 pairs (16 bytes each).
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    sum = fmaf(__uint_as_float(x[i] << 16), __uint_as_float(y[i] << 16), sum);
+    sum = fmaf(__uint_as_float(x[i] & 0xffff0000u),
+               __uint_as_float(y[i] & 0xffff0000u), sum);
   }
+  return sum;
 }
 
-// acc (16 rows from ar0 x HDP/2 columns from hc0) += A B over 64: A a
-// 64-wide tile (rows ar0..), B a tile of width HDP read transposed.
-// acc[n][e]: row ar0 + g + 8 (e >> 1), column hc0 + 8 n + 2 t4 + (e & 1).
-template <int HDP>
-__device__ __forceinline__ void ab(const bf16* A, const bf16* Bm, int ar0,
-                                   int hc0, int lane,
-                                   float (&acc)[HDP / 16][4]) {
-  const int mi = lane >> 3;
-#pragma unroll
-  for (int ks = 0; ks < kT / 16; ++ks) {
-    uint32_t a[4];
-    ldmatrix_x4(a, A + swz<kT>(ar0 + (lane & 15), 2 * ks + (lane >> 4)));
-#pragma unroll
-    for (int j = 0; j < HDP / 32; ++j) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, Bm + swz<HDP>(16 * ks + (lane & 7) + 8 * (mi & 1),
-                                         hc0 / 8 + 2 * j + (mi >> 1)));
-      mma16816(acc[2 * j], a, b[0], b[1]);
-      mma16816(acc[2 * j + 1], a, b[2], b[3]);
-    }
-  }
-}
+// --- launch 1: D and dQ ----------------------------------------------------
 
-// Two fp32 values as a bf16 pair at (row, col) of a 64-wide tile; col even.
-__device__ __forceinline__ void store_pair(bf16* tile, int row, int col,
-                                           float lo, float hi) {
-  *reinterpret_cast<uint32_t*>(tile + swz<kT>(row, col >> 3) + (col & 7)) =
-      pack_bf16(lo, hi);
-}
+template <int HDP, int BQ>
+struct DqTile {
+  static constexpr int kSlabs = HDP / kSlab;
+  static constexpr int kGroups = BQ / 64;              // consumer warpgroups
+  static constexpr int kThreads = 128 * kGroups + 32;  // + producer warp
+  static constexpr int kQBytes = kSlabs * BQ * kRowBytes;  // Q or dO
+  static constexpr int kKVBytes = kSlabs * kT * kRowBytes;  // K or V tile
+  static constexpr int kSmem =
+      1024 + 2 * kQBytes + 2 * kStages * kKVBytes + 8 * (1 + 2 * kStages);
+};
 
-// Rows of a gradient from a warp's accumulators: 16 rows from r0 (global
-// row index) x HDP/2 columns from hc0, scaled, for rows < n_rows and
-// columns < hd.
-template <int HDP>
-__device__ __forceinline__ void store_rows(bf16* base, long stride, int r0,
-                                           int n_rows, int hc0, int hd,
-                                           float scale, int lane,
-                                           const float (&acc)[HDP / 16][4]) {
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int n = 0; n < HDP / 16; ++n) {
-    const int col = hc0 + 8 * n + 2 * t4;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = r0 + g + 8 * hh;
-      if (row < n_rows && col < hd)
-        *reinterpret_cast<uint32_t*>(base + row * stride + col) =
-            pack_bf16(acc[n][2 * hh] * scale, acc[n][2 * hh + 1] * scale);
-    }
-  }
-}
+template <int HDP, int BQ>
+__global__ void __launch_bounds__(DqTile<HDP, BQ>::kThreads, 1)
+bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
+            const __grid_constant__ CUtensorMap tm_do,
+            const __grid_constant__ CUtensorMap tm_k,
+            const __grid_constant__ CUtensorMap tm_v,
+            const bf16* __restrict__ o, const bf16* __restrict__ dout,
+            const float* __restrict__ lse, float* __restrict__ delta,
+            bf16* __restrict__ dq, int Sq, int Skv, int Hq, int K, int hd,
+            int causal, int window, int q_off) {
+  using T = DqTile<HDP, BQ>;
+  constexpr int NS = T::kSlabs;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* q_s = smem;
+  uint8_t* do_s = q_s + T::kQBytes;
+  uint8_t* k_s = do_s + T::kQBytes;
+  uint8_t* v_s = k_s + kStages * T::kKVBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kStages * T::kKVBytes);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* kv_empty = kv_full + kStages;
 
-template <int HDP>
-constexpr int dq_smem_bytes() {
-  return 2 * (4 * kT * HDP + kT * kT) + 4 * (2 * kT + 4 * kT);
-}
-template <int HDP>
-constexpr int dkdv_smem_bytes() {
-  return 2 * (4 * kT * HDP + 2 * kT * kT) + 4 * 2 * kT;
-}
-
-template <int HDP>
-__global__ void __launch_bounds__(kThreads)
-bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, const bf16* __restrict__ o,
-           const bf16* __restrict__ dout, float* __restrict__ lse,
-           float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Skv,
-           int Hq, int K, int hd, int causal, int window, int q_off) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // kT x HDP each
-  bf16* dOs = Qs + kT * HDP;
-  bf16* Ks = dOs + kT * HDP;
-  bf16* Vs = Ks + kT * HDP;
-  bf16* dSs = Vs + kT * HDP;                      // kT x kT
-  float* Ls = reinterpret_cast<float*>(dSs + kT * kT);
-  float* Ds = Ls + kT;
-  float* ml = Ds + kT;                            // (2, kT, 2): max, sum
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // most keys first
   const int kh = h / (Hq / K);
-  const long q_stride = (long)Hq * hd, kv_stride = (long)K * hd;
-  const long q_base = ((long)b * Sq * Hq + h) * hd;
-  const long kv_base = ((long)b * Skv * K + kh) * hd;
-  const long row_base = ((long)b * Hq + h) * Sq;
-  const float scale = 1.0f / sqrtf((float)hd);
-  // the warp's rows of the score tiles, its key half, its head-dim half
-  const int qr0 = 16 * (warp & 3), kc0 = 32 * (warp >> 2),
-            hc0 = (HDP / 2) * (warp >> 2);
+  const int q_lo = q_off + q0;
+  const int q_hi = q_off + min(q0 + BQ, Sq) - 1;
+  const int kv_end = causal ? min(Skv, q_hi + 1) : Skv;
+  int kv_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  kv_begin -= kv_begin % kT;
+  const int n_tiles = max(0, (kv_end - kv_begin + kT - 1) / kT);
 
-  load_tile<HDP>(Qs, q + q_base, q_stride, q0, Sq, hd, tid);
-  load_tile<HDP>(dOs, dout + q_base, q_stride, q0, Sq, hd, tid);
-  // D of the tile's rows, eight rows a warp
-  for (int i = 0; i < kT / kWarps; ++i) {
-    const int r = warp * (kT / kWarps) + i, row = q0 + r;
-    float sum = 0.f;
-    if (row < Sq)
-      for (int d = lane; d < hd; d += 32)
-        sum = fmaf(__bfloat162float(dout[q_base + row * q_stride + d]),
-                   __bfloat162float(o[q_base + row * q_stride + d]), sum);
-    sum = rt::warp_sum(sum);
-    if (lane == 0) {
-      Ds[r] = sum;
-      if (row < Sq) delta[row_base + row] = sum;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], 128 * T::kGroups);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  int kv_begin;
-  const int kv_end =
-      key_range<kT>(q0, Sq, Skv, causal, window, q_off, &kv_begin);
-
-  // L: an online max and sum of each of the warp's two rows a lane holds
-  // (rows qr0 + g and qr0 + g + 8, over the warp's 32 keys of each tile)
-  float m[2] = {rt::kNegInf, rt::kNegInf}, l[2] = {0.f, 0.f};
-  for (int k0 = kv_begin; k0 < kv_end; k0 += kT) {
-    __syncthreads();  // the previous key tile is consumed
-    load_tile<HDP>(Ks, k + kv_base, kv_stride, k0, Skv, hd, tid);
-    __syncthreads();
-    float s[4][4];
-    abt<HDP>(Qs, Ks, qr0, kc0, lane, s);
-    float mx[2] = {rt::kNegInf, rt::kNegInf};
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qpos = q_off + q0 + qr0 + g + 8 * (e >> 1);
-        const int c = k0 + kc0 + 8 * n + 2 * t4 + (e & 1);
-        s[n][e] = admitted(c, qpos, Skv, causal, window) ? s[n][e] * scale
-                                                         : rt::kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-      const float m_new = fmaxf(m[hh], mx[hh]);
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-        sum += expf(s[n][2 * hh] - m_new) + expf(s[n][2 * hh + 1] - m_new);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[hh] = l[hh] * expf(m[hh] - m_new) + sum;
-      m[hh] = m_new;
-    }
-  }
-  // the two key halves of each row meet in shared memory
-  if (t4 == 0)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float* at = ml + ((warp >> 2) * kT + qr0 + g + 8 * hh) * 2;
-      at[0] = m[hh];
-      at[1] = l[hh];
-    }
   __syncthreads();
-  if (tid < kT) {
-    const float m0 = ml[tid * 2], l0 = ml[tid * 2 + 1];
-    const float m1 = ml[(kT + tid) * 2], l1 = ml[(kT + tid) * 2 + 1];
-    const float mm = fmaxf(m0, m1);
-    Ls[tid] = mm + logf(l0 * expf(m0 - mm) + l1 * expf(m1 - mm));
-    if (q0 + tid < Sq) lse[row_base + q0 + tid] = Ls[tid];
+
+  if (threadIdx.x / 32 == 4 * T::kGroups) {   // the producer warp
+    if (threadIdx.x % 32 != 0) return;
+    mbar_expect_tx(q_full, 2 * T::kQBytes);
+    for (int s = 0; s < NS; ++s) {
+      tma_load(q_s + s * BQ * kRowBytes, &tm_q, q_full, s * kSlab, h, q0, b);
+      tma_load(do_s + s * BQ * kRowBytes, &tm_do, q_full, s * kSlab, h, q0,
+               b);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages, free = ((it / kStages) & 1) ^ 1;
+      const int k0 = kv_begin + it * kT;
+      mbar_wait(&kv_empty[st], free);
+      mbar_expect_tx(&kv_full[st], 2 * T::kKVBytes);
+      for (int s = 0; s < NS; ++s) {
+        tma_load(k_s + st * T::kKVBytes + s * kT * kRowBytes, &tm_k,
+                 &kv_full[st], s * kSlab, kh, k0, b);
+        tma_load(v_s + st * T::kKVBytes + s * kT * kRowBytes, &tm_v,
+                 &kv_full[st], s * kSlab, kh, k0, b);
+      }
+    }
+    return;
   }
 
-  // dQ over the same key tiles
-  float acc[HDP / 16][4];
+  const int g = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int r0 = 64 * g + 16 * (tid / 32) + lane / 4;   // rows r0, r0 + 8
+  const int cq = 2 * (lane % 4);
+  const int qpos[2] = {q_off + q0 + r0, q_off + q0 + r0 + 8};
+  const int wq_lo = q_off + q0 + 64 * g, wq_hi = wq_lo + 63;
+  const float scale = 1.0f / sqrtf((float)hd);
+  const float sl2 = kLog2e / sqrtf((float)hd);
+
+  // D of the thread's two rows (the quad splits each row's columns) and L
+  // in base 2; D is written for launch 2
+  float L2[2], Dr[2];
 #pragma unroll
-  for (int n = 0; n < HDP / 16; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int k0 = kv_begin; k0 < kv_end; k0 += kT) {
-    __syncthreads();  // L is in place; the previous tiles and dS consumed
-    load_tile<HDP>(Ks, k + kv_base, kv_stride, k0, Skv, hd, tid);
-    load_tile<HDP>(Vs, v + kv_base, kv_stride, k0, Skv, hd, tid);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    abt<HDP>(Qs, Ks, qr0, kc0, lane, s);
-    abt<HDP>(dOs, Vs, qr0, kc0, lane, dp);
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = qr0 + g + 8 * hh, col = kc0 + 8 * n + 2 * t4;
-        float ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool ok = q0 + r < Sq && admitted(k0 + col + e, q_off + q0 + r,
-                                                  Skv, causal, window);
-          const float p = ok ? expf(s[n][2 * hh + e] * scale - Ls[r]) : 0.f;
-          ds[e] = p * (dp[n][2 * hh + e] - Ds[r]);
-        }
-        store_pair(dSs, r, col, ds[0], ds[1]);
-      }
-    __syncthreads();
-    ab<HDP>(dSs, Ks, qr0, hc0, lane, acc);
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    float sum = 0.f;
+    if (row < Sq) {
+      const long base = (((long)b * Sq + row) * Hq + h) * hd;
+      for (int c = 8 * (lane % 4); c < hd; c += 32)
+        sum += dot8(*reinterpret_cast<const uint4*>(o + base + c),
+                    *reinterpret_cast<const uint4*>(dout + base + c));
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const long at = ((long)b * Hq + h) * Sq + row;
+    Dr[i] = sum;
+    L2[i] = row < Sq ? lse[at] * kLog2e : 0.f;
+    if (row < Sq && cq == 0) delta[at] = sum;
   }
-  store_rows<HDP>(dq + q_base, q_stride, q0 + qr0, Sq, hc0, hd, scale, lane,
-                  acc);
+
+  float acc[HDP / 2];
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+  float s[kT / 2], dp[kT / 2];
+  uint32_t ds_a[kKS][4];
+  const uint32_t q_addr = smem_u32(q_s) + g * 64 * kRowBytes;
+  const uint32_t do_addr = smem_u32(do_s) + g * 64 * kRowBytes;
+
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kStages;
+    const int k0 = kv_begin + it * kT;
+    const uint32_t k_addr = smem_u32(k_s) + st * T::kKVBytes;
+    const uint32_t v_addr = smem_u32(v_s) + st * T::kKVBytes;
+    mbar_wait(&kv_full[st], (it / kStages) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Mma<kT>::ss(
+            s, desc_sw128(q_addr + sl * BQ * kRowBytes + kk * 32, 16, 1024),
+            desc_sw128(k_addr + sl * kT * kRowBytes + kk * 32, 16, 1024),
+            (sl | kk) != 0);
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Mma<kT>::ss(
+            dp, desc_sw128(do_addr + sl * BQ * kRowBytes + kk * 32, 16, 1024),
+            desc_sw128(v_addr + sl * kT * kRowBytes + kk * 32, 16, 1024),
+            (sl | kk) != 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+    const bool edge = k0 + kT > Skv || (causal && k0 + kT - 1 > wq_lo) ||
+                      (window > 0 && k0 <= wq_hi - window);
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int idx = 4 * j + 2 * i + c;
+          float p = exp2f(s[idx] * sl2 - L2[i]);
+          if (edge && !admitted(k0 + 8 * j + cq + c, qpos[i], Skv, causal,
+                                window))
+            p = 0.f;
+          dp[idx] = p * (dp[idx] - Dr[i]);
+        }
+    to_frags(dp, ds_a);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk)
+      Mma<HDP>::rs(acc, ds_a[kk],
+                   desc_sw128(k_addr + kk * 16 * kRowBytes, kT * kRowBytes,
+                              1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(&kv_empty[st]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    if (row >= Sq) continue;
+    bf16* dqrow = dq + (((long)b * Sq + row) * Hq + h) * hd;
+#pragma unroll
+    for (int j = 0; j < HDP / 8; ++j) {
+      const int col = 8 * j + cq;
+      if (col < hd)
+        *reinterpret_cast<__nv_bfloat162*>(dqrow + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i] * scale,
+                                  acc[4 * j + 2 * i + 1] * scale);
+    }
+  }
 }
 
+// --- launch 2: dK and dV ---------------------------------------------------
+
+// Two consumer warpgroups and no producer warp, so that each thread may
+// hold 255 registers (with a 32-thread producer warp beside 256 consumers
+// ptxas allows 168, and dK, dV, S^T and dP^T need 192). Up to head_dim 128
+// each warpgroup owns 64 of the block's 128 keys (both read every Q and dO
+// tile); at 256 the block has 64 keys and each warpgroup owns half of dK's
+// and dV's columns, forming S^T and dP^T whole. Warp 0 also loads: at the
+// start of walk step it it refills the stage of step it - 1 with step it +
+// kStages - 1 (Q and dO by TMA, L and D by cp.async with zero fill past Sq;
+// the rows of a head are not 16-byte strided, so not by TMA), once both
+// warpgroups are done with it.
 template <int HDP>
-__global__ void __launch_bounds__(kThreads)
-bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, const bf16* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv,
-             int Hq, int K, int hd, int causal, int window, int q_off) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // kT x HDP each
-  bf16* Vs = Ks + kT * HDP;
-  bf16* Qs = Vs + kT * HDP;
-  bf16* dOs = Qs + kT * HDP;
-  bf16* Ps = dOs + kT * HDP;                      // P^T, kT x kT
-  bf16* dSs = Ps + kT * kT;                       // dS^T, kT x kT
-  float* Ls = reinterpret_cast<float*>(dSs + kT * kT);
-  float* Ds = Ls + kT;
+struct KvTile {
+  static constexpr int kSlabs = HDP / kSlab;
+  static constexpr bool kKeySplit = HDP <= 128;
+  static constexpr int kKeys = kKeySplit ? 128 : 64;   // keys of a block
+  static constexpr int kCols = kKeySplit ? HDP : HDP / 2;  // of a warpgroup
+  static constexpr int kStages = kKeySplit ? 3 : 2;
+  static constexpr int kThreads = 256;
+  static constexpr int kTileBytes = kSlabs * kT * kRowBytes;   // Q or dO
+  static constexpr int kKVBytes = kSlabs * kKeys * kRowBytes;  // K or V
+  // K, V, the ring's Q and dO tiles, then L and D of each stage
+  static constexpr int kSmem = 1024 + 2 * kKVBytes +
+                               2 * kStages * kTileBytes +
+                               kStages * 2 * kT * 4 + 8 * (1 + 2 * kStages);
+};
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int k0 = blockIdx.x * kT, kh = blockIdx.y, b = blockIdx.z;
+template <int HDP>
+__global__ void __launch_bounds__(KvTile<HDP>::kThreads, 1)
+bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
+              const __grid_constant__ CUtensorMap tm_do,
+              const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dk, bf16* __restrict__ dv,
+              float* __restrict__ part, int B, int Sq, int Skv, int Hq, int K,
+              int hd, int causal, int window, int q_off, int shares) {
+  using T = KvTile<HDP>;
+  constexpr int NS = T::kSlabs, NC = T::kCols, ST = T::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* k_s = smem;
+  uint8_t* v_s = k_s + T::kKVBytes;
+  uint8_t* q_s = v_s + T::kKVBytes;                  // ST tiles
+  uint8_t* do_s = q_s + ST * T::kTileBytes;          // ST tiles
+  float* rows_s = reinterpret_cast<float*>(do_s + ST * T::kTileBytes);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(rows_s + ST * 2 * kT);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + ST;
+
+  // block -> (key block, KV head, share, batch), key blocks slowest: the
+  // first keys admit the most query tiles under a causal mask
+  const int per_block = K * shares * B;
+  const int kb = blockIdx.x / per_block;
+  int rest = blockIdx.x - kb * per_block;
+  const int kh = rest % K;
+  rest /= K;
+  const int sh = rest % shares, b = rest / shares;
+  const int k0 = kb * T::kKeys;
   const int G = Hq / K;
-  const long q_stride = (long)Hq * hd, kv_stride = (long)K * hd;
-  const long kv_base = ((long)b * Skv * K + kh) * hd;
-  const float scale = 1.0f / sqrtf((float)hd);
-  // the warp's keys of the score tiles, its query half, its head-dim half
-  const int kr0 = 16 * (warp & 3), qc0 = 32 * (warp >> 2),
-            hc0 = (HDP / 2) * (warp >> 2);
-
-  load_tile<HDP>(Ks, k + kv_base, kv_stride, k0, Skv, hd, tid);
-  load_tile<HDP>(Vs, v + kv_base, kv_stride, k0, Skv, hd, tid);
-  // the query rows that admit some key of this tile, as the CUDA-core pass
-  const int k_hi = min(k0 + kT, Skv) - 1;
+  const int h_lo = kh * G + sh * G / shares;
+  const int h_hi = kh * G + (sh + 1) * G / shares;
+  // the query rows that admit some key of this block: causal rows from the
+  // block's first key on, windowed rows up to its last key + window - 1
+  const int k_hi = min(k0 + T::kKeys, Skv) - 1;
   int i_begin = causal ? max(0, k0 - q_off) : 0;
   i_begin -= i_begin % kT;
   const int i_end = window > 0 ? min(Sq, k_hi + window - q_off) : Sq;
+  const int n_qt = i_end > i_begin ? (i_end - i_begin + kT - 1) / kT : 0;
+  const int n_iters = (h_hi - h_lo) * n_qt;
 
-  float acc_k[HDP / 16][4], acc_v[HDP / 16][4];
-#pragma unroll
-  for (int n = 0; n < HDP / 16; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 32);   // warp 0's cp.async arrivals, + TMA bytes
+      mbar_init(&empty[s], T::kThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = kh * G + hh;
-    const long q_base = ((long)b * Sq * Hq + h) * hd;
-    const long row_base = ((long)b * Hq + h) * Sq;
-    for (int q0 = i_begin; q0 < i_end; q0 += kT) {
-      __syncthreads();  // the previous query tile, P^T and dS^T consumed
-      load_tile<HDP>(Qs, q + q_base, q_stride, q0, Sq, hd, tid);
-      load_tile<HDP>(dOs, dout + q_base, q_stride, q0, Sq, hd, tid);
-      if (tid < kT) {
-        const int row = q0 + tid;
-        Ls[tid] = row < Sq ? lse[row_base + row] : 0.f;
-        Ds[tid] = row < Sq ? delta[row_base + row] : 0.f;
+  const int g = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const bool loader = threadIdx.x < 32;
+
+  // step j of the walk (query head h_lo + j / n_qt, rows from i_begin +
+  // 64 (j % n_qt)) into stage j % ST, once step j - ST has left it
+  auto load_step = [&](int j) {
+    const int st = j % ST;
+    mbar_wait(&empty[st], ((j / ST) & 1) ^ 1);
+    const int h = h_lo + j / n_qt, q0 = i_begin + (j % n_qt) * kT;
+    const long at = ((long)b * Hq + h) * Sq;
+    float* rows = rows_s + st * 2 * kT;
+    for (int r = lane; r < kT; r += 32) {
+      const bool in = q0 + r < Sq;
+      cp_async4(rows + r, lse + at + (in ? q0 + r : 0), in);
+      cp_async4(rows + kT + r, delta + at + (in ? q0 + r : 0), in);
+    }
+    if (lane == 0) {
+      mbar_add_tx(&full[st], 2 * T::kTileBytes);
+      for (int s = 0; s < NS; ++s) {
+        tma_load(q_s + st * T::kTileBytes + s * kT * kRowBytes, &tm_q,
+                 &full[st], s * kSlab, h, q0, b);
+        tma_load(do_s + st * T::kTileBytes + s * kT * kRowBytes, &tm_do,
+                 &full[st], s * kSlab, h, q0, b);
       }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      abt<HDP>(Ks, Qs, kr0, qc0, lane, s);    // S^T
-      abt<HDP>(Vs, dOs, kr0, qc0, lane, dp);  // dP^T
+    }
+    cp_async_arrive(&full[st]);
+  };
+  if (loader) {
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * T::kKVBytes);
+      for (int s = 0; s < NS; ++s) {
+        tma_load(k_s + s * T::kKeys * kRowBytes, &tm_k, kv_full, s * kSlab,
+                 kh, k0, b);
+        tma_load(v_s + s * T::kKeys * kRowBytes, &tm_v, kv_full, s * kSlab,
+                 kh, k0, b);
+      }
+    }
+    for (int j = 0; j < min(ST - 1, n_iters); ++j) load_step(j);
+  }
+
+  // this warpgroup's keys (rows r0 and r0 + 8 of its 64) and columns
+  const int kw0 = k0 + (T::kKeySplit ? 64 * g : 0);
+  const int r0 = 16 * (tid / 32) + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int key[2] = {kw0 + r0, kw0 + r0 + 8};
+  const int c0 = T::kKeySplit ? 0 : g * NC;
+  const float sl2 = kLog2e / sqrtf((float)hd);
+
+  float acc_k[NC / 2], acc_v[NC / 2];
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+  for (int i = 0; i < NC / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  float s[kT / 2], dp[kT / 2];
+  uint32_t p_a[kKS][4], ds_a[kKS][4];
+  const uint32_t k_addr = smem_u32(k_s) + (kw0 - k0) * kRowBytes;
+  const uint32_t v_addr = smem_u32(v_s) + (kw0 - k0) * kRowBytes;
+  // this warpgroup's first slab of dK's and dV's columns (of Q and dO)
+  const uint32_t col0 = c0 / kSlab * kT * kRowBytes;
+
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_iters; ++it) {
+    if (loader && it + ST - 1 < n_iters) load_step(it + ST - 1);
+    const int st = it % ST;
+    const int q0 = i_begin + (it % n_qt) * kT;
+    mbar_wait(&full[st], (it / ST) & 1);
+    // a warpgroup whose keys no row of the tile admits skips it
+    const bool skip =
+        kw0 >= Skv || (causal && kw0 > q_off + min(q0 + kT, Sq) - 1) ||
+        (window > 0 && kw0 + kT - 1 <= q_off + q0 - window);
+    if (!skip) {
+      const uint32_t q_addr = smem_u32(q_s) + st * T::kTileBytes;
+      const uint32_t do_addr = smem_u32(do_s) + st * T::kTileBytes;
+      wgmma_fence();
 #pragma unroll
-        for (int h2 = 0; h2 < 2; ++h2) {
-          const int kr = kr0 + g + 8 * h2, col = qc0 + 8 * n + 2 * t4;
-          float p[2], ds[2];
+      for (int sl = 0; sl < NS; ++sl)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int qi = q0 + col + e;
-            const bool ok = qi < Sq && admitted(k0 + kr, q_off + qi, Skv,
-                                                causal, window);
-            p[e] = ok ? expf(s[n][2 * h2 + e] * scale - Ls[col + e]) : 0.f;
-            ds[e] = p[e] * (dp[n][2 * h2 + e] - Ds[col + e]);
+        for (int kk = 0; kk < 4; ++kk)
+          Mma<kT>::ss(s,
+                      desc_sw128(k_addr + sl * T::kKeys * kRowBytes + kk * 32,
+                                 16, 1024),
+                      desc_sw128(q_addr + sl * kT * kRowBytes + kk * 32, 16,
+                                 1024),
+                      (sl | kk) != 0);
+#pragma unroll
+      for (int sl = 0; sl < NS; ++sl)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Mma<kT>::ss(dp,
+                      desc_sw128(v_addr + sl * T::kKeys * kRowBytes + kk * 32,
+                                 16, 1024),
+                      desc_sw128(do_addr + sl * kT * kRowBytes + kk * 32, 16,
+                                 1024),
+                      (sl | kk) != 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+      // P^T and dS^T: rows are keys, columns query rows q0 + 8 j + cq + c
+      const float* rows = rows_s + st * 2 * kT;
+      const bool edge = kw0 + kT > Skv || q0 + kT > Sq ||
+                        (causal && kw0 + kT - 1 > q_off + q0) ||
+                        (window > 0 && kw0 <= q_off + q0 + kT - 1 - window);
+#pragma unroll
+      for (int j = 0; j < kT / 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(rows + 8 * j + cq);
+        const float2 dd =
+            *reinterpret_cast<const float2*>(rows + kT + 8 * j + cq);
+        const float nl2[2] = {-l.x * kLog2e, -l.y * kLog2e};
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int idx = 4 * j + 2 * i + c;
+            const int qi = q0 + 8 * j + cq + c;
+            float p = exp2f(fmaf(s[idx], sl2, nl2[c]));
+            if (edge && !(qi < Sq && admitted(key[i], q_off + qi, Skv,
+                                              causal, window)))
+              p = 0.f;
+            s[idx] = p;
+            dp[idx] = p * (dp[idx] - (c ? dd.y : dd.x));
           }
-          store_pair(Ps, kr, col, p[0], p[1]);
-          store_pair(dSs, kr, col, ds[0], ds[1]);
-        }
-      __syncthreads();
-      ab<HDP>(Ps, dOs, kr0, hc0, lane, acc_v);   // dV += P^T dO
-      ab<HDP>(dSs, Qs, kr0, hc0, lane, acc_k);   // dK += dS^T Q
+      }
+      to_frags(s, p_a);
+      to_frags(dp, ds_a);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk)
+        Mma<NC>::rs(acc_v, p_a[kk],
+                    desc_sw128(do_addr + col0 + kk * 16 * kRowBytes,
+                               kT * kRowBytes, 1024));
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk)
+        Mma<NC>::rs(acc_k, ds_a[kk],
+                    desc_sw128(q_addr + col0 + kk * 16 * kRowBytes,
+                               kT * kRowBytes, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+    }
+    mbar_arrive(&empty[st]);
+  }
+
+  // dK = scale dS^T Q and dV as bf16, or this share's fp32 partial sums
+  const float scale = 1.0f / sqrtf((float)hd);
+  const long n = (long)B * Skv * K * hd;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] >= Skv) continue;
+    const long at = (((long)b * Skv + key[i]) * K + kh) * hd;
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j) {
+      const int col = c0 + 8 * j + cq;
+      if (col >= hd) continue;
+      const int e = 4 * j + 2 * i;
+      if (part == nullptr) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + col) =
+            __floats2bfloat162_rn(acc_k[e] * scale, acc_k[e + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + col) =
+            __floats2bfloat162_rn(acc_v[e], acc_v[e + 1]);
+      } else {
+        float* pk = part + 2 * sh * n + at + col;
+        *reinterpret_cast<float2*>(pk) = make_float2(acc_k[e], acc_k[e + 1]);
+        *reinterpret_cast<float2*>(pk + n) =
+            make_float2(acc_v[e], acc_v[e + 1]);
+      }
     }
   }
-  store_rows<HDP>(dk + kv_base, kv_stride, k0 + kr0, Skv, hc0, hd, scale,
-                  lane, acc_k);
-  store_rows<HDP>(dv + kv_base, kv_stride, k0 + kr0, Skv, hc0, hd, 1.0f,
-                  lane, acc_v);
+}
+
+// --- launch 3: the shares' sum ---------------------------------------------
+
+// dK = scale sum_s dK_s and dV = sum_s dV_s over the shares' fp32 partials
+// (laid out [share][dK, dV][B, Skv, K, hd]), in share order, four elements a
+// thread.
+__global__ void __launch_bounds__(256)
+bwd_reduce_sm90(const float* __restrict__ part, bf16* __restrict__ dk,
+                bf16* __restrict__ dv, long n, int shares, float scale) {
+  const long i = 4 * ((long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= n) return;
+  float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+  for (int s = 0; s < shares; ++s) {
+    const float4 a = rt::load4(part + 2 * s * n + i);
+    const float4 c = rt::load4(part + (2 * s + 1) * n + i);
+    sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+    sv.x += c.x; sv.y += c.y; sv.z += c.z; sv.w += c.w;
+  }
+  __nv_bfloat162* k2 = reinterpret_cast<__nv_bfloat162*>(dk + i);
+  __nv_bfloat162* v2 = reinterpret_cast<__nv_bfloat162*>(dv + i);
+  k2[0] = __floats2bfloat162_rn(sk.x * scale, sk.y * scale);
+  k2[1] = __floats2bfloat162_rn(sk.z * scale, sk.w * scale);
+  v2[0] = __floats2bfloat162_rn(sv.x, sv.y);
+  v2[1] = __floats2bfloat162_rn(sv.z, sv.w);
 }
 
 template <int HDP>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* o, const void* dout, void* dq, void* dk,
-                   void* dv, float* lse, float* delta, int B, int Sq,
-                   int Skv, int Hq, int K, int hd, int causal, int window,
-                   int q_off, cudaStream_t stream) {
-  constexpr int smem_dq = dq_smem_bytes<HDP>();
-  constexpr int smem_dkdv = dkdv_smem_bytes<HDP>();
-  cudaError_t err = allow_smem(bwd_dq_mma<HDP>, smem_dq);
-  if (err == cudaSuccess) err = allow_smem(bwd_dkdv_mma<HDP>, smem_dkdv);
+                   const void* o, const void* dout, const float* lse,
+                   void* dq, void* dk, void* dv, float* delta, float* part,
+                   int B, int Sq, int Skv, int Hq, int K, int hd, int causal,
+                   int window, int q_off, int shares, cudaStream_t stream) {
+  constexpr int BQ = HDP > 128 ? 64 : 128;
+  using DQ = DqTile<HDP, BQ>;
+  using KV = KvTile<HDP>;
+  CUtensorMap tq, tdo, tk, tv, tq64, tdo64, tkb, tvb;
+  if (!make_map(&tq, q, B, Sq, Hq, hd, BQ) ||
+      !make_map(&tdo, dout, B, Sq, Hq, hd, BQ) ||
+      !make_map(&tq64, q, B, Sq, Hq, hd, kT) ||
+      !make_map(&tdo64, dout, B, Sq, Hq, hd, kT) ||
+      !make_map(&tk, k, B, Skv, K, hd, kT) ||
+      !make_map(&tv, v, B, Skv, K, hd, kT) ||
+      !make_map(&tkb, k, B, Skv, K, hd, KV::kKeys) ||
+      !make_map(&tvb, v, B, Skv, K, hd, KV::kKeys))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(bwd_dq_sm90<HDP, BQ>, DQ::kSmem);
+  if (err == cudaSuccess) err = allow_smem(bwd_dkdv_sm90<HDP>, KV::kSmem);
   if (err != cudaSuccess) return err;
-  const bf16* qt = static_cast<const bf16*>(q);
-  const bf16* kt = static_cast<const bf16*>(k);
-  const bf16* vt = static_cast<const bf16*>(v);
-  const bf16* gt = static_cast<const bf16*>(dout);
-  bwd_dq_mma<HDP><<<dim3((Sq + kT - 1) / kT, Hq, B), kThreads, smem_dq,
-                    stream>>>(qt, kt, vt, static_cast<const bf16*>(o), gt,
-                              lse, delta, static_cast<bf16*>(dq), Sq, Skv,
-                              Hq, K, hd, causal, window, q_off);
+  bwd_dq_sm90<HDP, BQ><<<dim3(Hq, (Sq + BQ - 1) / BQ, B), DQ::kThreads,
+                         DQ::kSmem, stream>>>(
+      tq, tdo, tk, tv, static_cast<const bf16*>(o),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), Sq,
+      Skv, Hq, K, hd, causal, window, q_off);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_dkdv_mma<HDP><<<dim3((Skv + kT - 1) / kT, K, B), kThreads, smem_dkdv,
-                      stream>>>(qt, kt, vt, gt, lse, delta,
-                                static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                                Sq, Skv, Hq, K, hd, causal, window, q_off);
+  const int n_kb = (Skv + KV::kKeys - 1) / KV::kKeys;
+  bwd_dkdv_sm90<HDP><<<n_kb * K * shares * B, KV::kThreads, KV::kSmem,
+                       stream>>>(
+      tq64, tdo64, tkb, tvb, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), shares > 1 ? part : nullptr, B, Sq, Skv, Hq, K,
+      hd, causal, window, q_off, shares);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || shares == 1) return err;
+  const long n = (long)B * Skv * K * hd;
+  bwd_reduce_sm90<<<(unsigned)((n / 4 + 255) / 256), 256, 0, stream>>>(
+      part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, shares,
+      1.0f / sqrtf((float)hd));
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v,
-                        const void* o, const void* dout, void* dq, void* dk,
-                        void* dv, float* lse, float* delta, int B, int Sq,
-                        int Skv, int Hq, int K, int hd, int causal,
-                        int window, int q_off, cudaStream_t stream) {
+                        const void* o, const void* dout, const float* lse,
+                        void* dq, void* dk, void* dv, float* delta,
+                        float* part, int B, int Sq, int Skv, int Hq, int K,
+                        int hd, int causal, int window, int q_off, int shares,
+                        cudaStream_t stream) {
   if (hd <= 64)
-    return launch<64>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq, Skv,
-                      Hq, K, hd, causal, window, q_off, stream);
+    return launch<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, Sq,
+                      Skv, Hq, K, hd, causal, window, q_off, shares, stream);
   if (hd <= 128)
-    return launch<128>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq, Skv,
-                       Hq, K, hd, causal, window, q_off, stream);
-  return launch<256>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq, Skv,
-                     Hq, K, hd, causal, window, q_off, stream);
+    return launch<128>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, Sq,
+                       Skv, Hq, K, hd, causal, window, q_off, shares, stream);
+  return launch<256>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, B, Sq,
+                     Skv, Hq, K, hd, causal, window, q_off, shares, stream);
 }
 
-}  // namespace tc
+}  // namespace wg
 
 }  // namespace
 
 // C interface (bound with ctypes). q, o, dout and dq are (B, Sq, Hq, hd),
 // k, v, dk and dv (B, Skv, K, hd): contiguous device tensors of one dtype,
 // 16-byte aligned; fp32 runs the CUDA-core passes (head_dim a multiple of
-// 4), bf16 the tensor-core ones (a multiple of 8). lse and delta are fp32
-// workspaces of B * Hq * Sq floats each, which the call overwrites. window
-// <= 0 means no window. Every query row must admit a key. Returns a
-// cudaError_t.
+// 4), bf16 the wgmma ones (a multiple of 8). lse is the forward's (B, Hq,
+// Sq) fp32 logsumexp of each row (required); delta an fp32 workspace of B *
+// Hq * Sq floats, which the call overwrites. bf16 splits each KV head's G
+// query heads over `shares` blocks (1 <= shares <= G; kernel.py::plan_bwd
+// chooses), and with shares > 1 needs `part`, an fp32 workspace of shares *
+// 2 * B * Skv * K * hd floats; fp32 takes shares = 1. window <= 0 means no
+// window. Every query row must admit a key. Returns a cudaError_t.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
-                                   const void* dout, void* dq, void* dk,
-                                   void* dv, void* lse, void* delta, int B,
-                                   int Sq, int Skv, int Hq, int K, int hd,
-                                   int causal, int window, int q_off,
-                                   int dtype, void* stream) {
+                                   const void* dout, const void* lse,
+                                   void* dq, void* dk, void* dv, void* delta,
+                                   void* part, int B, int Sq, int Skv, int Hq,
+                                   int K, int hd, int causal, int window,
+                                   int q_off, int shares, int dtype,
+                                   void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || K <= 0 || Hq % K != 0 || hd <= 0 ||
-      hd > 256 || hd % 4 != 0)
+      hd > 256 || hd % 4 != 0 || lse == nullptr || shares < 1 ||
+      shares > Hq / K || (shares > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
+  const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
-  if (dtype == rt::kFloat32)
-    return (int)dispatch_hd(q, k, v, o, dout, dq, dk, dv, l, d, B, Sq, Skv,
+  if (dtype == rt::kFloat32 && shares == 1)
+    return (int)dispatch_hd(q, k, v, o, dout, l, dq, dk, dv, d, B, Sq, Skv,
                             Hq, K, hd, causal, window, q_off, s);
   if (dtype == rt::kBFloat16 && hd % 8 == 0)
-    return (int)tc::dispatch_hd(q, k, v, o, dout, dq, dk, dv, l, d, B, Sq,
-                                Skv, Hq, K, hd, causal, window, q_off, s);
+    return (int)wg::dispatch_hd(q, k, v, o, dout, l, dq, dk, dv, d,
+                                static_cast<float*>(part), B, Sq, Skv, Hq, K,
+                                hd, causal, window, q_off, shares, s);
   return (int)cudaErrorInvalidValue;
 }

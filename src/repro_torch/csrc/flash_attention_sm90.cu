@@ -42,214 +42,21 @@
 //     are never loaded; the q tiles with the most keys are scheduled first.
 //   - Registers: with two consumer warpgroups a thread has at most 168, so
 //     S is 64 keys wide (128 spills); one warpgroup at hd 256 has 255.
+//   - On request the epilogue writes each row's logsumexp L, which the
+//     backward (flash_attention_bwd.cu) reads instead of forming it again:
+//     in base 2 that is (m + log2 l) ln 2 of the row's running max and sum.
 // The tensor maps are built on the host with cuTensorMapEncodeTiled, reached
 // through the runtime's cudaGetDriverEntryPoint(ByVersion), so the library
 // links nothing beyond the CUDA runtime (no -lcuda).
-#include <cuda.h>
-
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
+using namespace sm90;
+
 constexpr int kStages = 2;       // K/V ring depth
-constexpr int kSlab = 64;        // head-dim columns per slab (128 bytes)
-constexpr int kRowBytes = 128;   // one slab row in shared memory
 constexpr int kBK = 64;          // keys per tile
 constexpr int kKS = kBK / 16;    // k-steps of P V per tile
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// --- mbarriers -------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-// Wait until the phase of parity `parity` has completed. A load that never
-// lands traps after ~4e9 cycles (~2 s), so the launch fails with an error
-// instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  long long start = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) start = clock64();
-    else if (clock64() - start > 4000000000ll) __trap();
-  }
-}
-
-// --- TMA -------------------------------------------------------------------
-
-// One box of a 4-D tensor map (hd, heads, S, B) into shared memory; the
-// barrier's transaction count drops by the box's bytes when it lands.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// --- wgmma -----------------------------------------------------------------
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled tile (the layout
-// TMA writes with CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte-aligned slab):
-// 8-row groups of 128-byte rows, 1024 bytes apart. K-major (Q, K): sbo is
-// that group stride along M or N and lbo is unused (1, as CUTLASS sets it).
-// MN-major (V, transposed): sbo is the group stride along K (keys) and lbo
-// the stride from one 64-column slab to the next along N.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3ffff) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3fff) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3fff) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving reads or writes of an accumulator across the
-// asynchronous product (the asm statements stay in order).
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Operands of an m64nNk16 product's N / 2 fp32 accumulators.
-#define RT_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define RT_F16(d, i) \
-  RT_F4(d, i), RT_F4(d, i + 4), RT_F4(d, i + 8), RT_F4(d, i + 12)
-#define RT_F32(d, i) RT_F16(d, i), RT_F16(d, i + 16)
-#define RT_F64(d, i) RT_F32(d, i), RT_F32(d, i + 32)
-#define RT_F128(d, i) RT_F64(d, i), RT_F64(d, i + 64)
-#define RT_LIST32 \
-  "{" \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " \
-  "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
-  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31" \
-  "}"
-#define RT_LIST64 \
-  "{" \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " \
-  "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
-  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, " \
-  "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
-  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
-  "%60, %61, %62, %63" \
-  "}"
-#define RT_LIST128 \
-  "{" \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " \
-  "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
-  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, " \
-  "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
-  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
-  "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, " \
-  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
-  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, " \
-  "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, " \
-  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, " \
-  "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, " \
-  "%120, %121, %122, %123, %124, %125, %126, %127" \
-  "}"
-
-// m64nNk16, bf16 in, fp32 accumulators d (N / 2 a thread):
-//   ss (N = 64): d (+)= A B^T, A (64 x 16) and B (N x 16) K-major in shared
-//       memory; scale_d = 0 overwrites d;
-//   rs: d += A B, A (64 x 16) as bf16 pairs in registers, B (16 x N) read
-//       MN-major (transposed) from shared memory.
-template <int N>
-struct Mma;
-template <>
-struct Mma<64> {
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " RT_LIST32
-        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : RT_F32(d, 0)
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " RT_LIST32
-        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : RT_F32(d, 0)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <>
-struct Mma<128> {
-  static __device__ __forceinline__ void rs(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " RT_LIST64
-        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : RT_F64(d, 0)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <>
-struct Mma<256> {
-  static __device__ __forceinline__ void rs(float (&d)[128],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " RT_LIST128
-        ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-        : RT_F128(d, 0)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // --- the kernel ------------------------------------------------------------
 
@@ -333,9 +140,9 @@ __global__ void __launch_bounds__(Tile<HDP, BQ>::kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
-                      __nv_bfloat16* __restrict__ out, int Sq, int Skv,
-                      int Hq, int K, int hd, int causal, int window,
-                      int q_off) {
+                      __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse, int Sq, int Skv, int Hq,
+                      int K, int hd, int causal, int window, int q_off) {
   using T = Tile<HDP, BQ>;
   constexpr int NS = T::kSlabs;
   extern __shared__ uint8_t smem_raw[];
@@ -496,6 +303,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int row = q0 + r0 + 8 * i;
     if (row >= Sq) continue;
+    // L in natural-log units: m and l are base 2 (scores times log2 e)
+    if (lse != nullptr && cq == 0)
+      lse[((long)b * Hq + h) * Sq + row] =
+          (m[i] + log2f(l[i])) * 0.6931471805599453f;
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
     __nv_bfloat16* orow = out + (((long)b * Sq + row) * Hq + h) * hd;
 #pragma unroll
@@ -511,56 +322,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // --- host side -------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, through the runtime's entry-point
-// query (so the library needs no -lcuda); null if libcuda lacks it.
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The 4-D map (hd, heads, S, B) of a contiguous bf16 (B, S, heads, hd)
-// tensor, read in boxes of 64 columns x one head x `rows` rows, 128-byte
-// swizzled, zero outside the tensor.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int hd,
-              int rows) {
-  const EncodeTiled encode = encode_fn();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {2ull * hd, 2ull * hd * H, 2ull * hd * H * S};
-  const cuuint32_t box[4] = {(cuuint32_t)kSlab, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HDP, int BQ>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Skv, int Hq, int K, int hd, int causal,
-                   int window, int q_off, cudaStream_t stream) {
+                   float* lse, int B, int Sq, int Skv, int Hq, int K, int hd,
+                   int causal, int window, int q_off, cudaStream_t stream) {
   using T = Tile<HDP, BQ>;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, B, Sq, Hq, hd, BQ) ||
@@ -573,8 +338,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return err;
   const dim3 grid(Hq, (Sq + BQ - 1) / BQ, B);
   flash_fwd_sm90_kernel<HDP, BQ><<<grid, T::kThreads, T::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Skv, Hq, K, hd, causal,
-      window, q_off);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, Hq, K, hd,
+      causal, window, q_off);
   return cudaGetLastError();
 }
 
@@ -582,22 +347,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 // C interface (bound with ctypes). Pointers are contiguous bf16 device
 // tensors, 16-byte aligned; hd a multiple of 8 (TMA needs 16-byte strides)
-// up to 256; window <= 0 means no window. Returns a cudaError_t.
+// up to 256; window <= 0 means no window. lse, when not null, is an fp32
+// (B, Hq, Sq) buffer that receives each row's logsumexp of its masked,
+// scaled scores (natural log), which the backward reads; null leaves the
+// kernel's arithmetic and stores as they are. Returns a cudaError_t.
 extern "C" int flash_attention_fwd_sm90(const void* q, const void* k,
-                                        const void* v, void* out, int B,
-                                        int Sq, int Skv, int Hq, int K,
-                                        int hd, int causal, int window,
+                                        const void* v, void* out, void* lse,
+                                        int B, int Sq, int Skv, int Hq,
+                                        int K, int hd, int causal, int window,
                                         int q_off, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || K <= 0 || Hq % K != 0 || hd <= 0 ||
       hd > 256 || hd % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* rows = static_cast<float*>(lse);
   if (hd <= 64)
-    return (int)launch<64, 128>(q, k, v, out, B, Sq, Skv, Hq, K, hd, causal,
-                                window, q_off, s);
+    return (int)launch<64, 128>(q, k, v, out, rows, B, Sq, Skv, Hq, K, hd,
+                                causal, window, q_off, s);
   if (hd <= 128)
-    return (int)launch<128, 128>(q, k, v, out, B, Sq, Skv, Hq, K, hd,
+    return (int)launch<128, 128>(q, k, v, out, rows, B, Sq, Skv, Hq, K, hd,
                                  causal, window, q_off, s);
-  return (int)launch<256, 64>(q, k, v, out, B, Sq, Skv, Hq, K, hd, causal,
-                              window, q_off, s);
+  return (int)launch<256, 64>(q, k, v, out, rows, B, Sq, Skv, Hq, K, hd,
+                              causal, window, q_off, s);
 }

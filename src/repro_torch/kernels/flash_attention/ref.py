@@ -29,9 +29,12 @@ def _mask(Sq: int, Skv: int, causal: bool, window: Optional[int],
 
 
 def flash_attention_ref(q, k, v, *, causal: bool,
-                        window: Optional[int] = None, q_pos_offset: int = 0):
+                        window: Optional[int] = None, q_pos_offset: int = 0,
+                        return_lse: bool = False):
     """q: (B, Sq, Hq, hd); k, v: (B, Skv, K, hd), K | Hq. Returns
-    (B, Sq, Hq, hd). Query row i sits at absolute position q_pos_offset + i."""
+    (B, Sq, Hq, hd). Query row i sits at absolute position q_pos_offset + i.
+    With ``return_lse`` also each row's logsumexp L of its masked, scaled
+    scores, fp32 (B, Hq, Sq): what the kernels write for the backward."""
     B, Sq, Hq, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     G = Hq // K
@@ -41,17 +44,22 @@ def flash_attention_ref(q, k, v, *, causal: bool,
                                        q_pos_offset, q.device), NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
-    return out.reshape(B, Sq, Hq, hd).to(q.dtype)
+    out = out.reshape(B, Sq, Hq, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(scores, dim=-1).reshape(B, Hq, Sq)
 
 
 def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool,
                             window: Optional[int] = None,
-                            q_pos_offset: int = 0):
+                            q_pos_offset: int = 0, lse=None):
     """The FlashAttention-2 backward, written out in fp32: given the
     forward's output ``o`` and its gradient ``do`` (B, Sq, Hq, hd), returns
     (dq, dk, dv) in the dtypes of q, k and v. P comes from the row
-    logsumexp L, D_i = sum dO_i O_i and dS = P (dP - D). The plain version
-    the CUDA backward is held against."""
+    logsumexp L (``lse``, (B, Hq, Sq), as the forward writes it, where
+    given, as the kernel reads it; else formed here), D_i = sum dO_i O_i
+    and dS = P (dP - D). The plain version the CUDA backward is held
+    against."""
     B, Sq, Hq, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     G = Hq // K
@@ -62,7 +70,9 @@ def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool,
     s = torch.einsum("bskgh,btkh->bkgst", qf, kf) * scale
     s = s.masked_fill(~_mask(Sq, Skv, causal, window, q_pos_offset,
                              q.device), NEG_INF)
-    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    L = torch.logsumexp(s, dim=-1, keepdim=True) if lse is None else \
+        lse.float().reshape(B, K, G, Sq, 1)
+    p = torch.exp(s - L)
     delta = (gf * o.reshape(B, Sq, K, G, hd).float()).sum(-1)   # (b,s,k,g)
     dv = torch.einsum("bkgst,bskgh->btkh", p, gf)
     dp = torch.einsum("bskgh,btkh->bkgst", gf, vf)

@@ -14,9 +14,10 @@ so its weights keep ~16 bits, as the plain version's fp32 ones).
 A long slot's output is ~0.05, so a lost split shows. The backwards:
 flash attention's dq, dk and dv within 1e-4 · max |plain| in fp32 and
 2e-2 · max |plain| in bf16 (the plain backward in fp32 from the same bf16
-inputs), the RG-LRU scan's within 1e-4 · max |plain|, the chunkwise
-mLSTM's (dq, dk, dv, dlog_i, dlog_f) within 1e-4 · max |plain| of the
-plain backward evaluated in fp64; a reduced model's gradients on the card
+inputs, its own L; the kernels read the forward kernel's L, which is held
+within 1e-5 · max(1, |L|) of the plain L), the RG-LRU scan's within
+1e-4 · max |plain|, the chunkwise mLSTM's (dq, dk, dv, dlog_i, dlog_f)
+within 1e-4 · max |plain| of the plain backward evaluated in fp64; a reduced model's gradients on the card
 within 1e-4 · max(1, max |g_cpu|) of the CPU's.
 The RG-LRU scan is fp32 only: 1e-4, as test_kernels.py (the carry across chunks is exp of a
 summed log decay where the plain version multiplies step by step). The
@@ -583,8 +584,10 @@ def test_reduced_model_grads_on_card_match_cpu(cuda, arch):
 
 # (B, Sq, Skv, Hq, K, hd, causal, window, q_pos_offset): ragged shapes and
 # tile edges in both dtypes (fp32 takes the CUDA-core passes, bf16 the
-# tensor-core ones, whose tiles are 64 rows and keys and whose head dims
-# pad to 64, 128 or 256)
+# wgmma ones, whose dQ blocks take 128 query rows and dK/dV blocks 128 keys
+# (64 each at head_dim 256), in tiles of 64, and whose head dims pad to 64,
+# 128 or 256; G = 4 at 16/4 and G = 2 at 4/2 split the query heads over
+# blocks, ``plan_bwd``)
 FLASH_BWD_CASES = [
     (2, 37, 37, 4, 2, 16, True, None, 0),
     (1, 45, 45, 4, 4, 32, True, 8, 0),
@@ -610,29 +613,38 @@ FLASH_BWD_TRAIN_CASES = [
 ]
 
 
+def _bwd_inputs(gen, B, Sq, Skv, Hq, K, hd, causal, window, off, dtype):
+    """q, k, v, dO, and the forward's output and L on them."""
+    q = _randn(gen, (B, Sq, Hq, hd), dtype)
+    k = _randn(gen, (B, Skv, K, hd), dtype)
+    v = _randn(gen, (B, Skv, K, hd), dtype)
+    do = _randn(gen, (B, Sq, Hq, hd), dtype)
+    mask = dict(causal=causal, window=window, q_pos_offset=off)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        o = flash_attention_cuda(q, k, v, lse=lse, **mask)
+    return q, k, v, do, o, lse, mask
+
+
 @pytest.mark.parametrize(
     "B,Sq,Skv,Hq,K,hd,causal,window,off,dtype",
     [c + (d,) for c in FLASH_BWD_CASES for d in ("float32", "bfloat16")] +
     [c + ("bfloat16",) for c in FLASH_BWD_TRAIN_CASES])
 def test_flash_backward_kernel_matches_plain(cuda, B, Sq, Skv, Hq, K, hd,
                                              causal, window, off, dtype):
-    """dq, dk and dv against ``flash_attention_bwd_ref`` (fp32 math from
-    the same inputs): within 1e-4 · max |plain| in fp32, 2e-2 · max |plain|
-    in bf16 (P and dS enter the tensor-core products rounded to bf16, and
-    the results are rounded once more)."""
+    """dq, dk and dv, through L from the forward kernel, against
+    ``flash_attention_bwd_ref`` (fp32 math from the same inputs, its own
+    L): within 1e-4 · max |plain| in fp32, 2e-2 · max |plain| in bf16 (P
+    and dS enter the tensor-core products rounded to bf16, and the results
+    are rounded once more)."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda)
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref)
-    q = _randn(cuda, (B, Sq, Hq, hd), dtype)
-    k = _randn(cuda, (B, Skv, K, hd), dtype)
-    v = _randn(cuda, (B, Skv, K, hd), dtype)
-    do = _randn(cuda, (B, Sq, Hq, hd), dtype)
-    mask = dict(causal=causal, window=window, q_pos_offset=off)
-    with torch.no_grad():
-        o = flash_attention_cuda(q, k, v, **mask)
+    q, k, v, do, o, lse, mask = _bwd_inputs(cuda, B, Sq, Skv, Hq, K, hd,
+                                            causal, window, off, dtype)
     before = flash_attention_bwd_cuda.launches
-    got = flash_attention_bwd_cuda(q, k, v, o, do, **mask)
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **mask)
     want = flash_attention_bwd_ref(q, k, v, o, do, **mask)
     torch.cuda.synchronize()
     assert flash_attention_bwd_cuda.launches == before + 1
@@ -670,18 +682,73 @@ def test_rglru_scan_backward_matches_plain(cuda, B, S, W):
 
 def test_flash_backward_rejects_what_it_does_not_take(cuda):
     """The bf16 backward takes head dims that are multiples of 8, the fp32
-    one multiples of 4; o and dO must have q's shape."""
+    one multiples of 4; o and dO must have q's shape, L (B, Hq, Sq)."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda)
+    lse = torch.zeros((1, 4, 8), dtype=torch.float32, device="cuda")
     for dtype, hd in (("bfloat16", 12), ("float32", 6)):
         q = _randn(cuda, (1, 8, 4, hd), dtype)
         k = _randn(cuda, (1, 8, 2, hd), dtype)
         with pytest.raises(ValueError, match="head_dim"):
-            flash_attention_bwd_cuda(q, k, k, q, q, causal=True)
+            flash_attention_bwd_cuda(q, k, k, q, q, lse, causal=True)
     q = _randn(cuda, (1, 8, 4, 16), "float32")
     k = _randn(cuda, (1, 8, 2, 16), "float32")
     with pytest.raises(ValueError, match="shape"):
-        flash_attention_bwd_cuda(q, k, k, q[:, :4], q, causal=True)
+        flash_attention_bwd_cuda(q, k, k, q[:, :4], q, lse, causal=True)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd_cuda(q, k, k, q, q, lse[:, :2], causal=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_backward_raises_without_lse(cuda, dtype):
+    """The backward reads the forward's L and has no way to form it."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda)
+    q = _randn(cuda, (1, 8, 4, 16), dtype)
+    k = _randn(cuda, (1, 8, 2, 16), dtype)
+    with pytest.raises(ValueError, match="logsumexp"):
+        flash_attention_bwd_cuda(q, k, k, q, q, None, causal=True)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,K,hd,causal,window,off", [
+    (1, 1000, 1000, 16, 4, 128, True, 256, 0),    # split over 4 shares
+    (1, 200, 200, 2, 1, 256, True, None, 0),
+    (8, 1, 1500, 20, 20, 64, False, None, 0)])
+def test_flash_backward_is_deterministic(cuda, B, Sq, Skv, Hq, K, hd, causal,
+                                         window, off):
+    """No atomics: two bf16 backward calls on the same inputs give the same
+    bits."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda)
+    q, k, v, do, o, lse, mask = _bwd_inputs(cuda, B, Sq, Skv, Hq, K, hd,
+                                            causal, window, off, "bfloat16")
+    first = flash_attention_bwd_cuda(q, k, v, o, do, lse, **mask)
+    second = flash_attention_bwd_cuda(q, k, v, o, do, lse, **mask)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,Hq,K,hd,causal,window,off",
+                         FLASH_BWD_CASES + FLASH_BWD_TRAIN_CASES)
+def test_flash_forward_lse_matches_plain(cuda, dtype, B, Sq, Skv, Hq, K, hd,
+                                         causal, window, off):
+    """The forward kernel's L against the plain L (both in natural log from
+    the same inputs) within 1e-5 · max(1, |L|), at every head dim: an L off
+    by log2 e would pass the forward's own checks. The output with L is the
+    output without it, bit for bit."""
+    q = _randn(cuda, (B, Sq, Hq, hd), dtype)
+    k = _randn(cuda, (B, Skv, K, hd), dtype)
+    v = _randn(cuda, (B, Skv, K, hd), dtype)
+    mask = dict(causal=causal, window=window, q_pos_offset=off)
+    lse = torch.full((B, Hq, Sq), float("nan"), device="cuda")
+    out = flash_attention_cuda(q, k, v, lse=lse, **mask)
+    plain = flash_attention_ref(q, k, v, return_lse=True, **mask)[1]
+    bare = flash_attention_cuda(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert torch.equal(out, bare)
+    err = (lse - plain).abs() / plain.abs().clamp(min=1.0)
+    assert float(err.max()) <= 1e-5
 
 
 # the training shape, the ragged case of chip_smoke.py, one chunk, chunk

@@ -1,7 +1,10 @@
 """Gradients of the port against the JAX package on the CPU.
 
 The plain backwards the CUDA backwards are held against on the card
-(``flash_attention_bwd_ref``, ``rglru_scan_bwd_ref``), and autograd through
+(``flash_attention_bwd_ref``, also given L as the CUDA backward takes it
+from the forward, ``rglru_scan_bwd_ref``), the row logsumexp L of the
+plain forward (``return_lse``) against ``jax.nn.logsumexp`` of
+``gqa_attention``'s own masked scores, and autograd through
 the plain forwards (what the port's CPU path differentiates), against
 ``jax.vjp`` of the JAX functions they stand for: ``gqa_attention``, which
 the JAX model differentiates where the port runs B1, and the RG-LRU
@@ -20,6 +23,7 @@ number on the CPU: the gradients with it on equal those with it off bit for
 bit.
 """
 import functools
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -105,6 +109,59 @@ def test_flash_attention_backward_matches_jax_vjp(case):
         for g, w, what in zip(got, want, ("dq", "dk", "dv")):
             assert g.shape == w.shape
             assert _max_err(g, w) < ATTN_TOL, (name, what)
+
+
+def _gqa_scores(q, k, **mask):
+    """The masked, scaled scores ``gqa_attention`` hands its softmax,
+    (B, K, G, Sq, Skv), caught at that call."""
+    caught = []
+    softmax = jax.nn.softmax
+
+    def catch(x, axis=-1):
+        caught.append(x)
+        return softmax(x, axis=axis)
+    v = jnp.zeros_like(jnp.asarray(k))
+    with mock.patch.object(jax.nn, "softmax", catch):
+        gqa_attention(jnp.asarray(q), jnp.asarray(k), v, **mask)
+    (scores,) = caught
+    return scores
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_flash_attention_lse_matches_jax_logsumexp(case):
+    """The row logsumexp L that ``flash_attention_ref(return_lse=True)``
+    gives (what the CUDA forwards write for the backward) against
+    ``jax.nn.logsumexp`` of ``gqa_attention``'s own masked scores, (B, Hq,
+    Sq) with head h = kv head h // G, group member h % G, within 2e-5."""
+    B, Sq, Skv, Hq, K, hd, causal, window, off = case
+    q, k, v, _ = _attn_inputs(B, Sq, Skv, Hq, K, hd)
+    mask = dict(causal=causal, window=window, q_pos_offset=off)
+    want = jax.nn.logsumexp(_gqa_scores(q, k, **mask), axis=-1)
+    out, lse = flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), return_lse=True,
+                                   **mask)
+    assert out.shape == (B, Sq, Hq, hd)
+    assert lse.shape == (B, Hq, Sq) and lse.dtype == torch.float32
+    assert _max_err(lse, np.asarray(want).reshape(B, Hq, Sq)) < ATTN_TOL
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_flash_attention_backward_with_lse_matches_jax_vjp(case):
+    """``flash_attention_bwd_ref`` given L from the plain forward, as the
+    CUDA backward takes it from the forward kernel, against ``jax.vjp`` of
+    ``gqa_attention``."""
+    B, Sq, Skv, Hq, K, hd, causal, window, off = case
+    q, k, v, do = _attn_inputs(B, Sq, Skv, Hq, K, hd)
+    mask = dict(causal=causal, window=window, q_pos_offset=off)
+    _, vjp = jax.vjp(lambda a, b, c: gqa_attention(a, b, c, **mask),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = flash_attention_ref(tq, tk, tv, return_lse=True, **mask)
+    got = flash_attention_bwd_ref(tq, tk, tv, o, tdo, lse=lse, **mask)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape
+        assert _max_err(g, w) < ATTN_TOL, what
 
 
 @pytest.mark.parametrize("B,S,W", [(2, 37, 16), (1, 1, 8), (3, 64, 5)])
