@@ -13,12 +13,14 @@ its own lines; any failure exits non-zero without the result line:
    count of tensor-core instructions in the SASS of the tensor-core
    kernels (``cuobjdump --dump-sass``): ``HGMMA`` in the bf16 flash
    kernel's and in the backward flash library's bf16 passes, ``HMMA`` in
-   the bf16 decode kernel's and in the mLSTM's split TF32 passes (a
-   library with none fails the run);
+   the bf16 decode kernel's and in the mLSTM's and its backward's split
+   TF32 passes (a library with none fails the run);
 2. each kernel against its plain PyTorch version on the card, with its time
    (CUDA events, median, the host queued ahead of the card), the plain
    version's time, the least time the card could take (bytes over 3.35 TB/s
-   or flops over 989 TFLOP/s bf16 / 67 TFLOP/s fp32) and, for attention, as
+   or flops over 989 TFLOP/s bf16 / 67 TFLOP/s fp32; the mLSTM's fp32
+   products, which the kernels run in split TF32, at the faster of 67
+   TFLOP/s and three TF32 products at 495 TFLOP/s) and, for attention, as
    a yardstick the port never calls,
    ``torch.nn.functional.scaled_dot_product_attention`` (for a window also
    SDPA's time on the causal problem without it: the dense mask keeps SDPA
@@ -75,11 +77,13 @@ its own lines; any failure exits non-zero without the result line:
    both ways; B3's
    (the scan kernel on reversed time, then the elementwise products) at
    B=1 S=4096 W=2560, with the reverse scan's share and the elementwise
-   share; B4's (``mlstm_chunk_bwd.cu``, four CUDA-core launches) against
-   the plain backward evaluated in fp64 at xLSTM-350M's training shape
-   (B=1 S=4096 nh=4 hd=512, fresh state; the forward there too) and a
-   ragged multi-chunk case from a given state, with its launches by
-   ``torch.profiler`` beside ``plan_bwd`` and its workspace bytes;
+   share; B4's (``mlstm_chunk_bwd.cu``, four launches, three of them on
+   ``mma.sync`` in split TF32) against the plain backward evaluated in
+   fp64 at xLSTM-350M's training shape (B=1 S=4096 nh=4 hd=512, fresh
+   state; the forward there too) and a ragged multi-chunk case from a
+   given state, with its passes' launches and times by ``torch.profiler``
+   beside ``plan_bwd``, its workspace bytes, each pass's registers and
+   spills (``ptxas``) and two calls compared bit for bit;
 3. reduced llama3.1-8b, qwen1.5-4b, starcoder2-15b, chameleon-34b,
    granite-3-8b, phi3.5-moe, llama4-maverick, whisper-large-v3,
    recurrentgemma-2b and xlstm-350m in fp32 on the card: prefill and
@@ -135,7 +139,8 @@ its own lines; any failure exits non-zero without the result line:
    each step's launches must match the plan the model's structure
    gives (B1 forward twice and backward once a rematerialised attention
    layer, B3 likewise a rec layer, B4 an mLSTM layer, the hybrid's
-   unrolled layers once), and bf16 B1 never runs on the CUDA-core kernel.
+   unrolled layers once), and bf16 B1 never runs on the CUDA-core kernel;
+   for the xLSTM, B4's backward device time in step 2, by pass.
 
 Each serve and each training run starts with the previous one's engine
 freed and the allocator's cache emptied, and prints its peak device
@@ -144,6 +149,14 @@ memory. The seconds of each phase are printed before the table.
 The last two lines are the kernel table as JSON and
 ``{"ok": true, "device": {...}}``. A longer report goes to
 ``build/chip_smoke_report.json``.
+
+    python3 chip_smoke.py --ab-mlstm DIR
+
+runs none of the phases: it holds B4's forward and backward built from
+DIR, another commit's ``src/repro_torch/csrc`` (``git archive <commit>
+src/repro_torch/csrc | tar -x -C build/parent`` gives DIR =
+``build/parent/src/repro_torch/csrc``), against this checkout's
+(``ab_mlstm``).
 """
 from __future__ import annotations
 
@@ -163,6 +176,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_FLOPS = 495e12   # the tensor cores' dense TF32 rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_TOL = 2e-5
 SCAN_TOL = 1e-4
@@ -188,6 +202,7 @@ XLSTM_TRAIN_STEPS = 3
 # device kernels of a training step by kind, by name (the first that
 # matches); the rest is "other"
 B1_BWD_KERNELS = r"bwd_(?:dq|dkdv|reduce)_sm90|bwd_(?:delta|dkdv|dq)_kernel"
+B4_BWD_KERNELS = r"mlstm_bwd_(?:weight|state|grad|gate)_kernel"
 DEVICE_KINDS = (("B4 backward", r"mlstm_bwd_"),
                 ("B4", r"mlstm_(state|weight|output)_kernel"),
                 ("B1 backward", B1_BWD_KERNELS),
@@ -241,9 +256,16 @@ def close(out, ref) -> bool:
     return bool((d <= lim).all())
 
 
-def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
+def bound_ms(n_bytes: float, flops: float, dtype,
+             split_tf32: bool = False) -> tuple:
+    """(ms, "bytes" | "operations"): the larger of the bytes over the
+    memory rate and the flops over the peak rate. ``split_tf32``: fp32
+    products that may run as three TF32 products on the tensor cores, so
+    at the faster of fp32's rate and a third of TF32's."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
+    if split_tf32:
+        t_ops = min(t_ops, 3 * flops / TF32_FLOPS)
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
         "operations"
 
@@ -263,16 +285,20 @@ def count_sass(lib: Path, opcode: str) -> int:
                for line in sass.splitlines())
 
 
-def ptxas_registers(name: str) -> dict:
+def ptxas_registers(name: str, kernels: str = B1_BWD_KERNELS,
+                    csrc: Path = None) -> dict:
     """{kernel<template arguments>: (registers, spill store bytes)} of the
-    B1 backward's kernels in a built library, from its ``ptxas -v`` log."""
+    kernels whose names match ``kernels`` (by default the B1 backward's) in
+    a library built (from ``csrc``, by default the checkout's), from its
+    ``ptxas -v`` log."""
     from repro_torch.kernels import build
     out, kernel, spill = {}, None, 0
-    log_path = build.library_path(name).with_suffix(".log")
+    log_path = build.library_path(name, csrc or build.CSRC).with_suffix(
+        ".log")
     for line in log_path.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            base = re.search(f"(?:{B1_BWD_KERNELS})(?=[IE])", m.group(1))
+            base = re.search(f"(?:{kernels})(?=[IE])", m.group(1))
             kernel = None
             if base:
                 args = re.match(r"I((?:Li\d+E)+)E", m.group(1)[base.end():])
@@ -310,6 +336,7 @@ def phase_environment(report: dict) -> str:
     for name, opcode in (("flash_attention_sm90", "HGMMA"),
                          ("decode_attention_sm90", "HMMA"),
                          ("mlstm_chunk", "HMMA"),
+                         ("mlstm_chunk_bwd", "HMMA"),
                          ("flash_attention_bwd", "HGMMA")):
         n = count_sass(build.library_path(name), opcode)
         log(f"[env] {name}: {n} {opcode} instructions in its SASS")
@@ -321,7 +348,9 @@ def phase_environment(report: dict) -> str:
                      "cuda": torch.version.cuda, "build_s": secs,
                      "tensor_core_instructions": tensor_core,
                      "b1_backward_registers":
-                     ptxas_registers("flash_attention_bwd")}
+                     ptxas_registers("flash_attention_bwd"),
+                     "b4_backward_registers":
+                     ptxas_registers("mlstm_chunk_bwd", B4_BWD_KERNELS)}
     return smi
 
 
@@ -656,7 +685,7 @@ def _mlstm_case(B: int, S: int, nh: int, hd: int, given: bool, gen) -> dict:
     n_state = B * nh * (hd * hd + hd + 1)
     n_bytes = 4.0 * (4 * B * S * nh * hd + 2 * B * S * nh + 2 * n_state)
     flops = 2.0 * B * nh * S * (2 * hd * hd + KERNEL_CHUNK * hd)
-    b_ms, b_by = bound_ms(n_bytes, flops, torch.float32)
+    b_ms, b_by = bound_ms(n_bytes, flops, torch.float32, split_tf32=True)
     shape = (f"B={B} S={S} nh={nh} hd={hd} "
              f"{'given' if given else 'fresh'} state")
     # the passes of one call: planned by the wrapper, and as profiled; each
@@ -697,13 +726,16 @@ def _mlstm_case(B: int, S: int, nh: int, hd: int, given: bool, gen) -> dict:
 def _mlstm_bwd_case(B: int, S: int, nh: int, hd: int, given: bool,
                     gen) -> dict:
     """B4's backward against its plain version evaluated in fp64 at the
-    kernel's chunk (each gradient within 1e-4 max |plain|); its time, the
-    plain version's (fp32), its launches by torch.profiler beside
-    ``plan_bwd``, its workspace bytes, and the bound: 8 B nh S hd^2 + 5 B
-    nh S 64 hd flops at fp32's peak (the dC' chain, C dnum, dC' v and
-    dC'^T k; the causal half of q k^T, dh v^T and the three intra-chunk
-    products), or q, k, v, h, dh, the gates and the chunks' states read
-    and the gradients written once."""
+    kernel's chunk (each gradient within 1e-4 max |plain|) and against
+    itself (two calls bit for bit); its time, the plain version's (fp32),
+    its passes' launches and device times by torch.profiler beside
+    ``plan_bwd``, their registers and spills (``ptxas``), its workspace
+    bytes, and the bound: 8 B nh S hd^2 + 5 B nh S 64 hd flops (the dC'
+    chain, C dnum, dC' v and dC'^T k; the causal half of q k^T, dh v^T and
+    the three intra-chunk products) as three TF32 products at 495 TFLOP/s
+    (the split-TF32 floor; fp32's 67 TFLOP/s, logged beside, is slower),
+    or q, k, v, h, dh, the gates and the chunks' states read and the
+    gradients written once."""
     from repro_torch.kernels.mlstm_chunk.kernel import (KERNEL_CHUNK,
                                                         _bwd_entry,
                                                         forward_states,
@@ -725,6 +757,7 @@ def _mlstm_bwd_case(B: int, S: int, nh: int, hd: int, given: bool,
     def plain():
         return mlstm_chunk_bwd_ref(q, k, v, li, lf, state, dh)
     got = kern()
+    same = all(torch.equal(a, b) for a, b in zip(got, kern()))
     want = mlstm_chunk_bwd_ref(*(t.double() for t in (q, k, v, li, lf)),
                                tuple(t.double() for t in state), dh.double(),
                                chunk=KERNEL_CHUNK)
@@ -734,7 +767,8 @@ def _mlstm_bwd_case(B: int, S: int, nh: int, hd: int, given: bool,
     flops = 8.0 * B * nh * S * hd * hd + 5.0 * B * nh * S * KERNEL_CHUNK * hd
     n_state = sum(t.numel() for t in (*state, *states))
     n_bytes = 4.0 * (8 * B * S * nh * hd + 4 * B * S * nh + n_state)
-    b_ms, b_by = bound_ms(n_bytes, flops, torch.float32)
+    b_ms, b_by = bound_ms(n_bytes, flops, torch.float32, split_tf32=True)
+    fp32_ms, _ = bound_ms(n_bytes, flops, torch.float32)
     shape = (f"B={B} S={S} nh={nh} hd={hd} "
              f"{'given' if given else 'fresh'} state")
     p = plan_bwd(B, S, nh, hd)
@@ -746,13 +780,19 @@ def _mlstm_bwd_case(B: int, S: int, nh: int, hd: int, given: bool,
         raise RuntimeError(f"mlstm_chunk_bwd {shape}: the library needs "
                            f"{ws_bytes} bytes of workspace, the plan "
                            f"{p['workspace_bytes']}")
+    regs = ptxas_registers("mlstm_chunk_bwd", B4_BWD_KERNELS)
     log(f"[kernel] mlstm_chunk_bwd {shape}: one call launches "
-        f"{p['launches']} passes on {p['blocks']} blocks (plan); profiled "
-        f"(launches, device ms): {passes}; workspace {ws_bytes} bytes (the "
-        f"library's count); {flops / 1e9:.2f} GFLOP")
+        f"{p['launches']} passes on {p['blocks']} blocks of {p['threads']} "
+        f"threads (plan); profiled (launches, device ms): {passes}; "
+        f"(registers, spill store bytes) by ptxas: {regs}; workspace "
+        f"{ws_bytes} bytes (the library's count); {flops / 1e9:.2f} GFLOP, "
+        f"bound {b_ms:.4f} ms ({b_by}, split TF32), at fp32's 67 TFLOP/s "
+        f"{fp32_ms:.4f} ms; two calls "
+        f"{'bitwise equal' if same else 'DIFFER'}")
     return {"shape": shape, "dtype": str(torch.float32), "err": max(errs),
-            "rel_err": rel, "ok": max(rel) <= BWD_TOL[torch.float32],
-            "passes": passes, "blocks": p["blocks"],
+            "rel_err": rel, "bitwise": same,
+            "ok": max(rel) <= BWD_TOL[torch.float32] and same,
+            "passes": passes, "blocks": p["blocks"], "registers": regs,
             "workspace_bytes": ws_bytes, "ms": cuda_ms(kern, 10),
             "plain_ms": cuda_ms(plain, 3), "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by}
@@ -1072,6 +1112,103 @@ def phase_kernels(report: dict) -> dict:
     if failed:
         raise SystemExit(f"kernel disagrees with its plain version: {failed}")
     return main
+
+
+# ---------------------------------------------------------------------------
+# B4 against another commit's (--ab-mlstm)
+# ---------------------------------------------------------------------------
+
+AB_FWD_CASES = ((1, 2048, 4, 512, False), (2, 300, 2, 256, True),
+                (1, 4096, 4, 512, False))
+AB_BWD_CASES = ((1, 4096, 4, 512, False), (2, 300, 2, 256, True))
+
+
+def ab_mlstm(parent: Path) -> int:
+    """B4's forward and backward built from ``parent`` (a ``csrc``
+    directory) and from this checkout's, called through the same wrappers
+    on the same seeded inputs: each library's ``HMMA`` count and its
+    kernels' registers; the forwards' outputs compared bit for bit at
+    xLSTM-350M's prefill and training shapes and a ragged case from a
+    given state; each backward at the training shape and the ragged case
+    against the plain backward in fp64 (within 1e-4 of max |plain|) and
+    against itself (bit for bit), with its passes by torch.profiler; and
+    every time in turns (parent, change, change, parent), so that both see
+    the same card. Returns 1 if the forwards differ or a backward fails."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mlstm_chunk.kernel import (KERNEL_CHUNK,
+                                                        forward_states,
+                                                        mlstm_chunk_bwd_cuda,
+                                                        mlstm_chunk_cuda)
+    from repro_torch.kernels.mlstm_chunk.ref import (make_inputs,
+                                                     mlstm_chunk_bwd_ref)
+    names = ("mlstm_chunk", "mlstm_chunk_bwd")
+    sides = {"parent": parent.resolve(), "change": build.CSRC}
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip())
+    for tag, csrc in sides.items():
+        for name, lib in zip(names, build.build_all(names, csrc)):
+            regs = ptxas_registers(
+                name, rf"mlstm_(?:state|weight|output)_kernel|{B4_BWD_KERNELS}",
+                csrc)
+            log(f"[ab] {tag} {name}: {count_sass(lib, 'HMMA')} HMMA; "
+                f"(registers, spill store bytes) {regs}")
+
+    def in_turns(fn, reps: int) -> dict:
+        times = {tag: [] for tag in sides}
+        for tag in ("parent", "change", "change", "parent"):
+            with build.using(sides[tag], names):
+                times[tag].append(cuda_ms(fn, reps))
+        return times
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    failed = []
+    for B, S, nh, hd, given in AB_FWD_CASES:
+        shape = f"B={B} S={S} nh={nh} hd={hd} {'given' if given else 'fresh'}"
+        ins, state = make_inputs(gen, B, S, nh, hd, given)
+
+        def fwd():
+            return mlstm_chunk_cuda(*ins, *state)
+        outs = []
+        for csrc in sides.values():
+            with build.using(csrc, names):
+                h, new = fwd()
+                outs.append((h, *new))
+        same = all(torch.equal(a, b) for a, b in zip(*outs))
+        log(f"[ab] forward {shape}: outputs "
+            f"{'bitwise equal' if same else 'DIFFER'}; ms "
+            f"{in_turns(fwd, 20)}")
+        if not same:
+            failed.append(f"forward {shape}")
+    for B, S, nh, hd, given in AB_BWD_CASES:
+        shape = f"B={B} S={S} nh={nh} hd={hd} {'given' if given else 'fresh'}"
+        ins, state = make_inputs(gen, B, S, nh, hd, given)
+        dh = torch.randn(ins[0].shape, generator=gen, device="cuda")
+        h, _, ws = mlstm_chunk_cuda(*ins, *state, keep_workspace=True)
+        states = forward_states(ws, B, S, nh, hd)
+        want = mlstm_chunk_bwd_ref(*(t.double() for t in ins),
+                                   tuple(t.double() for t in state),
+                                   dh.double(), chunk=KERNEL_CHUNK)
+
+        def bwd():
+            return mlstm_chunk_bwd_cuda(*ins, state, h, dh, states)
+        for tag, csrc in sides.items():
+            with build.using(csrc, names):
+                got = bwd()
+                rel = [float((g.double() - w).abs().max() / w.abs().max())
+                       for g, w in zip(got, want)]
+                same = all(torch.equal(a, b) for a, b in zip(got, bwd()))
+                passes = _passes(bwd, r"mlstm_bwd_\w+", 4,
+                                 f"{tag} mlstm_chunk_bwd {shape}")
+            log(f"[ab] backward {tag} {shape}: of max |plain| (fp64) "
+                f"{', '.join(f'{r:.3g}' for r in rel)}; two calls "
+                f"{'bitwise equal' if same else 'DIFFER'}; passes "
+                f"(launches, device ms) {passes}")
+            if max(rel) > BWD_TOL[torch.float32] or not same:
+                failed.append(f"backward {tag} {shape}")
+        del got, want
+        log(f"[ab] backward {shape}: ms {in_turns(bwd, 10)}")
+    log(f"[ab] {'failed: ' + str(failed) if failed else 'ok'}")
+    return 1 if failed else 0
 
 
 # ---------------------------------------------------------------------------
@@ -1420,6 +1557,15 @@ def phase_train(report: dict, tag: str, arch: str,
     log(f"[{tag}] step 2's device ms by kind: " + ", ".join(
         f"{k} {ms:.1f}" for k, ms in sorted(shares.items(),
                                              key=lambda kv: -kv[1])))
+    b4_bwd = {}   # B4's backward by pass: (launches, ms)
+    for name, (n, ms) in by_kernel.items():
+        m = re.search(B4_BWD_KERNELS, name)
+        if m:
+            b4_bwd[m.group()] = (n, ms)
+    if b4_bwd:
+        b4_ms = sum(ms for _, ms in b4_bwd.values())
+        log(f"[{tag}] step 2: B4 backward {b4_ms:.2f} ms of device time; "
+            f"by pass (launches, ms): {b4_bwd}")
     log(f"[{tag}] step 2: {sum(n for n, _ in by_kernel.values())} device "
         "kernels" + "".join(f"; span {k} {ms:.1f} ms host = "
                             f"{ms / wall_ms:.3f} of the wall"
@@ -1431,6 +1577,7 @@ def phase_train(report: dict, tag: str, arch: str,
                    "profiled_wall_ms": wall_ms,
                    "busy_share": device_ms / wall_ms,
                    "device_ms_by_kind": shares, "spans_host_ms": spans,
+                   "b4_backward_by_pass": b4_bwd,
                    "top_kernels": {k: v for k, v in top}}
     return total
 
@@ -1560,6 +1707,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    if sys.argv[1:2] == ["--ab-mlstm"] and len(sys.argv) == 3:
+        return ab_mlstm(Path(sys.argv[2]))
+    if sys.argv[1:]:
+        print("usage: chip_smoke.py [--ab-mlstm DIR]", file=sys.stderr)
+        return 2
     report: dict = {}
     smi = phase_environment(report)
     secs = {}

@@ -1,5 +1,6 @@
 // The backward of the chunkwise stabilised mLSTM (csrc/mlstm_chunk.cu) for
-// Hopper (sm_90a): four launches on the CUDA cores in fp32.
+// Hopper (sm_90a): four launches, every product on the tensor cores in split
+// TF32.
 //
 // The JAX package has no kernel for this gradient: its model differentiates
 // src/repro/models/xlstm.py::_mlstm_chunk_scan (the function the TPU kernel
@@ -35,34 +36,53 @@
 // The stabilisers (m_row, m_{c+1}, the state's m) are constants: h is the
 // same for any value of them, so no gradient flows through them.
 // kernels/mlstm_chunk/ref.py::mlstm_chunk_bwd_ref writes out the same
-// passes; the CPU tests hold it against jax.vjp of _mlstm_chunk_scan.
+// passes; the CPU tests hold it against jax.vjp of _mlstm_chunk_scan, and
+// tests/test_torch_mlstm_bwd_tf32.py this kernel's arithmetic against it.
 //
 // What bounds it on an H100: operations. The dC' chain, C_c dnum, dC' v and
 // dC'^T k take 8 B nh S hd^2 flops; q k^T, dh v^T and the three intra-chunk
 // products of dq, dk and dv, each over the causal half of a 64-step chunk,
-// 5 B nh S 64 hd: 37.1 GFLOP at the training shape (B = 1, S = 4096, nh =
-// 4, hd = 512), 0.55 ms at fp32's 67 TFLOP/s. This first design is plain:
-// every product on the CUDA cores in fp32 (h divides by a denominator that
-// can cancel, so the gradients amplify rounding as h does), tiles staged
-// through shared memory by synchronous loads, the intra-chunk products over
-// the full chunk rather than its causal half, and no atomics:
-//   1. Weight pass, grid (16-row tiles, chunks, B nh): q k^T and dh v^T for
-//      the rows, the gates (summed in fp64, as the forward's chunk_gates),
-//      m_row, P, W, a, den, da; writes dS, W / den and dD (kL x kL a chunk),
-//      e, 1 / den, da, q . n_c per step, and (row tile 0) the chunk end's
-//      w_s and scale_c.
-//   2. State pass, grid (64 x 64 tiles of dC, B nh): walks the chunks in
-//      reverse, writing dC'_c and dn'_c to the workspace and its tile's part
-//      of dscale_c, then dC' <- scale_c dC' + (e q)^T (dh / den).
-//   3. Gradient pass, grid (chunks, 3 x 128-column slices, B nh): dq, dk or
-//      dv for one slice of one chunk, each a product over hd (C_c, dC'_c)
-//      then one over the chunk's steps (dS, W / den); the slices' parts of
-//      q_t . C_c dh_t and k_s . (dC'_c v_s + dn'_c) go to the workspace.
+// 5 B nh S 64 hd: 37.04 GFLOP at the training shape (B = 1, S = 4096, nh =
+// 4, hd = 512), 0.5529 ms at fp32's 67 TFLOP/s. Split TF32 does three TF32
+// products for each: 111.1 GFLOP, 0.224 ms at 495 TFLOP/s, the floor of
+// this design. The first design (four CUDA-core launches, 2.8164 ms on an
+// H100 at 700 W) ran every product as an fmaf loop over tiles staged by
+// synchronous scalar loads, and its intra-chunk products over the whole
+// chunk. This one:
+//   1. Weight pass, grid (16-row tiles, chunks, B nh), 4 warps: q k^T and
+//      dh v^T over hd on mma.sync, the q, dh, h, k and v tiles in flight by
+//      16-byte cp.async (double-buffered) while the last ones multiply, and
+//      only the causal keys (row tile r needs keys s < 16 (r + 1)); then the
+//      gates (summed in fp64, tf32.cuh's chunk_gates), m_row, P, W, a, den,
+//      da; writes dS, W / den and dD (kL x kL a chunk), e, 1 / den, da,
+//      q . n_c per step, and (row tile 0) the chunk end's w_s and scale_c.
+//   2. State pass, grid (64 x 64 tiles of dC, B nh), 8 warps: walks the
+//      chunks in reverse, writing dC'_c and dn'_c to the workspace and its
+//      tile's part of dscale_c, then dC' <- scale_c dC' + (e q)^T (dh / den)
+//      as one 64 x 64 x 64 product on mma.sync, e_t / den_t folded into the
+//      q operand before its split. The next chunk's q, dh and C_c tiles, e,
+//      1 / den, da, n and scale are in flight by cp.async while it runs. The
+//      dn' chain and the dscale parts stay on the CUDA cores.
+//   3. Gradient pass, grid (chunks, 3 x 128-column slices, B nh), 8 warps
+//      of 16 rows x 64 columns: dq, dk or dv for one slice of one chunk, a
+//      product over hd (C_c dh, dC' v, k dC'), the slice's part of q . X or
+//      k . G for the gate pass, then one over the chunk's steps (dS k,
+//      dS^T q, (W / den)^T dh) over its causal half only. Both stream
+//      through one double-buffered pair of cp.async tiles, the transposed
+//      operands read by load_at / load_bt from tiles stored untransposed.
 //   4. Gate pass, grid (chunks, B nh), one thread a step: dD's row and
 //      column sums, the slices' and tiles' parts summed, and the reverse
 //      cumsum of dF in fp64.
-// Global loads are 4-byte (the operands need only 4-byte alignment); the
-// state pass writes the workspace's dC' tiles as float4.
+// Numerics, as the forward's: h divides by a denominator that can cancel,
+// so the gradients amplify rounding as h does, and one TF32 product would
+// not hold. Each operand is split as hi = tf32(x), lo = tf32(x - hi), and
+// a_lo b_hi + a_hi b_lo + a_hi b_hi summed in fp32 (tf32.cuh); each
+// tensor-core sum runs over at most 24 mma steps (a 32-deep stage, or the
+// state pass's 64-step chunk) and is then added in fp32. No atomics: two
+// calls give the same bits. Shared-memory tiles are padded so every
+// fragment load hits 32 banks. Tiles move by 16-byte cp.async, so q, k, v,
+// h, dh, C0 and the chunks' states are 16-byte aligned (the wrapper copies
+// an operand that is not).
 //
 // Workspace (one buffer: mlstm_chunk_bwd_workspace_floats counts it, the
 // wrapper allocates it, mlstm_chunk_bwd refuses one that is too small),
@@ -72,18 +92,28 @@
 //   e, 1 / den, da, q . n, w                5 B nh nc 64
 //   the slices' and tiles' parts, scale     B nh nc (2 nsl 64 + nt^2 + 1)
 // 278,258,688 bytes at the training shape.
-#include "common.cuh"
+#include "tf32.cuh"
 
 namespace {
+
+using namespace tf32;   // split TF32, cp.async, chunk_gates
 
 constexpr int kL = 64;        // steps of S per chunk (the forward's)
 constexpr int kPer = kL / 32; // steps of a chunk per lane in the gate scans
 constexpr int kT = 64;        // rows and columns of a dC tile (state pass)
 constexpr int kRows = 16;     // rows per weight-pass block
 constexpr int kSlice = 128;   // output columns per gradient-pass block
-constexpr int kK = 32;        // depth of a tile step
+constexpr int kK = 32;        // depth of a tile stage
 constexpr int kMaxHd = 512;
 constexpr unsigned kFull = 0xffffffffu;
+
+// Row strides of the shared-memory tiles. A fragment load reads, over a
+// warp, elements (8 groups g) x (4 slots t). Where g runs along a tile's
+// rows a stride of 4 mod 32 puts them on 32 banks; where t does, 8 mod 32.
+// Every stride is a multiple of 4 floats, so rows stay 16-byte aligned.
+constexpr int kLdA = kK + 4;       // [row][depth] tiles of 32 depths
+constexpr int kLdT = kL + 8;       // [depth][64 columns] tiles
+constexpr int kLdB = kSlice + 8;   // [depth][128 columns] tiles
 
 struct Params {
   const float *q, *k, *v, *log_i, *log_f, *h, *dh;
@@ -100,83 +130,74 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// gates of one chunk (csrc/mlstm_chunk.cu's chunk_gates, the same arithmetic)
-// ---------------------------------------------------------------------------
-
-struct Gates {
-  double F[kPer];
-  float li[kPer];
-};
-
-__device__ __forceinline__ Gates chunk_gates(const float* li,
-                                             const float* lf, int stride,
-                                             int Lc, int lane) {
-  Gates r;
-  double sum = 0.0;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int s = kPer * lane + i;
-    r.li[i] = s < Lc ? li[s * stride] : rt::kNegInf;
-    sum += s < Lc ? lf[s * stride] : 0.f;
-    r.F[i] = sum;
-  }
-  double incl = sum;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const double y = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += y;
-  }
-  double excl = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) excl = 0.0;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) r.F[i] += excl;
-  return r;
-}
-
-__device__ __forceinline__ float sum8(float x) {   // over 8 aligned lanes
-  x += __shfl_xor_sync(kFull, x, 1);
-  x += __shfl_xor_sync(kFull, x, 2);
-  x += __shfl_xor_sync(kFull, x, 4);
-  return x;
-}
-
-// ---------------------------------------------------------------------------
 // 1. weight pass
 // ---------------------------------------------------------------------------
 
-constexpr int kWeightThreads = 128;   // 8 a row: keys sx + 8 i
+// Four warps; warp w holds the keys of n8 tiles w + 4 jj.
+constexpr int kWeightThreads = 128;
+constexpr int kKeyTiles = kL / 32;   // n8 key tiles per warp
 
 struct WeightSmem {
-  float q[kRows][kK + 1], dh[kRows][kK + 1];
-  float k[kL][kK + 1], v[kL][kK + 1];
-  float n[kMaxHd];
+  float q[2][kRows][kLdA];    // q[row][d - d0], double-buffered
+  float dh[2][kRows][kLdA];   // dh[row][d - d0]
+  float h[2][kRows][kLdA];    // h[row][d - d0]
+  float k[2][kL][kLdA];       // k[step][d - d0]
+  float v[2][kL][kLdA];       // v[step][d - d0]
+  float n[kMaxHd];            // n_c
   double F[kL];
   float li[kL], m_row[kL];
+  float rowsum[4][kRows];     // by warp
+  float qn[kRows], dhh[kRows];
+  float R[kRows], da[kRows];
 };
 
 __global__ void __launch_bounds__(kWeightThreads)
 mlstm_bwd_weight_kernel(const Params p) {
-  __shared__ WeightSmem sm;
+  extern __shared__ float4 smem_raw[];
+  WeightSmem& sm = *reinterpret_cast<WeightSmem*>(smem_raw);
   const int r = blockIdx.x, c = blockIdx.y, bh = blockIdx.z;
   const int b = bh / p.nh, hh = bh % p.nh;
   const int S = p.S, hd = p.hd, nc = p.nc;
   const int t0 = c * kL, Lc = min(kL, S - t0), r0 = r * kRows;
+  const int keys = r0 + kRows;   // row tile r needs keys s < 16 (r + 1)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tr = tid >> 3, sx = tid & 7;   // this thread's row and keys
-  const int n_keys = 2 * (r + 1);          // key groups of 8 up to row r0+15
+  const int g = lane >> 2, t4 = lane & 3;
   const long row = (long)p.nh * hd;
   const long base = ((long)b * S + t0) * row + (long)hh * hd;
   const long slot = (long)bh * (nc - 1) + c - 1;   // chunk c > 0's state
   const float* n_c = c == 0 ? p.n0 + (long)bh * hd : p.ns + slot * hd;
   const float m_c = c == 0 ? p.m0[bh] : p.ms[slot];
   const long cs = (long)bh * nc + c;
-  for (int i = tid; i < hd; i += kWeightThreads) sm.n[i] = n_c[i];
+
+  for (int i = tid; i < hd; i += kWeightThreads)
+    cp_async4(&sm.n[i], n_c + i, true);
+  auto load = [&](int step, int st) {
+    const int d0 = step * kK;
+    for (int i = tid; i < kRows * kK / 4; i += kWeightThreads) {
+      const int t = i / (kK / 4), x = i % (kK / 4) * 4;
+      const bool ok = r0 + t < Lc;
+      const long o = base + (r0 + t) * row + d0 + x;
+      cp_async16(&sm.q[st][t][x], ok ? p.q + o : p.q, ok);
+      cp_async16(&sm.dh[st][t][x], ok ? p.dh + o : p.dh, ok);
+      cp_async16(&sm.h[st][t][x], ok ? p.h + o : p.h, ok);
+    }
+    for (int i = tid; i < keys * kK / 4; i += kWeightThreads) {
+      const int s = i / (kK / 4), x = i % (kK / 4) * 4;
+      const bool ok = s < Lc;
+      const long o = base + s * row + d0 + x;
+      cp_async16(&sm.k[st][s][x], ok ? p.k + o : p.k, ok);
+      cp_async16(&sm.v[st][s][x], ok ? p.v + o : p.v, ok);
+    }
+    cp_async_commit();
+  };
+  load(0, 0);
 
   // F, log_i and m_row = max(F_t + max_{s<=t} (li_s - F_s), m_c + F_t), as
   // the forward's weight pass
   if (warp == 0) {
     const long gi = ((long)b * S + t0) * p.nh + hh;
-    const Gates gt = chunk_gates(p.log_i + gi, p.log_f + gi, p.nh, Lc, lane);
+    const auto gt =
+        chunk_gates<kPer>(p.log_i + gi, p.log_f + gi, p.nh, Lc, lane);
     double pm[kPer], best = rt::kNegInf;
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
@@ -201,85 +222,133 @@ mlstm_bwd_weight_kernel(const Params p) {
     }
   }
 
-  // q k^T and dh v^T for row tr against keys sx + 8 i; q . n and dh . h
-  float Sc[8] = {}, G[8] = {};
+  // q k^T and dh v^T of this block's rows against the keys of n8 tiles
+  // warp + 4 jj, in split TF32; q . n and dh . h on the CUDA cores
+  float Sc[kKeyTiles][4] = {}, G[kKeyTiles][4] = {};
   float qn = 0.f, dhh = 0.f;
-  const int t = r0 + tr;
-  for (int d0 = 0; d0 < hd; d0 += kK) {
-    __syncthreads();   // the last step's reads are done
-    for (int i = tid; i < kRows * kK; i += kWeightThreads) {
-      const int tt = i / kK, x = i % kK;
-      const bool ok = r0 + tt < Lc;
-      const long o = base + (r0 + tt) * row + d0 + x;
-      sm.q[tt][x] = ok ? p.q[o] : 0.f;
-      sm.dh[tt][x] = ok ? p.dh[o] : 0.f;
-    }
-    for (int i = tid; i < 8 * n_keys * kK; i += kWeightThreads) {
-      const int s = i / kK, x = i % kK;
-      const bool ok = s < Lc;
-      const long o = base + s * row + d0 + x;
-      sm.k[s][x] = ok ? p.k[o] : 0.f;
-      sm.v[s][x] = ok ? p.v[o] : 0.f;
+  const int dot_row = tid >> 3, dot_seg = (tid & 7) * (kK / 8);
+  const int n_steps = hd / kK;
+  for (int step = 0; step < n_steps; ++step) {
+    const int st = step & 1;
+    if (step + 1 < n_steps) {
+      load(step + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    if (8 * warp < keys) {
+      float PS[kKeyTiles][4] = {}, PG[kKeyTiles][4] = {};
 #pragma unroll
-    for (int x = 0; x < kK / 8; ++x) {
-      const int xx = sx * (kK / 8) + x;
-      qn = fmaf(sm.q[tr][xx], sm.n[d0 + xx], qn);
-      if (t < Lc)
-        dhh = fmaf(sm.dh[tr][xx], p.h[base + t * row + d0 + xx], dhh);
-    }
-#pragma unroll 4
-    for (int x = 0; x < kK; ++x) {
-      const float qa = sm.q[tr][x], ga = sm.dh[tr][x];
+      for (int kk = 0; kk < kK / 8; ++kk) {
+        Tf32 aq[4], ag[4];
+        load_a(aq, &sm.q[st][0][8 * kk], kLdA, g, t4);
+        load_a(ag, &sm.dh[st][0][8 * kk], kLdA, g, t4);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        if (i < n_keys) {
-          Sc[i] = fmaf(qa, sm.k[sx + 8 * i][x], Sc[i]);
-          G[i] = fmaf(ga, sm.v[sx + 8 * i][x], G[i]);
+        for (int jj = 0; jj < kKeyTiles; ++jj) {
+          const int s0 = 8 * (warp + 4 * jj);
+          if (s0 < keys) {   // B(d, s) = k[s][d], v[s][d]
+            Tf32 bf[2];
+            load_bt(bf, &sm.k[st][s0][8 * kk], kLdA, g, t4);
+            mma3(PS[jj], aq, bf);
+            load_bt(bf, &sm.v[st][s0][8 * kk], kLdA, g, t4);
+            mma3(PG[jj], ag, bf);
+          }
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < kKeyTiles; ++jj)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          Sc[jj][i] += PS[jj][i];
+          G[jj][i] += PG[jj][i];
         }
     }
+#pragma unroll
+    for (int x = 0; x < kK / 8; ++x) {
+      const int xx = dot_seg + x;
+      qn = fmaf(sm.q[st][dot_row][xx], sm.n[step * kK + xx], qn);
+      dhh = fmaf(sm.dh[st][dot_row][xx], sm.h[st][dot_row][xx], dhh);
+    }
+    __syncthreads();   // before the next load overwrites this stage
   }
-  qn = sum8(qn);
-  dhh = sum8(dhh);
-  __syncthreads();   // the gates
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) {
+    qn += __shfl_xor_sync(kFull, qn, o);
+    dhh += __shfl_xor_sync(kFull, dhh, o);
+  }
+  if ((tid & 7) == 0) {
+    sm.qn[dot_row] = qn;
+    sm.dhh[dot_row] = dhh;
+  }
 
-  const float mr = sm.m_row[t];
-  float P[8], W[8], rs = 0.f;
+  // P and W at the thread's accumulator entries: rows r0 + g (+ 8), keys
+  // 8 (warp + 4 jj) + 2 t4 (+ 1); W's row sums
+  float P[kKeyTiles][4], W[kKeyTiles][4], rs[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int s = sx + 8 * i;
-    P[i] = s <= t && t < Lc
-               ? expf((float)(sm.F[t] - sm.F[s] + sm.li[s]) - mr)
-               : 0.f;
-    W[i] = Sc[i] * P[i];
-    rs += W[i];
-  }
-  rs = sum8(rs);
-  const bool live = t < Lc;
-  const float e = live ? expf((float)(m_c + sm.F[t]) - mr) : 0.f;
-  const float a = rs + e * qn, flo = expf(-mr);
-  const float Rt = live ? 1.f / fmaxf(fabsf(a), flo) : 0.f;
-  const float dden = -dhh * Rt;   // d den = -(dh . h) / den
-  const float da = live && fabsf(a) >= flo
-                       ? (a > 0.f ? dden : a < 0.f ? -dden : 0.f)
-                       : 0.f;
-  const long mo = cs * kL * kL + (long)t * kL;
+  for (int jj = 0; jj < kKeyTiles; ++jj)
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {   // every column of the row is written
-    const int s = sx + 8 * i;
-    const float dW = fmaf(G[i], Rt, da);
-    p.dS[mo + s] = dW * P[i];
-    p.dD[mo + s] = dW * W[i];
-    p.Wd[mo + s] = W[i] * Rt;
+    for (int i = 0; i < 4; ++i) {
+      const int t = r0 + g + 8 * (i >> 1);
+      const int s = 8 * (warp + 4 * jj) + 2 * t4 + (i & 1);
+      P[jj][i] = s <= t && t < Lc
+                     ? expf((float)(sm.F[t] - sm.F[s] + sm.li[s]) -
+                            sm.m_row[t])
+                     : 0.f;
+      W[jj][i] = Sc[jj][i] * P[jj][i];
+      rs[i >> 1] += W[jj][i];
+    }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    rs[hf] += __shfl_xor_sync(kFull, rs[hf], 1);
+    rs[hf] += __shfl_xor_sync(kFull, rs[hf], 2);
+    if (t4 == 0) sm.rowsum[warp][g + 8 * hf] = rs[hf];
   }
-  if (sx == 0) {
+  __syncthreads();
+  if (tid < kRows) {   // a, den, da of row r0 + tid
+    const int t = r0 + tid;
+    const bool live = t < Lc;
+    const float mr = sm.m_row[t];
+    const float sum = sm.rowsum[0][tid] + sm.rowsum[1][tid] +
+                      sm.rowsum[2][tid] + sm.rowsum[3][tid];
+    const float e = live ? expf((float)(m_c + sm.F[t]) - mr) : 0.f;
+    const float a = sum + e * sm.qn[tid], flo = expf(-mr);
+    const float Rt = live ? 1.f / fmaxf(fabsf(a), flo) : 0.f;
+    const float dden = -sm.dhh[tid] * Rt;   // d den = -(dh . h) / den
+    const float da = live && fabsf(a) >= flo
+                         ? (a > 0.f ? dden : a < 0.f ? -dden : 0.f)
+                         : 0.f;
+    sm.R[tid] = Rt;
+    sm.da[tid] = da;
     const long o = cs * kL + t;
     p.E[o] = e;
     p.R[o] = Rt;
     p.DA[o] = da;
-    p.QN[o] = qn;
+    p.QN[o] = sm.qn[tid];
   }
+  __syncthreads();
+  // dW = (dh v^T) / den + da; every column of the rows is written
+  const long mo = cs * kL * kL;
+#pragma unroll
+  for (int jj = 0; jj < kKeyTiles; ++jj)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int t = r0 + g + 8 * hf, s = 8 * (warp + 4 * jj) + 2 * t4;
+      const float Rt = sm.R[g + 8 * hf], da = sm.da[g + 8 * hf];
+      float dS[2], dD[2], Wd[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * hf + e;
+        const float dW = fmaf(G[jj][i], Rt, da);
+        dS[e] = dW * P[jj][i];
+        dD[e] = dW * W[jj][i];
+        Wd[e] = W[jj][i] * Rt;
+      }
+      const long o = mo + (long)t * kL + s;
+      *reinterpret_cast<float2*>(p.dS + o) = make_float2(dS[0], dS[1]);
+      *reinterpret_cast<float2*>(p.dD + o) = make_float2(dD[0], dD[1]);
+      *reinterpret_cast<float2*>(p.Wd + o) = make_float2(Wd[0], Wd[1]);
+    }
 
   // the chunk end's weights and scale, as the forward's state pass
   if (r == 0 && warp == 0) {
@@ -305,97 +374,148 @@ mlstm_bwd_weight_kernel(const Params p) {
 // 2. state pass
 // ---------------------------------------------------------------------------
 
-constexpr int kStateThreads = 256;   // 16 x 16 threads, 4 x 4 entries each
-constexpr int kLdS = kT + 4;
+// Eight warps tile the 64 x 64 tile of dC: 4 along its rows by 2 along its
+// columns, each 16 rows by 32 columns (four n8 tiles).
+constexpr int kStateThreads = 256;
+constexpr int kNT = 4;   // n8 tiles per warp
 
 struct StateSmem {
-  float q[kL][kLdS];   // e_t q_t[d0 + x]
-  float g[kL][kLdS];   // dh_t[j0 + x] / den_t
-  float da[kL];
+  float q[2][kL][kLdT];    // q_t[d0 + x] of a chunk, double-buffered
+  float g[2][kL][kLdT];    // dh_t[j0 + x]
+  float C[2][kT][kLdT];    // C_c[d0 + i][j0 + x]
+  float E[2][kL], R[2][kL], DA[2][kL];
+  float n[2][kT];          // n_c[d0 + i] (blocks with j0 = 0)
+  float scale[2][4];       // scale_c in [0]
   float red[kStateThreads / 32];
 };
 
-__global__ void __launch_bounds__(kStateThreads)
+__global__ void __launch_bounds__(kStateThreads, 2)
 mlstm_bwd_state_kernel(const Params p) {
-  __shared__ __align__(16) StateSmem sm;
+  extern __shared__ float4 smem_raw[];
+  StateSmem& sm = *reinterpret_cast<StateSmem*>(smem_raw);
   const int nt = p.nt, ntt = nt * nt;
   const int d0 = (blockIdx.x / nt) * kT, j0 = (blockIdx.x % nt) * kT;
   const int bh = blockIdx.y, b = bh / p.nh, hh = bh % p.nh;
   const int S = p.S, hd = p.hd, nc = p.nc;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int dr = d0 + 4 * ty, jc = j0 + 4 * tx;   // the thread's corner
-  const bool col_ok = jc < hd;   // hd is a multiple of 32: all four or none
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wr = 16 * (warp & 3), wc = 32 * (warp >> 2);   // warp's corner
   const long row = (long)p.nh * hd, hd2 = (long)hd * hd;
   const long head = (long)b * S * row + (long)hh * hd;
   const bool holds_n = j0 == 0 && tid < kT && d0 + tid < hd;
-  float dC[4][4] = {};
+
+  // dC' in accumulator layout: rows d0 + wr + g (+ 8), columns
+  // j0 + wc + 8 n + 2 t4 (+ 1)
+  auto row_ok = [&](int r) { return d0 + wr + g + 8 * r < hd; };
+  auto col_ok = [&](int n) { return j0 + wc + 8 * n < hd; };
+  float dC[kNT][4] = {};
   float dn = 0.f;
 
-  for (int c = nc - 1; c >= 0; --c) {
+  auto load = [&](int c, int st) {   // chunk c's tiles, gates and scale
+    const int t0 = c * kL, Lc = min(kL, S - t0);
     const long cs = (long)bh * nc + c;
+    const long prev = (long)bh * (nc - 1) + c - 1;
+    const bool need_C = c < nc - 1;   // no gradient leaves the last chunk
+    const float* Cc = c == 0 ? p.C0 + bh * hd2 : p.Cs + prev * hd2;
+    for (int i = tid; i < kL * kT / 4; i += kStateThreads) {
+      const int t = i / (kT / 4), x = i % (kT / 4) * 4;
+      const long o = head + (long)(t0 + t) * row;
+      const bool ok_q = t < Lc && d0 + x < hd, ok_g = t < Lc && j0 + x < hd;
+      cp_async16(&sm.q[st][t][x], ok_q ? p.q + o + d0 + x : p.q, ok_q);
+      cp_async16(&sm.g[st][t][x], ok_g ? p.dh + o + j0 + x : p.dh, ok_g);
+      // C_c's rows d0 + t, columns j0 + x
+      const bool ok_c = need_C && d0 + t < hd && j0 + x < hd;
+      cp_async16(&sm.C[st][t][x],
+                 ok_c ? Cc + (long)(d0 + t) * hd + j0 + x : p.C0, ok_c);
+    }
+    if (tid < kL) {
+      const long o = cs * kL + tid;
+      cp_async4(&sm.E[st][tid], p.E + o, true);
+      cp_async4(&sm.R[st][tid], p.R + o, true);
+      cp_async4(&sm.DA[st][tid], p.DA + o, true);
+    }
+    if (holds_n && need_C) {
+      const float* n_c = c == 0 ? p.n0 + (long)bh * hd : p.ns + prev * hd;
+      cp_async4(&sm.n[st][tid], n_c + d0 + tid, true);
+    }
+    if (tid == 0) cp_async4(&sm.scale[st][0], p.scale + cs, true);
+    cp_async_commit();
+  };
+
+  load(nc - 1, 0);
+  for (int c = nc - 1, it = 0; c >= 0; --c, ++it) {
+    const int st = it & 1, Lc = min(kL, S - c * kL);
+    const long cs = (long)bh * nc + c;
+    if (c > 0) {
+      load(c - 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
     // the gradient leaving chunk c (zero for the last) for the gradient
-    // pass, and its product with C_c
+    // pass, and its product with C_c for dscale_c
     float part = 0.f;
     if (c < nc - 1) {
       const long slot = (long)bh * (nc - 1) + c;
-      const float* Cc = c == 0 ? p.C0 + bh * hd2
-                               : p.Cs + ((long)bh * (nc - 1) + c - 1) * hd2;
-      const float* n_c = c == 0 ? p.n0 + (long)bh * hd
-                                : p.ns + ((long)bh * (nc - 1) + c - 1) * hd;
+      float* dst = p.dCs + slot * hd2;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (dr + i < hd && col_ok) {
-          const long o = (long)(dr + i) * hd + jc;
-          *reinterpret_cast<float4*>(p.dCs + slot * hd2 + o) =
-              make_float4(dC[i][0], dC[i][1], dC[i][2], dC[i][3]);
+      for (int n = 0; n < kNT; ++n)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) part = fmaf(dC[i][j], Cc[o + j], part);
+        for (int r = 0; r < 2; ++r) {
+          if (!row_ok(r) || !col_ok(n)) continue;
+          const int i = wr + g + 8 * r, j = wc + 8 * n + 2 * t4;
+          *reinterpret_cast<float2*>(dst + (long)(d0 + i) * hd + j0 + j) =
+              make_float2(dC[n][2 * r], dC[n][2 * r + 1]);
+          part = fmaf(dC[n][2 * r], sm.C[st][i][j], part);
+          part = fmaf(dC[n][2 * r + 1], sm.C[st][i][j + 1], part);
         }
       if (holds_n) {
         p.dns[slot * hd + d0 + tid] = dn;
-        part = fmaf(dn, n_c[d0 + tid], part);
+        part = fmaf(dn, sm.n[st][tid], part);
       }
     }
     part = rt::warp_sum(part);
     if (lane == 0) sm.red[warp] = part;
-    // chunk c's e q and dh / den tiles
-    const int t0 = c * kL, Lc = min(kL, S - t0);
-    for (int i = tid; i < kL * kT; i += kStateThreads) {
-      const int t = i / kT, x = i % kT;
-      const long o = head + (long)(t0 + t) * row;
-      sm.q[t][x] = t < Lc && d0 + x < hd ? p.q[o + d0 + x] * p.E[cs * kL + t]
-                                         : 0.f;
-      sm.g[t][x] = t < Lc && j0 + x < hd ? p.dh[o + j0 + x] * p.R[cs * kL + t]
-                                         : 0.f;
+
+    // dC' <- scale_c dC' + sum_t q_t (e_t / den_t) dh_t^T, in split TF32
+    float U[kNT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kL / 8; ++kk) {
+      if (kk * 8 >= Lc) break;
+      const int s0 = 8 * kk + t4, s1 = s0 + 4;
+      const float f0 = sm.E[st][s0] * sm.R[st][s0];
+      const float f1 = sm.E[st][s1] * sm.R[st][s1];
+      const float* qp = &sm.q[st][8 * kk][wr];
+      Tf32 a[4];   // A(d, t) = q[t][d] e_t / den_t
+      a[0] = split(qp[t4 * kLdT + g] * f0);
+      a[1] = split(qp[t4 * kLdT + g + 8] * f0);
+      a[2] = split(qp[(t4 + 4) * kLdT + g] * f1);
+      a[3] = split(qp[(t4 + 4) * kLdT + g + 8] * f1);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        Tf32 bf[2];
+        load_b(bf, &sm.g[st][8 * kk][wc + 8 * n], kLdT, g, t4);
+        mma3(U[n], a, bf);
+      }
     }
-    if (tid < kL) sm.da[tid] = p.DA[cs * kL + tid];
-    __syncthreads();
+    const float sc = sm.scale[st][0];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dC[n][i] = fmaf(dC[n][i], sc, U[n][i]);
+    if (holds_n) {   // dn' <- scale_c dn' + sum_t da_t e_t q_t
+      float sum = 0.f;
+      for (int t = 0; t < Lc; ++t)
+        sum = fmaf(sm.DA[st][t] * sm.E[st][t], sm.q[st][t][tid], sum);
+      dn = fmaf(dn, sc, sum);
+    }
+    __syncthreads();   // before the next load overwrites this stage
     if (tid == 0) {
       float sum = 0.f;
       for (int w = 0; w < kStateThreads / 32; ++w) sum += sm.red[w];
       p.dscale[cs * ntt + blockIdx.x] = sum;
     }
-    // dC' <- scale_c dC' + sum_t (e q)_t (dh / den)_t^T; dn likewise
-    const float sc = p.scale[cs];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dC[i][j] *= sc;
-    for (int t = 0; t < Lc; ++t) {
-      const float4 a = *reinterpret_cast<const float4*>(&sm.q[t][4 * ty]);
-      const float4 g = *reinterpret_cast<const float4*>(&sm.g[t][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, gv[4] = {g.x, g.y, g.z, g.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dC[i][j] = fmaf(av[i], gv[j], dC[i][j]);
-    }
-    if (holds_n) {
-      dn *= sc;
-      for (int t = 0; t < Lc; ++t) dn = fmaf(sm.da[t], sm.q[t][tid], dn);
-    }
-    __syncthreads();   // before the next chunk overwrites the tiles
   }
 }
 
@@ -403,84 +523,155 @@ mlstm_bwd_state_kernel(const Params p) {
 // 3. gradient pass
 // ---------------------------------------------------------------------------
 
-constexpr int kGradThreads = 256;   // 16 x 16: rows ty + 16 i, columns
-                                    // tx + 16 j of a 64 x 128 tile
+// Eight warps tile the 64 x 128 output tile: 4 along its rows (16 rw ..) by
+// 2 along its columns (64 cw ..), eight n8 tiles each.
+constexpr int kGradThreads = 256;
+constexpr int kAFloats = kL * kLdA;       // A by rows: [64 rows][32 depths]
+constexpr int kBFloats = kSlice * kLdA;   // B by columns: [128][32 depths]
+static_assert(kK * kLdT == kAFloats, "A by depth: [32 depths][64 rows]");
+static_assert(kK * kLdB <= kBFloats, "B by depth: [32 depths][128]");
 
 struct GradSmem {
-  float a[kK][kL + 1];       // A(row, depth) at a[depth][row]
-  float b[kK][kSlice + 1];   // B(depth, column) at b[depth][column]
+  float a[2][kAFloats];   // double-buffered stages
+  float b[2][kBFloats];
+  float part[2][kL];      // the column warps' parts of a row's dot product
 };
 
-// A(r, x) = src[r * ld + k0 + x]; rows r >= n_rows read as 0
-__device__ __forceinline__ void a_by_rows(GradSmem& sm, const float* src,
-                                          long ld, int k0, int n_rows) {
-  for (int i = threadIdx.x; i < kL * kK; i += kGradThreads) {
-    const int r = i / kK, x = i % kK;
-    sm.a[x][r] = r < n_rows ? src[r * ld + k0 + x] : 0.f;
-  }
-}
-// A(r, x) = src[(k0 + x) * ld + r]
-__device__ __forceinline__ void a_by_depth(GradSmem& sm, const float* src,
-                                           long ld, int k0) {
-  for (int i = threadIdx.x; i < kL * kK; i += kGradThreads) {
-    const int x = i / kL, r = i % kL;
-    sm.a[x][r] = src[(k0 + x) * ld + r];
-  }
-}
-// B(x, col) = src[(k0 + x) * ld + col]; depths >= n_depth and columns >=
-// n_cols read as 0
-__device__ __forceinline__ void b_by_depth(GradSmem& sm, const float* src,
-                                           long ld, int k0, int n_depth,
-                                           int n_cols) {
-  for (int i = threadIdx.x; i < kK * kSlice; i += kGradThreads) {
-    const int x = i / kSlice, col = i % kSlice;
-    sm.b[x][col] = k0 + x < n_depth && col < n_cols
-                       ? src[(k0 + x) * ld + col] : 0.f;
-  }
-}
-// B(x, col) = src[col * ld + k0 + x]; columns >= n_cols read as 0
-__device__ __forceinline__ void b_by_cols(GradSmem& sm, const float* src,
-                                          long ld, int k0, int n_cols) {
-  for (int i = threadIdx.x; i < kK * kSlice; i += kGradThreads) {
-    const int col = i / kK, x = i % kK;
-    sm.b[x][col] = col < n_cols ? src[col * ld + k0 + x] : 0.f;
-  }
-}
+// One product's operands, each read from global memory in one of two
+// layouts (chosen by the template arguments of load_stage and mma_stage):
+// A(m, x) = a[m lda + x] (by rows; rows m >= a_rows read as 0) or
+// a[x lda + m] (by depth); B(x, n) = b[x ldb + n] (by depth; depths >=
+// b_depth read as 0) or b[n ldb + x] (by columns); columns n >= n_cols read
+// as 0. depth is a multiple of kK.
+struct Operands {
+  const float* a;
+  long lda;
+  int a_rows;
+  const float* b;
+  long ldb;
+  int b_depth, depth;
+};
 
-// acc += A B over depth (a multiple of kK); load(k0) stages one step
-template <class Load>
-__device__ __forceinline__ void accumulate(float (&acc)[4][8], GradSmem& sm,
-                                           int depth, Load load) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  for (int k0 = 0; k0 < depth; k0 += kK) {
-    __syncthreads();   // the last step's reads are done
-    load(k0);
-    __syncthreads();
-#pragma unroll 4
-    for (int x = 0; x < kK; ++x) {
-      float av[4], bv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = sm.a[x][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bv[j] = sm.b[x][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+template <bool kADepth, bool kBCols>
+__device__ __forceinline__ void load_stage(float* a, float* b,
+                                           const Operands& o, int k0,
+                                           int n_cols) {
+  const int tid = threadIdx.x;
+  if (kADepth) {   // a[x][m]: the 64 entries of a depth are contiguous
+    for (int i = tid; i < kK * kL / 4; i += kGradThreads) {
+      const int x = i / (kL / 4), m = i % (kL / 4) * 4;
+      cp_async16(a + x * kLdT + m, o.a + (k0 + x) * o.lda + m, true);
+    }
+  } else {         // a[m][x]
+    for (int i = tid; i < kL * kK / 4; i += kGradThreads) {
+      const int m = i / (kK / 4), x = i % (kK / 4) * 4;
+      const bool ok = m < o.a_rows;
+      cp_async16(a + m * kLdA + x, ok ? o.a + m * o.lda + k0 + x : o.a, ok);
+    }
+  }
+  if (kBCols) {    // b[n][x]
+    for (int i = tid; i < kSlice * kK / 4; i += kGradThreads) {
+      const int n = i / (kK / 4), x = i % (kK / 4) * 4;
+      const bool ok = n < n_cols;
+      cp_async16(b + n * kLdA + x, ok ? o.b + n * o.ldb + k0 + x : o.b, ok);
+    }
+  } else {         // b[x][n]
+    for (int i = tid; i < kK * kSlice / 4; i += kGradThreads) {
+      const int x = i / (kSlice / 4), n = i % (kSlice / 4) * 4;
+      const bool ok = k0 + x < o.b_depth && n < n_cols;
+      cp_async16(b + x * kLdB + n, ok ? o.b + (k0 + x) * o.ldb + n : o.b,
+                 ok);
     }
   }
 }
 
-__global__ void __launch_bounds__(kGradThreads)
+// P += A B over the stage's depth steps kk in [lo, hi) for the warp's rows
+// 16 rw .. and columns 64 cw ..
+template <bool kADepth, bool kBCols>
+__device__ __forceinline__ void mma_stage(float (&P)[8][4], const float* a,
+                                          const float* b, int lo, int hi,
+                                          int rw, int cw, int g, int t4) {
+#pragma unroll
+  for (int kk = 0; kk < kK / 8; ++kk) {
+    if (kk < lo || kk >= hi) continue;
+    Tf32 af[4];
+    if (kADepth)
+      load_at(af, a + 8 * kk * kLdT + 16 * rw, kLdT, g, t4);
+    else
+      load_a(af, a + 16 * rw * kLdA + 8 * kk, kLdA, g, t4);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = 64 * cw + 8 * n;
+      Tf32 bf[2];
+      if (kBCols)
+        load_bt(bf, b + col * kLdA + 8 * kk, kLdA, g, t4);
+      else
+        load_b(bf, b + 8 * kk * kLdB + col, kLdB, g, t4);
+      mma3(P[n], af, bf);
+    }
+  }
+}
+
+// How a product's rows see its depths: all of them (the products over hd),
+// or the causal half of the chunk: with kLower the rows 16 rw .. 16 rw + 15
+// (steps t) see the depths (keys s) up to themselves, with kUpper the rows
+// (keys s) see the depths (steps t) from themselves on.
+enum Causal { kAll, kLower, kUpper };
+
+// acc += A B over o's depth, in stages of kK through the double-buffered
+// tiles: each stage's sum on the tensor cores starts from zero and is added
+// to acc in fp32.
+template <bool kADepth, bool kBCols, Causal kCausal>
+__device__ __forceinline__ void product(float (&acc)[8][4], GradSmem& sm,
+                                        const Operands& o, int n_cols,
+                                        int Lc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3, rw = warp & 3, cw = warp >> 2;
+  const int n = o.depth / kK;
+  if (n == 0) return;
+  auto load = [&](int step, int st) {
+    load_stage<kADepth, kBCols>(sm.a[st], sm.b[st], o, step * kK, n_cols);
+    cp_async_commit();
+  };
+  load(0, 0);
+  for (int step = 0; step < n; ++step) {
+    const int st = step & 1;
+    if (step + 1 < n) {
+      load(step + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    int lo = 0, hi = kK / 8;   // the stage's depth steps this warp needs
+    if (kCausal != kAll) {
+      const int k0 = step * kK;
+      hi = min(hi, (Lc - k0 + 7) / 8);   // depths past Lc are zero
+      if (kCausal == kLower) hi = min(hi, (16 * rw + 16 - k0) / 8);
+      if (kCausal == kUpper) lo = max(lo, (16 * rw - k0) / 8);
+    }
+    float P[8][4] = {};
+    mma_stage<kADepth, kBCols>(P, sm.a[st], sm.b[st], lo, hi, rw, cw, g, t4);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] += P[j][i];
+    __syncthreads();   // before the next load overwrites this stage
+  }
+}
+
+__global__ void __launch_bounds__(kGradThreads, 2)
 mlstm_bwd_grad_kernel(const Params p) {
-  __shared__ GradSmem sm;
+  extern __shared__ float4 smem_raw[];
+  GradSmem& sm = *reinterpret_cast<GradSmem*>(smem_raw);
   const int c = blockIdx.x, bh = blockIdx.z;
   const int kind = blockIdx.y / p.nsl, slice = blockIdx.y % p.nsl;
   const int b = bh / p.nh, hh = bh % p.nh;
   const int S = p.S, hd = p.hd, nc = p.nc;
   const int t0 = c * kL, Lc = min(kL, S - t0);
   const int c0 = slice * kSlice, n_cols = min(kSlice, hd - c0);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3, rw = warp & 3, cw = warp >> 2;
   const long row = (long)p.nh * hd, hd2 = (long)hd * hd;
   const long base = ((long)b * S + t0) * row + (long)hh * hd;
   const long cs = (long)bh * nc + c;
@@ -489,105 +680,111 @@ mlstm_bwd_grad_kernel(const Params p) {
   const long out_slot = (long)bh * (nc - 1) + c;
   const float* dCc = p.dCs + out_slot * hd2;
   const float* dnc = p.dns + out_slot * hd;
-  float acc[4][8] = {};
+  // the thread's accumulator entries: rows 16 rw + g + 8 hf, columns
+  // c0 + 64 cw + 8 j + 2 t4 + e at acc[j][2 hf + e]
+  auto col = [&](int j) { return 64 * cw + 8 * j + 2 * t4; };
+  float acc[8][4] = {};
   // the slice's part of a row's dot product with its operand x, written to
   // dst (B nh, nc, nsl, kL); every row is written
   auto row_part = [&](const float* x, float* dst) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = ty + 16 * i;
+    for (int hf = 0; hf < 2; ++hf) {
+      const int t = 16 * rw + g + 8 * hf;
       float s = 0.f;
 #pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (t < Lc && col(j) < n_cols) {
+          const float2 xv = *reinterpret_cast<const float2*>(
+              x + base + t * row + c0 + col(j));
+          s = fmaf(xv.x, acc[j][2 * hf], s);
+          s = fmaf(xv.y, acc[j][2 * hf + 1], s);
+        }
+      s += __shfl_xor_sync(kFull, s, 1);
+      s += __shfl_xor_sync(kFull, s, 2);
+      if (t4 == 0) sm.part[cw][t] = s;
+    }
+    __syncthreads();
+    if (tid < kL)
+      dst[(cs * p.nsl + slice) * kL + tid] = sm.part[0][tid] +
+                                             sm.part[1][tid];
+  };
+  // the rows' scale (w_s for dk and dv)
+  auto scale_rows = [&](const float* w) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float f = w[cs * kL + 16 * rw + g + 8 * hf];
+#pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int col = tx + 16 * j;
-        if (t < Lc && col < n_cols)
-          s = fmaf(x[base + t * row + c0 + col], acc[i][j], s);
+        acc[j][2 * hf] *= f;
+        acc[j][2 * hf + 1] *= f;
       }
-      s = rt::half_warp_sum(s);
-      if (tx == 0) dst[(cs * p.nsl + slice) * kL + t] = s;
     }
   };
 
-  if (kind == 0) {   // dq
+  if (kind == 0) {   // dq: X_t = C_c dh_t over the slice's rows of C_c, then
+                     // + dS k
     const long prev = (long)bh * (nc - 1) + c - 1;
     const float* Cc = c == 0 ? p.C0 + bh * hd2 : p.Cs + prev * hd2;
     const float* n_c = c == 0 ? p.n0 + (long)bh * hd : p.ns + prev * hd;
-    // X_t = C_c dh_t over the slice's rows d of C_c
-    accumulate(acc, sm, hd, [&](int k0) {
-      a_by_rows(sm, p.dh + base, row, k0, Lc);
-      b_by_cols(sm, Cc + (long)c0 * hd, hd, k0, n_cols);
-    });
+    product<false, true, kAll>(
+        acc, sm, {p.dh + base, row, Lc, Cc + (long)c0 * hd, hd, hd, hd},
+        n_cols, Lc);
     row_part(p.q, p.qX);   // q_t . X_t, for de_t
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = ty + 16 * i;
-      const float e = p.E[cs * kL + t], er = e * p.R[cs * kL + t],
-                  eda = e * p.DA[cs * kL + t];
+    for (int hf = 0; hf < 2; ++hf) {
+      const long o = cs * kL + 16 * rw + g + 8 * hf;
+      const float e = p.E[o], er = e * p.R[o], eda = e * p.DA[o];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = tx + 16 * j;
-        const float nd = col < n_cols ? n_c[c0 + col] : 0.f;
-        acc[i][j] = fmaf(acc[i][j], er, eda * nd);
-      }
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int cc = col(j) + x;
+          const float nd = cc < n_cols ? n_c[c0 + cc] : 0.f;
+          acc[j][2 * hf + x] = fmaf(acc[j][2 * hf + x], er, eda * nd);
+        }
     }
-    accumulate(acc, sm, kL, [&](int k0) {   // + dS k
-      a_by_rows(sm, dSc, kL, k0, kL);
-      b_by_depth(sm, p.k + base + c0, row, k0, Lc, n_cols);
-    });
-  } else if (kind == 1) {   // dk
-    if (has_dC) {   // dC' v_s + dn'
-      accumulate(acc, sm, hd, [&](int k0) {
-        a_by_rows(sm, p.v + base, row, k0, Lc);
-        b_by_cols(sm, dCc + (long)c0 * hd, hd, k0, n_cols);
-      });
+    product<false, false, kLower>(
+        acc, sm, {dSc, kL, kL, p.k + base + c0, row, Lc, kL}, n_cols, Lc);
+  } else if (kind == 1) {   // dk: w_s (dC' v_s + dn'), then + dS^T q
+    if (has_dC) {
+      product<false, true, kAll>(
+          acc, sm, {p.v + base, row, Lc, dCc + (long)c0 * hd, hd, hd, hd},
+          n_cols, Lc);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = tx + 16 * j;
-        const float nd = col < n_cols ? dnc[c0 + col] : 0.f;
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += nd;
-      }
+        for (int x = 0; x < 2; ++x) {
+          const int cc = col(j) + x;
+          const float nd = cc < n_cols ? dnc[c0 + cc] : 0.f;
+          acc[j][x] += nd;
+          acc[j][2 + x] += nd;
+        }
     }
     row_part(p.k, p.kG);   // k_s . (dC' v_s + dn'), for dw_s
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float w = p.wS[cs * kL + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] *= w;
+    scale_rows(p.wS);
+    product<true, false, kUpper>(
+        acc, sm, {dSc, kL, kL, p.q + base + c0, row, Lc, kL}, n_cols, Lc);
+  } else {   // dv: w_s dC'^T k_s, then + (W / den)^T dh
+    if (has_dC) {
+      product<false, false, kAll>(
+          acc, sm, {p.k + base, row, Lc, dCc + c0, hd, hd, hd}, n_cols, Lc);
+      scale_rows(p.wS);
     }
-    accumulate(acc, sm, kL, [&](int k0) {   // + dS^T q
-      a_by_depth(sm, dSc, kL, k0);
-      b_by_depth(sm, p.q + base + c0, row, k0, Lc, n_cols);
-    });
-  } else {   // dv
-    if (has_dC) {   // w_s dC'^T k_s
-      accumulate(acc, sm, hd, [&](int k0) {
-        a_by_rows(sm, p.k + base, row, k0, Lc);
-        b_by_depth(sm, dCc + c0, hd, k0, hd, n_cols);
-      });
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float w = p.wS[cs * kL + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] *= w;
-      }
-    }
-    accumulate(acc, sm, kL, [&](int k0) {   // + (W / den)^T dh
-      a_by_depth(sm, p.Wd + cs * kL * kL, kL, k0);
-      b_by_depth(sm, p.dh + base + c0, row, k0, Lc, n_cols);
-    });
+    product<true, false, kUpper>(
+        acc, sm, {p.Wd + cs * kL * kL, kL, kL, p.dh + base + c0, row, Lc, kL},
+        n_cols, Lc);
   }
 
   float* out = kind == 0 ? p.dq : kind == 1 ? p.dk : p.dv;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = ty + 16 * i;
+  for (int hf = 0; hf < 2; ++hf) {
+    const int t = 16 * rw + g + 8 * hf;
     if (t >= Lc) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = tx + 16 * j;
-      if (col < n_cols) out[base + t * row + c0 + col] = acc[i][j];
-    }
+    for (int j = 0; j < 8; ++j)
+      if (col(j) < n_cols)
+        *reinterpret_cast<float2*>(out + base + t * row + c0 + col(j)) =
+            make_float2(acc[j][2 * hf], acc[j][2 * hf + 1]);
   }
 }
 
@@ -640,6 +837,31 @@ __global__ void __launch_bounds__(kL) mlstm_bwd_gate_kernel(const Params p) {
     p.dli[g] = col + dlw;
     p.dlf[g] = (float)acc;
   }
+}
+
+// Allows the three kernels with products their dynamic shared memory on the
+// current device. The attribute holds for the device's context, so this is
+// done once a device.
+cudaError_t allow_smem() {
+  constexpr int kMaxDevices = 64;
+  static bool done[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(mlstm_bwd_weight_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sizeof(WeightSmem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(mlstm_bwd_state_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sizeof(StateSmem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(mlstm_bwd_grad_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sizeof(GradSmem));
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
 }
 
 // The workspace, cut into parts in this order, each a multiple of 4 floats
@@ -697,8 +919,9 @@ extern "C" long long mlstm_chunk_bwd_workspace_floats(int B, int S, int nh,
 // entering the scan; Cs (B nh, nc-1, hd, hd), ns (B nh, nc-1, hd), ms (B nh,
 // nc-1): the states entering chunks 1 .. nc-1 of 64 steps, as mlstm_chunk_fwd
 // leaves them in its workspace (unread when nc = 1). Contiguous fp32 device
-// memory, 4-byte aligned, the outputs apart from the inputs. ws: ws_floats
-// floats of device memory, 16-byte aligned, apart from the rest; at least
+// memory, the outputs apart from the inputs; q, k, v, h, dh, C0, Cs and the
+// outputs dq, dk, dv 16-byte aligned, the rest 4-byte. ws: ws_floats floats
+// of device memory, 16-byte aligned, apart from the rest; at least
 // mlstm_chunk_bwd_workspace_floats(B, S, nh, hd) of them, else it launches
 // nothing and returns cudaErrorInvalidValue. S >= 1; hd a multiple of 32 up
 // to 512. Launches the four passes on the stream, in order. Returns a
@@ -735,17 +958,18 @@ extern "C" int mlstm_chunk_bwd(
   set_shape(prm, S, nh, hd);
   if (cut_workspace(prm, static_cast<float*>(ws), B) > ws_floats)
     return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem();
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = B * nh;
-  cudaError_t err;
-  mlstm_bwd_weight_kernel<<<dim3(kL / kRows, prm.nc, bh), kWeightThreads, 0,
-                            s>>>(prm);
+  mlstm_bwd_weight_kernel<<<dim3(kL / kRows, prm.nc, bh), kWeightThreads,
+                            sizeof(WeightSmem), s>>>(prm);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  mlstm_bwd_state_kernel<<<dim3(prm.nt * prm.nt, bh), kStateThreads, 0, s>>>(
-      prm);
+  mlstm_bwd_state_kernel<<<dim3(prm.nt * prm.nt, bh), kStateThreads,
+                           sizeof(StateSmem), s>>>(prm);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  mlstm_bwd_grad_kernel<<<dim3(prm.nc, 3 * prm.nsl, bh), kGradThreads, 0,
-                          s>>>(prm);
+  mlstm_bwd_grad_kernel<<<dim3(prm.nc, 3 * prm.nsl, bh), kGradThreads,
+                          sizeof(GradSmem), s>>>(prm);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   mlstm_bwd_gate_kernel<<<dim3(prm.nc, bh), kL, 0, s>>>(prm);
   return (int)cudaGetLastError();

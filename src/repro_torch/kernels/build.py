@@ -6,10 +6,13 @@ checkout (listed in ``.gitignore``). A library's file name carries a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one is
 loaded as built. ``build_all`` starts one ``nvcc`` per source, all at once.
 ``nvcc -Xptxas -v`` writes each kernel's registers and shared memory to a
-``.log`` beside its library.
+``.log`` beside its library. ``using`` has the wrappers call the libraries
+built from another ``csrc`` directory, such as a parent commit's, for a
+comparison in one process.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -42,24 +45,24 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, csrc: Path = CSRC) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for src in sorted(csrc.glob("*.cuh")) + [csrc / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: tuple = SOURCES) -> List[Path]:
-    """Compile every library that is not built yet, concurrently; raise with
-    the compiler's output if any build fails."""
+def build_all(names: tuple = SOURCES, csrc: Path = CSRC) -> List[Path]:
+    """Compile every library of ``csrc`` that is not built yet,
+    concurrently; raise with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = [(n, library_path(n)) for n in names
-            if not library_path(n).exists()]
+    todo = [(n, library_path(n, csrc)) for n in names
+            if not library_path(n, csrc).exists()]
     procs = []
     for name, lib in todo:
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
         procs.append((lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -74,7 +77,7 @@ def build_all(names: tuple = SOURCES) -> List[Path]:
         os.replace(tmp, lib)   # atomic: a concurrent loader sees all or none
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return [library_path(n) for n in names]
+    return [library_path(n, csrc) for n in names]
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -83,6 +86,23 @@ def load(name: str) -> ctypes.CDLL:
         build_all((name,))
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+@contextlib.contextmanager
+def using(csrc: Path, names: tuple):
+    """Inside the block, ``load`` returns the libraries built from
+    ``csrc`` (a directory laid out as ``csrc/``) for ``names``."""
+    paths = build_all(names, csrc)
+    saved = {n: _loaded.get(n) for n in names}
+    _loaded.update({n: ctypes.CDLL(str(p)) for n, p in zip(names, paths)})
+    try:
+        yield
+    finally:
+        for n, lib in saved.items():
+            if lib is None:
+                _loaded.pop(n, None)
+            else:
+                _loaded[n] = lib
 
 
 def check_operands(align: int = 16, **tensors) -> None:

@@ -4,7 +4,8 @@ autograd function that joins them.
 
 ``mlstm_chunk_cuda.launches`` counts the forward wrapper's calls that
 launched the kernel (each call launches its three passes),
-``mlstm_chunk_bwd_cuda.launches`` the backward's (four passes each).
+``mlstm_chunk_bwd_cuda.launches`` the backward's (four passes each, the
+three with products on the tensor cores in split TF32).
 """
 from __future__ import annotations
 
@@ -45,9 +46,15 @@ def plan(B: int, S: int, nh: int, hd: int) -> dict:
 
 def plan_bwd(B: int, S: int, nh: int, hd: int) -> dict:
     """The launches of one backward call, as ``mlstm_chunk_bwd`` makes them
-    (the tiling of csrc/mlstm_chunk_bwd.cu): the blocks of each pass, and
-    the workspace (floats of each part, in its order, and bytes in all);
-    the wrapper sizes it by ``mlstm_chunk_bwd_workspace_floats``."""
+    (the tiling of csrc/mlstm_chunk_bwd.cu): the blocks and threads of each
+    pass, and the workspace (floats of each part, in its order, and bytes in
+    all); the wrapper sizes it by ``mlstm_chunk_bwd_workspace_floats``.
+
+    At xLSTM-350M's training shape (B=1, S=4096, nh=4, hd=512) every pass
+    with products runs at least 256 blocks, two a streaming multiprocessor
+    on an H100's 132 for the state pass (its 64 x 64 tiles of dC' walk the
+    chunks in order, so it cannot be cut finer along S). The gate pass (no
+    products, one thread a step) runs one block a chunk and head."""
     L = KERNEL_CHUNK
     nc = -(-S // L)
     nt = -(-hd // STATE_TILE)
@@ -55,6 +62,7 @@ def plan_bwd(B: int, S: int, nh: int, hd: int) -> dict:
     bh = B * nh
     blocks = {"weight": L // WEIGHT_ROWS * nc * bh, "state": nt * nt * bh,
               "grad": nc * 3 * nsl * bh, "gate": nc * bh}
+    threads = {"weight": 128, "state": 256, "grad": 256, "gate": L}
     chunk = bh * nc * L
     parts = {"dC": bh * (nc - 1) * hd * hd, "dS": chunk * L,
              "W/den": chunk * L, "dD": chunk * L, "dn": bh * (nc - 1) * hd,
@@ -62,7 +70,8 @@ def plan_bwd(B: int, S: int, nh: int, hd: int) -> dict:
              "w": chunk, "qX": chunk * nsl, "kG": chunk * nsl,
              "dscale": bh * nc * nt * nt, "scale": bh * nc}
     return {"chunks": nc, "launches": len(blocks), "blocks": blocks,
-            "workspace": parts, "workspace_bytes": 4 * sum(parts.values())}
+            "threads": threads, "workspace": parts,
+            "workspace_bytes": 4 * sum(parts.values())}
 
 
 def forward_states(ws, B: int, S: int, nh: int, hd: int) -> tuple:
@@ -162,10 +171,12 @@ def mlstm_chunk_bwd_cuda(q, k, v, log_i, log_f, state, h, dh, states):
     log_i, log_f and ``state`` = (C, n, m) entering the scan, its output h,
     the cotangent dh (B, S, nh, hd), and ``states``, the states entering
     chunks 1 .. nc-1 that the forward left in its workspace
-    (``forward_states``); contiguous fp32 CUDA tensors, 4-byte aligned.
-    Returns (dq, dk, dv, dlog_i, dlog_f). The state leaving the scan takes
-    no gradient and the state entering it gets none. Raises as
-    ``mlstm_chunk_cuda``."""
+    (``forward_states``); contiguous fp32 CUDA tensors. Returns (dq, dk,
+    dv, dlog_i, dlog_f). The state leaving the scan takes no gradient and
+    the state entering it gets none. Raises as ``mlstm_chunk_cuda``. The
+    kernel copies q, k, v, h, dh, C and the chunks' states in 16-byte
+    pieces; one that does not start on 16 bytes is copied to new memory
+    first."""
     C, n, m = state
     B, S, nh, hd = _check_shapes(q, k, v, log_i, log_f, C, n, m, h=h, dh=dh)
     Cs, ns, ms = states
@@ -177,6 +188,8 @@ def mlstm_chunk_bwd_cuda(q, k, v, log_i, log_f, state, h, dh, states):
             raise ValueError(f"{name} {tuple(t.shape)}, expected {shape}")
     build.check_operands(q=q, k=k, v=v, log_i=log_i, log_f=log_f, h=h, dh=dh,
                          C=C, n=n, m=m, Cs=Cs, ns=ns, ms=ms, align=4)
+    q, k, v, h, dh, C, Cs = (t if t.data_ptr() % 16 == 0 else t.clone()
+                             for t in (q, k, v, h, dh, C, Cs))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dli, dlf = torch.empty_like(log_i), torch.empty_like(log_f)
     lib, fn = _bwd_entry()

@@ -798,3 +798,33 @@ def test_mlstm_chunk_autograd_refuses_the_state(cuda):
         torch.autograd.grad(h.sum() + C.sum(), ins)
     with pytest.raises(RuntimeError, match="no gradient"):
         MLSTMChunk.apply(*ins, state[0].clone().requires_grad_(), *state[1:])
+
+
+def test_mlstm_chunk_backward_takes_4_byte_aligned_operands(cuda):
+    """The backward moves q, k, v, h, dh, C and the chunks' states in
+    16-byte pieces; the wrapper copies an operand that starts 4 bytes past
+    that first. The result is the same bits as from aligned operands, and
+    two calls give the same bits (no atomics)."""
+    from repro_torch.kernels.mlstm_chunk.kernel import (forward_states,
+                                                        mlstm_chunk_bwd_cuda)
+    B, S, nh, hd = 1, 300, 2, 64
+    (q, k, v, li, lf), state = make_inputs(cuda, B, S, nh, hd, True)
+    dh = torch.randn(q.shape, generator=cuda, device="cuda")
+    h, _, ws = mlstm_chunk_cuda(q, k, v, li, lf, *state, keep_workspace=True)
+    states = forward_states(ws, B, S, nh, hd)
+
+    def shifted(t):   # the same values, 4 bytes into a larger buffer
+        buf = torch.empty(t.numel() + 1, device="cuda")
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16
+        return out
+    want = mlstm_chunk_bwd_cuda(q, k, v, li, lf, state, h, dh, states)
+    again = mlstm_chunk_bwd_cuda(q, k, v, li, lf, state, h, dh, states)
+    got = mlstm_chunk_bwd_cuda(
+        shifted(q), shifted(k), shifted(v), li, lf,
+        (shifted(state[0]), *state[1:]), shifted(h), shifted(dh),
+        (shifted(states[0]), *states[1:]))
+    torch.cuda.synchronize()
+    for ours, other, theirs in zip(got, again, want):
+        assert torch.equal(ours, theirs) and torch.equal(other, theirs)

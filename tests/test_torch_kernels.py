@@ -238,6 +238,23 @@ def test_check_operands_refuses_autograd():
         build.check_operands(q=y, k=x.detach())
 
 
+def test_library_path_keys_each_csrc(tmp_path):
+    """A library's path hashes its source and the headers of the csrc
+    directory it is built from: a copy of ``csrc/`` maps to the checkout's
+    library, a copy with one header changed to another, so that
+    ``build.using`` loads another commit's libraries beside these."""
+    import shutil
+
+    from repro_torch.kernels import build
+    copy = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, copy)
+    for name in build.SOURCES:
+        assert build.library_path(name, copy) == build.library_path(name)
+    (copy / "tf32.cuh").write_text((copy / "tf32.cuh").read_text() + "\n")
+    assert build.library_path("mlstm_chunk", copy) != \
+        build.library_path("mlstm_chunk")
+
+
 @pytest.mark.parametrize("dtype,Hq,hd,match", [
     (torch.bfloat16, 17, 128, "1 to 16"),        # the bf16 kernel: G <= 16
     (torch.bfloat16, 12, 12, "multiple of 8"),   # 16-byte copies of rows

@@ -47,25 +47,22 @@ def split_mm(a, b):
     return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
 
 
-def three_passes(q, k, v, log_i, log_f, state, mm=split_mm):
-    """The kernel's three passes, each product formed by ``mm``; same
-    arguments and result as ``mlstm_chunk_ref``."""
-    B, S, nh, hd = q.shape
+def chunks(a, fill=0.0):
+    """(B, S, nh, ...) -> (nc, B, nh, L, ...), S padded to whole chunks of
+    the kernel's L steps with ``fill``."""
+    B, S = a.shape[:2]
     nc = -(-S // L)
-    pad = nc * L - S
+    a = torch.cat([a, a.new_full((B, nc * L - S, *a.shape[2:]), fill)], 1)
+    return a.reshape(B, nc, L, *a.shape[2:]).movedim(3, 2).movedim(1, 0)
 
-    def chunks(a, fill=0.0):   # (B, S, nh, ...) -> (nc, B, nh, L, ...)
-        a = torch.cat([a, a.new_full((B, pad, *a.shape[2:]), fill)], 1)
-        return a.reshape(B, nc, L, *a.shape[2:]).movedim(3, 2).movedim(1, 0)
-    qc, kc, vc = chunks(q), chunks(k), chunks(v)
-    lic, lfc = chunks(log_i, NEG), chunks(log_f)   # past S: no input, no decay
-    F = torch.cumsum(lfc.double(), -1)   # gate sums in fp64, as the kernel's
+
+def state_pass(kc, vc, lic, F, state, mm=split_mm):
+    """The forward's state pass over chunked k, v, log_i and the fp64 gate
+    sums F: the state entering each chunk, and the state after the last."""
     FL = F[..., -1]
-
-    # 1. state pass: the state entering each chunk
     C, n, m = state
     entering = []
-    for c in range(nc):
+    for c in range(kc.shape[0]):
         entering.append((C, n, m))
         log_w = (FL[c][..., None] - F[c] + lic[c]).float()
         m_FL = m.double() + FL[c]
@@ -75,6 +72,20 @@ def three_passes(q, k, v, log_i, log_f, state, mm=split_mm):
         C = C * scale[..., None, None] + mm(kw.transpose(-1, -2), vc[c])
         n = n * scale[..., None] + kw.sum(-2)
         m = m_next
+    return entering, (C, n, m)
+
+
+def three_passes(q, k, v, log_i, log_f, state, mm=split_mm):
+    """The kernel's three passes, each product formed by ``mm``; same
+    arguments and result as ``mlstm_chunk_ref``."""
+    B, S, nh, hd = q.shape
+    nc = -(-S // L)
+    qc, kc, vc = chunks(q), chunks(k), chunks(v)
+    lic, lfc = chunks(log_i, NEG), chunks(log_f)   # past S: no input, no decay
+    F = torch.cumsum(lfc.double(), -1)   # gate sums in fp64, as the kernel's
+
+    # 1. state pass: the state entering each chunk
+    entering, (C, n, m) = state_pass(kc, vc, lic, F, state, mm)
 
     # 2. weight pass: q k^T once per chunk, W, e and the denominators
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
