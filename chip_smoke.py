@@ -75,9 +75,14 @@ its own lines; any failure exits non-zero without the result line:
    case also writes L, which must be within 1e-5 max(1, |L|) of the plain
    L, with its output bitwise equal to the output without L, and is timed
    both ways; B3's
-   (the scan kernel on reversed time, then the elementwise products) at
-   B=1 S=4096 W=2560, with the reverse scan's share and the elementwise
-   share; B4's (``mlstm_chunk_bwd.cu``, four launches, three of them on
+   (one launch of its own kernel in ``rglru_scan.cu``, scanning from the
+   sequence's end) at B=1 S=4096 W=2560, beside the route it replaced
+   (the forward kernel on flipped inputs, then torch's products) timed in
+   turns on the same inputs, with the kernels one call launches (by
+   ``torch.profiler``; the phase fails unless that is one launch of the
+   backward kernel and nothing else), its registers and spills
+   (``ptxas``), its workspace bytes and its bound at 20 bytes an element;
+   B4's (``mlstm_chunk_bwd.cu``, four launches, three of them on
    ``mma.sync`` in split TF32) against the plain backward evaluated in
    fp64 at xLSTM-350M's training shape (B=1 S=4096 nh=4 hd=512, fresh
    state; the forward there too) and a ragged multi-chunk case from a
@@ -157,6 +162,19 @@ DIR, another commit's ``src/repro_torch/csrc`` (``git archive <commit>
 src/repro_torch/csrc | tar -x -C build/parent`` gives DIR =
 ``build/parent/src/repro_torch/csrc``), against this checkout's
 (``ab_mlstm``).
+
+    python3 chip_smoke.py --ab-scan DIR
+
+likewise holds B3's forward built from DIR against this checkout's: its
+registers, its outputs against the plain version and its times in turns
+(``ab_scan``).
+
+    python3 chip_smoke.py --profile-check N
+
+runs none of the phases either: it profiles B1's fp32 backward and B3's
+backward N times each as phase 2 profiles them, with and without the
+host's margin around the call, and counts the sessions that recorded no
+device kernel or the wrong ones (``profile_check``).
 """
 from __future__ import annotations
 
@@ -189,6 +207,7 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 BWD_TOL_TEXT = {torch.float32: "1e-4 max|plain|",
                 torch.bfloat16: "2e-2 max|plain|"}
 TRAIN_TOL, UPDATE_TOL = 1e-4, 1e-6
+PROFILE_MARGIN_S = 0.02   # host idle around a profiled call (_device_kernels)
 LSE_TOL = 1e-5     # B1's L against the plain L, of max(1, |L|)
 # the reduced archs whose training step is held against the CPU
 TRAIN_ARCHS = ("llama3.1-8b", "qwen1.5-4b", "starcoder2-15b",
@@ -203,10 +222,12 @@ XLSTM_TRAIN_STEPS = 3
 # matches); the rest is "other"
 B1_BWD_KERNELS = r"bwd_(?:dq|dkdv|reduce)_sm90|bwd_(?:delta|dkdv|dq)_kernel"
 B4_BWD_KERNELS = r"mlstm_bwd_(?:weight|state|grad|gate)_kernel"
+B3_KERNELS = r"rglru_scan(?:_bwd)?_kernel"
 DEVICE_KINDS = (("B4 backward", r"mlstm_bwd_"),
                 ("B4", r"mlstm_(state|weight|output)_kernel"),
                 ("B1 backward", B1_BWD_KERNELS),
                 ("B1 forward", r"flash_fwd"),
+                ("B3 backward", r"rglru_scan_bwd"),
                 ("B3", r"rglru"),
                 ("GEMM", r"nvjet|gemm|cutlass|xmma|sm90_"),
                 ("reductions", r"reduce|softmax|logsumexp|norm"),
@@ -350,7 +371,11 @@ def phase_environment(report: dict) -> str:
                      "b1_backward_registers":
                      ptxas_registers("flash_attention_bwd"),
                      "b4_backward_registers":
-                     ptxas_registers("mlstm_chunk_bwd", B4_BWD_KERNELS)}
+                     ptxas_registers("mlstm_chunk_bwd", B4_BWD_KERNELS),
+                     "b3_registers": ptxas_registers("rglru_scan",
+                                                     B3_KERNELS)}
+    log(f"[env] rglru_scan (registers, spill store bytes) by ptxas: "
+        f"{report['env']['b3_registers']}")
     return smi
 
 
@@ -557,8 +582,7 @@ def _scan_case(B: int, S: int, W: int, gen, model_gates: bool = False,
                 f"rglru_scan {shape}: the profiler saw (launches, device "
                 f"ms) {kernels} in one call, not one launch of the scan "
                 "kernel and nothing else")
-        lib, _ = _entry()
-        ws_bytes = 4 * lib.rglru_scan_workspace_floats(B, S, W)
+        ws_bytes = 4 * _entry()[0].rglru_scan_workspace_floats(B, S, W)
         release_workspaces()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -611,11 +635,16 @@ def _scan_serve(gen) -> dict:
             "serve_ms": total, "serve_bound_ms": bound}
 
 
-def _device_kernels(fn) -> dict:
+def _device_kernels(fn, margin_s: float = PROFILE_MARGIN_S) -> dict:
     """(launches, device ms) of each device kernel in one call of fn, by
     torch.profiler (empty where it records no device activity). A first
     call under the profiler warms it up and is not recorded: the profiler
-    can lose the first kernel it sees."""
+    can lose the first kernel it sees. The host idles ``margin_s`` before
+    each call and after the card has finished it, so that the call's
+    kernels lie inside the recorded window and not at its edges: on an
+    H100, without the margin 17 of 800 sessions recorded none of a call's
+    kernels and 2 only some of them, about one every 60 sessions; with it,
+    none of 800 (``--profile-check 400``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     got = {}
@@ -629,8 +658,10 @@ def _device_kernels(fn) -> dict:
                  schedule=schedule(wait=0, warmup=1, active=1),
                  on_trace_ready=ready) as prof:
         for _ in range(2):
+            time.sleep(margin_s)
             fn()
             torch.cuda.synchronize()
+            time.sleep(margin_s)
             prof.step()
     return got
 
@@ -917,16 +948,23 @@ def _flash_bwd_case(Sq: int, Skv: int, heads, dtype, gen, causal=True,
 
 
 def _scan_bwd_case(B: int, S: int, W: int, gen) -> dict:
-    """B3's backward (the scan kernel on reversed time, then the
-    elementwise products) against its plain version, the gates as the
-    model draws them; its time, the reverse scan's alone and the
-    elementwise share, and the bound: the reverse scan's bytes (log_a' and
-    dy' read, g written) over the memory rate."""
-    from repro_torch.kernels.rglru_scan.kernel import (_scan,
-                                                       reverse_scan_inputs,
+    """B3's backward, one launch of ``rglru_scan_bwd`` (csrc/rglru_scan.cu),
+    against its plain version, the gates as the model draws them; in the
+    same call and on the same inputs the route it replaced (the forward
+    kernel on the flipped inputs, then the products as torch ops, from
+    ref.py's pieces), both within 1e-4 of max |plain| and timed in turns
+    (replaced, kernel, kernel, replaced); the device kernels one call
+    launches (by torch.profiler: it fails unless that is one launch of the
+    backward kernel and nothing else), the kernel's registers and spills
+    (ptxas), the workspace bytes, and the bound: log_a, dy and y read once,
+    d log_a and dx written once, 20 bytes an element (h0 read and dh0
+    written beside them), over the memory rate."""
+    from repro_torch.kernels.rglru_scan.kernel import (_entry,
                                                        rglru_scan_bwd_cuda,
                                                        rglru_scan_cuda)
-    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
+    from repro_torch.kernels.rglru_scan.ref import (bwd_products,
+                                                    reverse_scan_inputs,
+                                                    rglru_scan_bwd_ref)
     la, x = _model_gates(gen, B, S, W)
     h0 = torch.randn((B, W), generator=gen, device="cuda")
     dy = torch.randn((B, S, W), generator=gen, device="cuda")
@@ -935,22 +973,58 @@ def _scan_bwd_case(B: int, S: int, W: int, gen) -> dict:
     def kern():
         return rglru_scan_bwd_cuda(la, h0, y, dy)
 
+    def replaced():
+        g = torch.flip(rglru_scan_cuda(*reverse_scan_inputs(la, dy)), (1,))
+        return bwd_products(la, h0, y, g)
+
     def plain():
         return rglru_scan_bwd_ref(la, h0, y, dy)
-    got, want = kern(), plain()
-    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
-    rel = [e / float(w.abs().max()) for e, w in zip(errs, want)]
-    rev = reverse_scan_inputs(la, dy)
-    ms = cuda_ms(kern, 20)
-    scan_ms = cuda_ms(lambda: _scan(*rev), 20)
-    b_ms, b_by = bound_ms(4.0 * 3 * B * S * W, 2.0 * B * S * W,
+    want = plain()
+    routes = {"kernel": kern, "replaced": replaced}
+    errs, rel = {}, {}
+    for tag, fn in routes.items():
+        got = fn()
+        errs[tag] = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        rel[tag] = [e / float(w.abs().max())
+                    for e, w in zip(errs[tag], want)]
+    del got, want
+    shape = f"B={B} S={S} W={W} model gates"
+    kernels = _device_kernels(kern)
+    bwd = [n for k, (n, _) in kernels.items() if "rglru_scan_bwd" in k]
+    if bwd != [1] or sum(n for n, _ in kernels.values()) != 1:
+        raise RuntimeError(
+            f"rglru_scan_bwd {shape}: the profiler saw (launches, device "
+            f"ms) {kernels} in one call, not one launch of the backward "
+            "kernel and nothing else")
+    regs = {k: v for k, v in ptxas_registers("rglru_scan", B3_KERNELS).items()
+            if "bwd" in k}
+    ws_bytes = 4 * _entry()[0].rglru_scan_workspace_floats(B, S, W)
+    times = {tag: [] for tag in routes}
+    for tag in ("replaced", "kernel", "kernel", "replaced"):
+        times[tag].append(cuda_ms(routes[tag], 20))
+    elements = B * S * W
+    b_ms, b_by = bound_ms(4.0 * (5 * elements + 2 * B * W), 4.0 * elements,
                           torch.float32)
-    return {"shape": f"B={B} S={S} W={W} model gates",
-            "dtype": str(torch.float32), "err": max(errs), "rel_err": rel,
-            "ok": max(rel) <= BWD_TOL[torch.float32], "ms": ms,
-            "reverse_scan_ms": scan_ms, "elementwise_ms": ms - scan_ms,
-            "plain_ms": cuda_ms(plain, 3), "library_ms": None,
-            "bound_ms": b_ms, "bound_by": b_by}
+    ms = float(np.mean(times["kernel"]))
+    log(f"[kernel] rglru_scan_bwd {shape}: one call launches, by the "
+        f"profiler (launches, device ms): {kernels}; (registers, spill "
+        f"store bytes) by ptxas: {regs}; workspace {ws_bytes} bytes; "
+        f"of max |plain|: kernel {rel['kernel']}, replaced route "
+        f"{rel['replaced']}; ms in turns: kernel {times['kernel']}, "
+        f"replaced route (forward kernel on flipped inputs + torch "
+        f"products) {times['replaced']}; bound {b_ms:.4f} ms (20 bytes an "
+        f"element, {b_by}), the kernel at {ms / b_ms:.2f}x")
+    return {"shape": shape, "dtype": str(torch.float32),
+            "err": max(errs["kernel"]), "rel_err": rel["kernel"],
+            "replaced_rel_err": rel["replaced"],
+            "ok": max(rel["kernel"] + rel["replaced"]) <=
+            BWD_TOL[torch.float32],
+            "ms": ms, "ms_turns": times["kernel"],
+            "replaced_ms": float(np.mean(times["replaced"])),
+            "replaced_ms_turns": times["replaced"],
+            "launches_per_call": kernels, "registers": regs,
+            "workspace_bytes": ws_bytes, "plain_ms": cuda_ms(plain, 3),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def phase_kernels(report: dict) -> dict:
@@ -1062,10 +1136,9 @@ def phase_kernels(report: dict) -> dict:
         _mlstm_bwd_case(2, 300, 2, 256, True, gen)]
     main["mlstm_chunk_bwd"] = cases["mlstm_chunk_bwd"][0]
     log(f"[kernel] rglru_scan_bwd B=1 S=4096 W=2560: "
-        f"{main['rglru_scan_bwd']['ms']:.4f} ms, of which the reverse scan "
-        f"{main['rglru_scan_bwd']['reverse_scan_ms']:.4f} ms and the "
-        f"flips and elementwise products "
-        f"{main['rglru_scan_bwd']['elementwise_ms']:.4f} ms")
+        f"{main['rglru_scan_bwd']['ms']:.4f} ms in one launch; the route it "
+        f"replaced (reverse scan, flips and products) "
+        f"{main['rglru_scan_bwd']['replaced_ms']:.4f} ms in the same call")
     tols = {"rglru_scan": SCAN_TOL,
             "mlstm_chunk": f"{MLSTM_TOL}, state {MLSTM_STATE_TOL}",
             "rglru_scan_bwd": "1e-4 max|plain|",
@@ -1209,6 +1282,128 @@ def ab_mlstm(parent: Path) -> int:
         log(f"[ab] backward {shape}: ms {in_turns(bwd, 10)}")
     log(f"[ab] {'failed: ' + str(failed) if failed else 'ok'}")
     return 1 if failed else 0
+
+
+# ---------------------------------------------------------------------------
+# B3 against another commit's (--ab-scan)
+# ---------------------------------------------------------------------------
+
+AB_SCAN_CASES = ((1, 3000, 2560), (1, 206, 2560), (1, 3450, 2560),
+                 (1, TRAIN_SEQ, 2560))
+
+
+def ab_scan(parent: Path) -> int:
+    """B3's forward built from ``parent`` (a ``csrc`` directory) and from
+    this checkout's, called through the same wrapper on the same seeded
+    inputs (the gates as the model draws them): each library's kernels'
+    registers and spills; each output against the plain version (within
+    1e-4; the look-back makes the last bits differ from call to call) at
+    the hybrid's prefill shape, the serve's shortest and longest prompts
+    and the training shape; and the times in turns (parent, change, change,
+    parent), so that both see the same card. Returns 1 if an output is
+    off."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    names = ("rglru_scan",)
+    sides = {"parent": parent.resolve(), "change": build.CSRC}
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip())
+    for tag, csrc in sides.items():
+        build.build_all(names, csrc)
+        log(f"[ab] {tag} rglru_scan: (registers, spill store bytes) "
+            f"{ptxas_registers('rglru_scan', B3_KERNELS, csrc)}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    failed = []
+    for B, S, W in AB_SCAN_CASES:
+        shape = f"B={B} S={S} W={W} model gates"
+        la, x = _model_gates(gen, B, S, W)
+        h0 = torch.randn((B, W), generator=gen, device="cuda")
+        want = rglru_scan_ref(la, x, h0)
+
+        def fwd():
+            return rglru_scan_cuda(la, x, h0)
+        errs = {}
+        for tag, csrc in sides.items():
+            with build.using(csrc, names):
+                errs[tag] = float((fwd() - want).abs().max())
+        times = {tag: [] for tag in sides}
+        for tag in ("parent", "change", "change", "parent"):
+            with build.using(sides[tag], names):
+                times[tag].append(cuda_ms(fwd, 50))
+        log(f"[ab] forward {shape}: max |kernel - plain| {errs}; ms {times}")
+        if max(errs.values()) >= SCAN_TOL:
+            failed.append(shape)
+    log(f"[ab] {'failed: ' + str(failed) if failed else 'ok'}")
+    return 1 if failed else 0
+
+
+def profile_check(n: int) -> int:
+    """The launch checks' profiler (``_device_kernels``) on two calls, B1's
+    fp32 backward at phase 2's ragged shape (three kernels a call) and B3's
+    backward at its training shape (one): n sessions each with no host
+    margin and with the smoke's, in turns, each session followed by a
+    ``cuda_ms`` of the call as in phase 2. Prints, for each margin, the
+    sessions that recorded no device kernel and those that recorded other
+    kernels. Returns 1 if any session with the smoke's margin was empty or
+    wrong."""
+    import os
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda, plan_bwd)
+    from repro_torch.kernels.rglru_scan.kernel import (rglru_scan_bwd_cuda,
+                                                       rglru_scan_cuda)
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip())
+    log(f"[profile] torch {torch.__version__}; TEARDOWN_CUPTI="
+        f"{os.environ.get('TEARDOWN_CUPTI')}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    HQ, KV, HD = 16, 4, 128
+    q, do = (torch.randn((1, 1000, HQ, HD), generator=gen, device="cuda")
+             for _ in range(2))
+    k, v = (torch.randn((1, 1000, KV, HD), generator=gen, device="cuda")
+            for _ in range(2))
+    lse = torch.empty((1, HQ, 1000), device="cuda")
+    o = flash_attention_cuda(q, k, v, causal=True, window=256, lse=lse)
+    la, x = _model_gates(gen, 1, 4096, 2560)
+    h0 = torch.randn((1, 2560), generator=gen, device="cuda")
+    dy = torch.randn_like(x)
+    y = rglru_scan_cuda(la, x, h0)
+    calls = {
+        "flash_attention_bwd fp32": (
+            lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                             causal=True, window=256),
+            B1_BWD_KERNELS,
+            plan_bwd(1, 1000, 1000, HQ, KV, HD, torch.float32)["launches"]),
+        "rglru_scan_bwd": (lambda: rglru_scan_bwd_cuda(la, h0, y, dy),
+                           "rglru_scan_bwd", 1)}
+    bad = 0
+    t0 = time.perf_counter()
+    margins = (0.0, PROFILE_MARGIN_S)
+    for what, (fn, pattern, want) in calls.items():
+        empty = {m: [] for m in margins}
+        wrong = {m: [] for m in margins}
+        for i in range(n):
+            for margin in margins:   # in turns: the losses come in runs
+                kernels = _device_kernels(fn, margin)
+                hits = [c for name, (c, _) in kernels.items()
+                        if re.search(pattern, name)]
+                if not kernels:
+                    empty[margin].append(i)
+                elif len(hits) != want or set(hits) != {1} or \
+                        sum(c for c, _ in kernels.values()) != want:
+                    wrong[margin].append((i, kernels))
+                cuda_ms(fn, 5)
+        for margin in margins:
+            log(f"[profile] {what}, margin {margin} s: {n} sessions, "
+                f"{len(empty[margin])} saw no device kernel "
+                f"{empty[margin][:20]}, {len(wrong[margin])} saw others "
+                f"{wrong[margin][:3]}")
+        bad += len(empty[PROFILE_MARGIN_S]) + len(wrong[PROFILE_MARGIN_S])
+    log(f"[profile] {time.perf_counter() - t0:.1f} s; the smoke's margin "
+        f"({PROFILE_MARGIN_S} s): {'ok' if not bad else 'FAILED'}")
+    return 1 if bad else 0
 
 
 # ---------------------------------------------------------------------------
@@ -1709,8 +1904,14 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
     if sys.argv[1:2] == ["--ab-mlstm"] and len(sys.argv) == 3:
         return ab_mlstm(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--ab-scan"] and len(sys.argv) == 3:
+        return ab_scan(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--profile-check"] and len(sys.argv) == 3:
+        return profile_check(int(sys.argv[2]))
     if sys.argv[1:]:
-        print("usage: chip_smoke.py [--ab-mlstm DIR]", file=sys.stderr)
+        print("usage: chip_smoke.py [--ab-mlstm DIR | --ab-scan DIR | "
+              "--profile-check N]",
+              file=sys.stderr)
         return 2
     report: dict = {}
     smi = phase_environment(report)
@@ -1842,9 +2043,8 @@ def main() -> int:
             row["library_per_slot_ms"] = c["library_per_slot_ms"]
         if c.get("passes"):   # B4's launches, by torch.profiler
             row["passes_ms"] = {k: ms for k, (_, ms) in c["passes"].items()}
-        if "elementwise_ms" in c:   # B3's backward: the scan and the rest
-            row.update(reverse_scan_ms=c["reverse_scan_ms"],
-                       elementwise_ms=c["elementwise_ms"])
+        if "replaced_ms" in c:   # B3's backward: the route it replaced
+            row["replaced_ms"] = c["replaced_ms"]
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(

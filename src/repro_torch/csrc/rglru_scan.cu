@@ -80,7 +80,36 @@
 // B=1 S=206 W=2560 (more than the 132 SMs) and 1,880 at S=3000. Two chunks
 // in registers take 168 a thread, so three blocks fit on an SM (396 on the
 // card); each block works on ~5 tickets at S=3000.
+//
+// The backward (rglru_scan_bwd) is the same design run from the sequence's
+// end, in one launch. It replaces jax.grad of the scan
+// (src/repro/models/rglru.py:114): given log_a, y (the forward's h), dy
+// (B, S, W) and h0 (B, W), with a_t = exp(log_a_t) and the states'
+// gradient g_t = dy_t + a_{t+1} g_{t+1} (g_{S-1} = dy_{S-1}), it writes
+//   dx_t = g_t,  d log_a_t = g_t a_t h_{t-1} (h_{-1} = h0),  dh0 = a_0 g_0.
+// It scans u_t = a_t g_t, the gradient that step t passes to step t - 1:
+//   g_t = dy_t + u_{t+1},  u_t = a_t g_t  (u_S = 0),
+// so d log_a_t = u_t h_{t-1} and dh0 = u_0, and a chunk needs the decays of
+// its own steps only (the recurrence in g needs one step of the next
+// chunk's). Ticket k takes chunk n_chunks - 1 - (k / n_tiles % n_chunks):
+// a chunk waits only on chunks of higher index, which hold smaller tickets,
+// so the argument above holds. A chunk's aggregate is (A = sum of its
+// log_a, e = its u_{t0} from u = 0), u_{t0} = exp(A) u_{t0+n} + e, composed
+// as the forward's; the last chunk starts from u = 0 and publishes no
+// aggregate, and a chunk's inclusive prefix is its u_{t0}. The rescan
+// writes dx and d log_a, and chunk 0 writes dh0.
+//
+// What bounds the backward: bytes again. log_a, dy and y are read once and
+// d log_a and dx written once, 20 bytes an element (B=1, S=4096, W=2560:
+// 210 MB, 0.0626 ms at 3.35 TB/s). A chunk of three inputs is 96 floats a
+// thread; two in registers would not fit three blocks an SM, so the next
+// chunk is staged in shared memory by cp.async (48 KB a block: three
+// blocks take 144 KB of an SM's 228) while the current one, in registers,
+// goes through its look-back and rescan. Each thread copies and reads only
+// its own channel's column, so a wait on its own copies is all the
+// synchronisation the staging needs.
 #include "common.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -126,11 +155,14 @@ struct Place {
   long long off;
 };
 
+// The backward (kReverse) takes the chunks from the sequence's end.
+template <bool kReverse>
 __device__ __forceinline__ Place place_of(unsigned t, int S, int W,
                                           int n_chunks, int n_tiles) {
   Place p;
   const int tile = static_cast<int>(t % n_tiles);
   p.c = static_cast<int>((t / n_tiles) % n_chunks);
+  if (kReverse) p.c = n_chunks - 1 - p.c;
   p.b = static_cast<int>(t / ((unsigned)n_tiles * n_chunks));
   p.w = tile * kTile + threadIdx.x;
   const int t0 = p.c * kChunk;
@@ -169,28 +201,34 @@ __device__ __forceinline__ void load_chunk(const float* __restrict__ log_a,
   }
 }
 
-// The state entering chunk c > 0 of this thread's channel: the aggregates
-// of the chunks before it composed, nearest first, onto the first
-// inclusive prefix met.
+// The state entering chunk c of this thread's channel (c > 0; in the
+// backward, c < n_chunks - 1): the aggregates of the chunks before it in
+// the scan's direction composed, nearest first, onto the first inclusive
+// prefix met.
+template <bool kReverse>
 __device__ __forceinline__ float look_back(const ulonglong2* mine, int c,
-                                           int W, unsigned aggregate,
+                                           int n_chunks, int W,
+                                           unsigned aggregate,
                                            unsigned inclusive) {
-  float As = 0.f, es = 0.f;   // chunks j+1 .. c-1 composed
+  float As = 0.f, es = 0.f;   // the chunks between j and c composed
   float h = 0.f;
-  int j = c - 1;
+  int j = kReverse ? c + 1 : c - 1;
   bool found = false;
   unsigned idle = 0;   // rounds that found nothing new
   while (!found) {
     ulonglong2 r[kWindow];
 #pragma unroll
-    for (int k = 0; k < kWindow; ++k)
-      r[k] = j - k >= 0 ? load_record(mine - (long long)(c - j + k) * W)
-                        : make_ulonglong2(0ull, 0ull);
+    for (int k = 0; k < kWindow; ++k) {
+      const int jk = kReverse ? j + k : j - k;
+      r[k] = (kReverse ? jk < n_chunks : jk >= 0)
+                 ? load_record(mine + (long long)(jk - c) * W)
+                 : make_ulonglong2(0ull, 0ull);
+    }
     bool stop = false;
     int used = 0;
 #pragma unroll
     for (int k = 0; k < kWindow; ++k) {
-      if (stop || j - k < 0) {
+      if (stop || (kReverse ? j + k >= n_chunks : j - k < 0)) {
         stop = true;
       } else if (tag_of(r[k].y) == inclusive) {
         h = fmaf(expf(As), value_of(r[k].y), es);
@@ -204,7 +242,7 @@ __device__ __forceinline__ float look_back(const ulonglong2* mine, int c,
         stop = true;   // not published yet: read it again
       }
     }
-    j -= used;
+    j += kReverse ? used : -used;
     if (!found && used == 0 && ++idle == kMaxIdle) __trap();
   }
   return h;
@@ -222,7 +260,7 @@ rglru_scan_kernel(const float* __restrict__ log_a,
   const unsigned aggregate = epoch << 1, inclusive = aggregate | 1u;
   float a[kChunk], xs[kChunk];
   unsigned t = take_ticket(ticket, last, &s_ticket);
-  Place p = place_of(t, S, W, n_chunks, n_tiles);
+  Place p = place_of<false>(t, S, W, n_chunks, n_tiles);
   if (t < n_tickets && p.w < W) load_chunk(log_a, x, p, W, a, xs);
   while (t < n_tickets) {
     const bool live = p.w < W;
@@ -238,13 +276,14 @@ rglru_scan_kernel(const float* __restrict__ log_a,
     if (live && p.c > 0) store_aggregate(mine, A, e, aggregate);
     // the next chunk's loads stay in flight through the look-back
     const unsigned tn = take_ticket(ticket, last, &s_ticket);
-    const Place pn = place_of(tn, S, W, n_chunks, n_tiles);
+    const Place pn = place_of<false>(tn, S, W, n_chunks, n_tiles);
     float na[kChunk], nx[kChunk];
     if (tn < n_tickets && pn.w < W) load_chunk(log_a, x, pn, W, na, nx);
     if (live) {
       // 3. the state entering the chunk
       float h = p.c == 0 ? h0[(long long)p.b * W + p.w]
-                         : look_back(mine, p.c, W, aggregate, inclusive);
+                         : look_back<false>(mine, p.c, n_chunks, W,
+                                            aggregate, inclusive);
       // 4. rescan from it, write every state, publish the last
 #pragma unroll
       for (int i = 0; i < kChunk; ++i) {
@@ -263,10 +302,109 @@ rglru_scan_kernel(const float* __restrict__ log_a,
   }
 }
 
-// Blocks of the kernel the current device holds at once, looked up once
-// per device.
-cudaError_t resident_blocks(int* blocks) {
-  static int cached[64] = {};
+// The backward: a chunk of log_a, dy and y (y one step behind: h_{t-1},
+// h0 before step 0) staged in shared memory, rows [0, kChunk) log_a,
+// [kChunk, 2 kChunk) dy, [2 kChunk, 3 kChunk) y, each kTile wide.
+constexpr int kStageRows = 3 * kChunk;
+constexpr int kStageBytes = kStageRows * kTile * 4;   // 48 KB
+
+// This thread's column of a chunk into the stage by cp.async (one group);
+// steps past S, and a channel past W, are zeros.
+__device__ __forceinline__ void stage_chunk(float* stage,
+                                            const float* __restrict__ log_a,
+                                            const float* __restrict__ dy,
+                                            const float* __restrict__ y,
+                                            const float* __restrict__ h0,
+                                            const Place& p, int W) {
+  float* col = stage + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < kChunk; ++i) {
+    const bool in = p.w < W && i < p.n;
+    const long long at = p.off + (long long)i * W;
+    tf32::cp_async4(col + i * kTile, in ? log_a + at : log_a, in);
+    tf32::cp_async4(col + (kChunk + i) * kTile, in ? dy + at : dy, in);
+    const float* prev = i > 0 || p.c > 0 ? y + at - W
+                                         : h0 + (long long)p.b * W + p.w;
+    tf32::cp_async4(col + (2 * kChunk + i) * kTile, in ? prev : y, in);
+  }
+  tf32::cp_async_commit();
+}
+
+__global__ void __launch_bounds__(kTile, kMinBlocks)
+rglru_scan_bwd_kernel(const float* __restrict__ log_a,
+                      const float* __restrict__ h0,
+                      const float* __restrict__ y,
+                      const float* __restrict__ dy,
+                      float* __restrict__ dlog_a, float* __restrict__ dx,
+                      float* __restrict__ dh0, unsigned* __restrict__ ticket,
+                      ulonglong2* __restrict__ records, int S, int W,
+                      int n_chunks, int n_tiles, unsigned n_tickets,
+                      unsigned epoch) {
+  extern __shared__ float stage[];   // kStageBytes
+  __shared__ unsigned s_ticket;
+  const unsigned last = n_tickets + gridDim.x - 1;
+  const unsigned aggregate = epoch << 1, inclusive = aggregate | 1u;
+  unsigned t = take_ticket(ticket, last, &s_ticket);
+  Place p = place_of<true>(t, S, W, n_chunks, n_tiles);
+  if (t < n_tickets) stage_chunk(stage, log_a, dy, y, h0, p, W);
+  while (t < n_tickets) {
+    const bool live = p.w < W;
+    tf32::cp_async_wait<0>();
+    asm volatile("" ::: "memory");   // the stage is read after the wait
+    float a[kChunk], g[kChunk], h[kChunk];   // log_a (then a), dy, h_{t-1}
+    const float* col = stage + threadIdx.x;
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      a[i] = col[i * kTile];
+      g[i] = col[(kChunk + i) * kTile];
+      h[i] = col[(2 * kChunk + i) * kTile];
+    }
+    // 2. the chunk from u = 0, last step first: its aggregate (steps past
+    // S have log_a = 0 and dy = 0: they pass u on unchanged)
+    float A = 0.f, e = 0.f;
+#pragma unroll
+    for (int i = kChunk - 1; i >= 0; --i) {
+      A += a[i];
+      a[i] = expf(a[i]);
+      e = a[i] * (e + g[i]);
+    }
+    ulonglong2* mine = records + ((long long)p.b * n_chunks + p.c) * W + p.w;
+    if (live && p.c < n_chunks - 1) store_aggregate(mine, A, e, aggregate);
+    // every thread's stage reads are done (the barriers in take_ticket)
+    // before the next chunk's copies overwrite it; they stay in flight
+    // through the look-back
+    const unsigned tn = take_ticket(ticket, last, &s_ticket);
+    const Place pn = place_of<true>(tn, S, W, n_chunks, n_tiles);
+    if (tn < n_tickets) stage_chunk(stage, log_a, dy, y, h0, pn, W);
+    if (live) {
+      // 3. the gradient entering the chunk from the step after it
+      float u = p.c == n_chunks - 1
+                    ? 0.f
+                    : look_back<true>(mine, p.c, n_chunks, W, aggregate,
+                                      inclusive);
+      // 4. rescan from it, last step first; write dx and d log_a
+#pragma unroll
+      for (int i = kChunk - 1; i >= 0; --i) {
+        const float gi = g[i] + u;
+        u = a[i] * gi;
+        if (i < p.n) {
+          dx[p.off + (long long)i * W] = gi;
+          dlog_a[p.off + (long long)i * W] = u * h[i];
+        }
+      }
+      store_inclusive(mine, u, inclusive);
+      if (p.c == 0) dh0[(long long)p.b * W + p.w] = u;
+    }
+    t = tn;
+    p = pn;
+  }
+}
+
+// Blocks of a kernel the current device holds at once, looked up once per
+// device into ``cached``.
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int smem, int (&cached)[64],
+                            int* blocks) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -274,9 +412,13 @@ cudaError_t resident_blocks(int* blocks) {
     *blocks = cached[dev];
     return cudaSuccess;
   }
+  if (smem > 0)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, rglru_scan_kernel, kTile, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTile,
+                                                      smem);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
@@ -289,6 +431,19 @@ cudaError_t resident_blocks(int* blocks) {
 long long workspace_floats(int B, int S, int W) {
   const long long n_chunks = (S + kChunk - 1) / kChunk;
   return kHeaderFloats + kRecordFloats * B * n_chunks * W;
+}
+
+// The checks both entry points make before they launch.
+bool valid_call(const void* ws, long long ws_floats, unsigned epoch, int B,
+                int S, int W) {
+  if (B <= 0 || S <= 0 || W <= 0) return false;
+  if (epoch == 0 || epoch >= (1u << 31)) return false;
+  if (ws_floats < workspace_floats(B, S, W) ||
+      reinterpret_cast<uintptr_t>(ws) % 16)
+    return false;
+  const long long n_tickets = (long long)B * ((S + kChunk - 1) / kChunk) *
+                              ((W + kTile - 1) / kTile);
+  return n_tickets <= 0x7fffffffLL;
 }
 
 }  // namespace
@@ -314,17 +469,15 @@ extern "C" int rglru_scan_fwd(const void* log_a, const void* x,
                               const void* h0, void* out, void* ws,
                               long long ws_floats, unsigned epoch, int B,
                               int S, int W, void* stream) {
-  if (B <= 0 || S <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  if (epoch == 0 || epoch >= (1u << 31)) return (int)cudaErrorInvalidValue;
-  if (ws_floats < workspace_floats(B, S, W) ||
-      reinterpret_cast<uintptr_t>(ws) % 16)
+  if (!valid_call(ws, ws_floats, epoch, B, S, W))
     return (int)cudaErrorInvalidValue;
   const int n_chunks = (S + kChunk - 1) / kChunk;
   const int n_tiles = (W + kTile - 1) / kTile;
   const long long n_tickets = (long long)B * n_chunks * n_tiles;
-  if (n_tickets > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   int resident = 0;
-  const cudaError_t err = resident_blocks(&resident);
+  static int cached[64] = {};
+  const cudaError_t err =
+      resident_blocks(rglru_scan_kernel, 0, cached, &resident);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid =
       (unsigned)(n_tickets < resident ? n_tickets : resident);
@@ -333,6 +486,41 @@ extern "C" int rglru_scan_fwd(const void* log_a, const void* x,
       static_cast<const float*>(log_a), static_cast<const float*>(x),
       static_cast<const float*>(h0), static_cast<float*>(out),
       reinterpret_cast<unsigned*>(base),
+      reinterpret_cast<ulonglong2*>(base + kHeaderFloats), S, W, n_chunks,
+      n_tiles, (unsigned)n_tickets, epoch);
+  return (int)cudaGetLastError();
+}
+
+// C interface of the backward. log_a, y (the forward's output), dy,
+// dlog_a, dx (B, S, W) and h0, dh0 (B, W): contiguous fp32 device memory.
+// ws and epoch as for rglru_scan_fwd, whose workspace it may share (the
+// epochs of the calls on one workspace all differ). Launches nothing and
+// returns cudaErrorInvalidValue on anything else; otherwise returns the
+// launch's cudaError_t.
+extern "C" int rglru_scan_bwd(const void* log_a, const void* h0,
+                              const void* y, const void* dy, void* dlog_a,
+                              void* dx, void* dh0, void* ws,
+                              long long ws_floats, unsigned epoch, int B,
+                              int S, int W, void* stream) {
+  if (!valid_call(ws, ws_floats, epoch, B, S, W))
+    return (int)cudaErrorInvalidValue;
+  const int n_chunks = (S + kChunk - 1) / kChunk;
+  const int n_tiles = (W + kTile - 1) / kTile;
+  const long long n_tickets = (long long)B * n_chunks * n_tiles;
+  int resident = 0;
+  static int cached[64] = {};
+  const cudaError_t err = resident_blocks(rglru_scan_bwd_kernel, kStageBytes,
+                                          cached, &resident);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid =
+      (unsigned)(n_tickets < resident ? n_tickets : resident);
+  float* base = static_cast<float*>(ws);
+  rglru_scan_bwd_kernel<<<grid, kTile, kStageBytes,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(log_a), static_cast<const float*>(h0),
+      static_cast<const float*>(y), static_cast<const float*>(dy),
+      static_cast<float*>(dlog_a), static_cast<float*>(dx),
+      static_cast<float*>(dh0), reinterpret_cast<unsigned*>(base),
       reinterpret_cast<ulonglong2*>(base + kHeaderFloats), S, W, n_chunks,
       n_tiles, (unsigned)n_tickets, epoch);
   return (int)cudaGetLastError();

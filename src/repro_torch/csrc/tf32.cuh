@@ -1,6 +1,7 @@
 // Split TF32 on mma.sync.m16n8k8, the cp.async copies that feed it, and the
 // gate scan of one mLSTM chunk: shared by the chunkwise mLSTM
-// (mlstm_chunk.cu) and its backward (mlstm_chunk_bwd.cu).
+// (mlstm_chunk.cu) and its backward (mlstm_chunk_bwd.cu); the RG-LRU scan's
+// backward (rglru_scan.cu) stages its chunks with the cp.async copies.
 #pragma once
 
 #include "sm90.cuh"

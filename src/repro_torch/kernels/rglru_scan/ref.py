@@ -25,16 +25,29 @@ def rglru_scan_ref(log_a, x, h0):
     return out
 
 
-def rglru_scan_bwd_ref(log_a, h0, y, dy):
-    """The scan's gradient by the plain scan run on reversed time:
-    g_t = dy_t + a_{t+1} g_{t+1}, g_S = dy_S; then dx = g,
-    d log_a_t = g_t a_t h_{t-1} (h_{-1} = h0, h the forward's output y) and
-    dh0 = a_0 g_0. Returns (d log_a, dx, dh0), fp32."""
-    log_a, h0, y, dy = (t.float() for t in (log_a, h0, y, dy))
+def reverse_scan_inputs(log_a, dy):
+    """The backward's scan as the forward scan on reversed time: its
+    (log_a', x', h0') are the decays shifted one step on and flipped in
+    time, dy flipped, and a zero state; its output flipped back is the
+    states' gradient g."""
     shifted = torch.cat([log_a[:, 1:], torch.zeros_like(log_a[:, :1])], 1)
-    g = torch.flip(rglru_scan_ref(torch.flip(shifted, (1,)),
-                                  torch.flip(dy, (1,)),
-                                  torch.zeros_like(h0)), (1,))
+    return (torch.flip(shifted, (1,)), torch.flip(dy, (1,)),
+            torch.zeros_like(log_a[:, 0]))
+
+
+def bwd_products(log_a, h0, y, g):
+    """(d log_a, dx, dh0) from the states' gradient g: d log_a_t =
+    g_t a_t h_{t-1} (h_{-1} = h0, h the forward's output y), dx = g,
+    dh0 = a_0 g_0."""
     a = torch.exp(log_a)
     h_prev = torch.cat([h0[:, None], y[:, :-1]], 1)
     return g * a * h_prev, g, a[:, 0] * g[:, 0]
+
+
+def rglru_scan_bwd_ref(log_a, h0, y, dy):
+    """The scan's gradient by the plain scan run on reversed time:
+    g_t = dy_t + a_{t+1} g_{t+1}, g_S = dy_S; then ``bwd_products``.
+    Returns (d log_a, dx, dh0), fp32."""
+    log_a, h0, y, dy = (t.float() for t in (log_a, h0, y, dy))
+    g = torch.flip(rglru_scan_ref(*reverse_scan_inputs(log_a, dy)), (1,))
+    return bwd_products(log_a, h0, y, g)

@@ -658,9 +658,9 @@ def test_flash_backward_kernel_matches_plain(cuda, B, Sq, Skv, Hq, K, hd,
 @pytest.mark.parametrize("B,S,W", [(2, 37, 200), (1, 1, 3), (3, 70, 33),
                                    (1, 4096, 2560), (33, 200, 2561)])
 def test_rglru_scan_backward_matches_plain(cuda, B, S, W):
-    """d log_a, dx and dh0 of the reverse scan against
+    """d log_a, dx and dh0 of the backward kernel against
     ``rglru_scan_bwd_ref``, within 1e-4 · max |plain|; the autograd
-    function counts its reverse scans apart from the forward's."""
+    function counts its backward launches apart from the forward's."""
     from repro_torch.kernels.rglru_scan.kernel import (RGLRUScan,
                                                        rglru_scan_bwd_cuda)
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
@@ -678,6 +678,100 @@ def test_rglru_scan_backward_matches_plain(cuda, B, S, W):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def _scan_bwd_inputs(gen, B, S, W):
+    la, x = _model_gates(gen, B, S, W)
+    h0 = torch.randn((B, W), generator=gen, device="cuda")
+    dy = torch.randn((B, S, W), generator=gen, device="cuda")
+    return la, x, h0, dy
+
+
+def _bwd_close(got, want) -> bool:
+    return all(float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("streams", [1, 2])
+def test_rglru_scan_fwd_and_bwd_interleaved(cuda, streams):
+    """Forwards and backwards of several shapes in turns, on one stream or
+    on two (each with its own workspace), without a synchronise between
+    them: every output matches its plain version, so no call read a
+    record another call left in the shared workspace."""
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_bwd_cuda
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
+    pool = [torch.cuda.current_stream()] + \
+        [torch.cuda.Stream() for _ in range(streams - 1)]
+    cases = [_scan_bwd_inputs(cuda, B, S, W)
+             for B, S, W in ((1, 1000, 384), (2, 300, 384), (1, 2100, 384),
+                             (3, 33, 129))]
+    torch.cuda.synchronize()
+    outs = []
+    for i, (la, x, h0, dy) in enumerate(cases * 2):
+        stream = pool[i % streams]
+        with torch.cuda.stream(stream):
+            y = rglru_scan_cuda(la, x, h0)
+            outs.append((la, x, h0, dy, y, rglru_scan_bwd_cuda(la, h0, y, dy)))
+    torch.cuda.synchronize()
+    for la, x, h0, dy, y, got in outs:
+        assert float((y - rglru_scan_ref(la, x, h0)).abs().max()) < 1e-4
+        assert _bwd_close(got, rglru_scan_bwd_ref(la, h0, y, dy))
+
+
+def test_rglru_scan_backward_leaves_the_forward_count(cuda):
+    """A backward call adds one to its own count and none to the
+    forward's."""
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_bwd_cuda
+    la, x, h0, dy = _scan_bwd_inputs(cuda, 2, 100, 256)
+    y = rglru_scan_cuda(la, x, h0)
+    fwd, bwd = rglru_scan_cuda.launches, rglru_scan_bwd_cuda.launches
+    rglru_scan_bwd_cuda(la, h0, y, dy)
+    assert (rglru_scan_cuda.launches, rglru_scan_bwd_cuda.launches) == \
+        (fwd, bwd + 1)
+
+
+def test_rglru_scan_backward_rejects_what_it_does_not_take(cuda):
+    """The backward takes (B, S, W) log_a, y, dy of one shape and a
+    (B, W) h0, contiguous fp32 on one device; its C entry launches nothing
+    on a workspace one float short or off its 16-byte alignment, and
+    matches the plain version on the counted one."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rglru_scan.kernel import (_bwd_entry,
+                                                       rglru_scan_bwd_cuda)
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
+    B, S, W = 2, 70, 200
+    la, x, h0, dy = _scan_bwd_inputs(cuda, B, S, W)
+    y = rglru_scan_cuda(la, x, h0)
+    with pytest.raises(ValueError):          # dy of another length
+        rglru_scan_bwd_cuda(la, h0, y, dy[:, :-1].contiguous())
+    with pytest.raises(ValueError):          # h0 of another width
+        rglru_scan_bwd_cuda(la, h0[:, :-1].contiguous(), y, dy)
+    with pytest.raises(TypeError):           # fp16
+        rglru_scan_bwd_cuda(la.half(), h0.half(), y.half(), dy.half())
+    with pytest.raises(TypeError):           # one operand in bf16
+        rglru_scan_bwd_cuda(la, h0, y.bfloat16(), dy)
+    with pytest.raises(ValueError):          # not contiguous
+        rglru_scan_bwd_cuda(la, h0, y, dy.transpose(0, 1).contiguous()
+                            .transpose(0, 1))
+    with pytest.raises(ValueError):          # a CPU operand
+        rglru_scan_bwd_cuda(la, h0, y.cpu(), dy)
+    lib, fn = _bwd_entry()
+    need = lib.rglru_scan_workspace_floats(B, S, W)
+    ws = torch.zeros(need + 4, device="cuda")
+    outs = [torch.full_like(t, float("nan")) for t in (la, y, h0)]
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (la, h0, y, dy, *outs)]
+    for ptr, floats in ((ws.data_ptr(), need - 1),
+                        (ws.data_ptr() + 4, need)):
+        err = fn(*ptrs, ptr, floats, 1, B, S, W, stream)
+        assert err != 0
+        with pytest.raises(RuntimeError):
+            build.raise_on_error(lib, "rglru_scan_bwd", err)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isnan(t).all()) for t in outs)   # no launch
+    assert fn(*ptrs, ws.data_ptr(), need, 1, B, S, W, stream) == 0
+    torch.cuda.synchronize()
+    assert _bwd_close(outs, rglru_scan_bwd_ref(la, h0, y, dy))
 
 
 def test_flash_backward_rejects_what_it_does_not_take(cuda):
