@@ -88,7 +88,17 @@ its own lines; any failure exits non-zero without the result line:
    state; the forward there too) and a ragged multi-chunk case from a
    given state, with its passes' launches and times by ``torch.profiler``
    beside ``plan_bwd``, its workspace bytes, each pass's registers and
-   spills (``ptxas``) and two calls compared bit for bit;
+   spills (``ptxas``) and two calls compared bit for bit; B2 writing its
+   log-sum-exp (``lse=``) at phase 6's shape (B=4 over 4096 rows) and at
+   Llama's and RecurrentGemma's decode shapes, in bf16 and fp32, some
+   positions negative: the lse within 1e-5 max(1, |lse|) of the plain
+   version's (-inf where pos < 0), the output bitwise equal to the call
+   without it, both calls timed, and beside them, as the library time,
+   ``aten._scaled_dot_product_efficient_attention`` with
+   ``compute_log_sumexp`` (the same dense mask as a bias, K and V repeated
+   to the query heads), its lse held against the kernel's; B1 and B2 at
+   phase 6b's shapes (a rank's
+   16 query heads over 4 KV heads: S=2048; B=4 over 1024 rows);
 3. reduced llama3.1-8b, qwen1.5-4b, starcoder2-15b, chameleon-34b,
    granite-3-8b, phi3.5-moe, llama4-maverick, whisper-large-v3,
    recurrentgemma-2b and xlstm-350m in fp32 on the card: prefill and
@@ -147,6 +157,36 @@ its own lines; any failure exits non-zero without the result line:
    unrolled layers once), and bf16 B1 never runs on the CUDA-core kernel;
    for the xLSTM, B4's backward device time in step 2, by pass.
 
+6. the multi-device layers (``models/sharding.py``, ``launch/mesh.py``,
+   ``launch/shardspecs.py``, the sharded branches of ``models/layers.py``)
+   as two ranks on the one card: NCCL takes one rank a card, so two
+   processes spawned with ``torch.multiprocessing`` share cuda:0 in a
+   ``gloo`` group (rendezvous a file under ``build/``; the all-reduces
+   stage their CUDA tensors through the host), each holding
+   Llama-3.1-8B at full width and depth in bf16 from the same seeded
+   generator, on a (1, 2) mesh. 6a: the KV sequence over "model", weights
+   whole: B=4, max_len 8192 (4096 cache rows a rank), prompts of 4088
+   tokens, 16 decode steps (positions 4088-4103: the first 8 write rank
+   0's rows, the last 8 rank 1's), B2 writing its lse on each rank's rows
+   and the ranks combining (``dist_decode_attention``); before it, one
+   layer's ``dist_decode_attention`` at that shape against B2 unsharded
+   over the whole cache, within 4 bf16 steps of max |unsharded|, at
+   positions where rank 1 admits none, 8, 2048 and all of its rows, with
+   a control (rank 1's weight set to 0) that must miss by more wherever
+   rank 1 admits 8 rows or more, and each rank's cache rows against the
+   unsharded write. 6b: heads and
+   d_ff over "model" with ``tp_bf16_ar``, each rank its ``local_params``
+   (16 query heads over 4 KV heads, d_ff 7168, embed and unembed whole):
+   ``forward_train`` at B=1 S=2048 without a gradient, then a prefill of
+   B=4 prompts of 1000 tokens and 16 decode steps. Rank 0 first runs the
+   same tokens unsharded, greedily; both ranks are fed its tokens and
+   hold each step's logits against its (max |dlogit| / max |logit| within
+   3e-2, the argmax equal wherever the reference's top-2 gap exceeds
+   that). Each rank prints its launches (B2 with the lse: 32 x 16 a rank
+   in 6a, all on the sm90 kernel), its all-reduces (count, bytes, host
+   seconds), its peak memory and its seconds. A rank that fails, or a
+   phase past 600 s, fails the run.
+
 Each serve and each training run starts with the previous one's engine
 freed and the allocator's cache emptied, and prints its peak device
 memory. The seconds of each phase are printed before the table.
@@ -169,6 +209,12 @@ likewise holds B3's forward built from DIR against this checkout's: its
 registers, its outputs against the plain version and its times in turns
 (``ab_scan``).
 
+    python3 chip_smoke.py --ab-decode DIR
+
+likewise holds B2's bf16 kernel built from DIR against this checkout's:
+the ``HMMA`` count of each library's SASS, outputs bit for
+bit at phase 2's bf16 decode shapes and times in turns (``ab_decode``).
+
     python3 chip_smoke.py --profile-check N
 
 runs none of the phases either: it profiles B1's fp32 backward and B3's
@@ -181,6 +227,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -234,6 +281,7 @@ DEVICE_KINDS = (("B4 backward", r"mlstm_bwd_"),
                 ("elementwise and copies", r"elementwise|copy|fill|cat"),
                 ("indexing", r"index|scatter|gather"))
 LLAMA_HEADS = (32, 8, 128)         # (query heads, KV heads, head_dim)
+LLAMA_TP_HEADS = (16, 4, 128)      # a rank's of llama3.1-8b over 2 (6b)
 RG_HEADS = (10, 1, 256)            # recurrentgemma-2b
 STARCODER2_HEADS = (48, 4, 128)    # starcoder2-15b, G = 12
 CHAMELEON_HEADS = (64, 8, 128)     # chameleon-34b
@@ -241,6 +289,17 @@ LLAMA405B_HEADS = (128, 8, 128)    # llama3-405b, G = 16
 WHISPER_HEADS = (20, 20, 64)       # whisper-large-v3, G = 1
 PHI, PHI_LAYERS = "phi3.5-moe-42b-a6.6b", 28   # served at 28 of 32 layers
 WHISPER = "whisper-large-v3"
+# phase 6: two gloo ranks on the one card; each sharded run's logits
+# against rank 0's unsharded model within DIST_TOL of max |reference|,
+# the argmax equal wherever the reference's top-2 gap exceeds that
+DIST_WORLD, DIST_TIMEOUT_S, DIST_TOL = 2, 600, 3e-2
+# 6a's layer check: dist_decode_attention against unsharded B2, in bf16
+# steps of max |unsharded| (each side rounds to bf16; the combine adds the
+# ranks' rounded outputs)
+DIST_LAYER_STEPS = 4
+DIST_KV = {"batch": 4, "max_len": 8192, "prompt": 4088, "steps": 16}
+DIST_TP = {"train_seq": 2048, "batch": 4, "max_len": 1024, "prompt": 1000,
+           "steps": 16}
 
 
 def log(msg: str) -> None:
@@ -528,6 +587,89 @@ def _decode_case(pos, window, dtype, gen, heads, Sc=2048, B=8) -> dict:
             "library_per_slot_ms": cuda_ms(per_slot, 50),
             "per_slot_backend": backend, "flash_refused": refused,
             "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _decode_lse_case(pos, window, dtype, gen, heads, Sc=2048, B=8) -> dict:
+    """B2 writing its log-sum-exp (``lse=``), as flash-decoding across
+    ranks calls it: the lse against the plain version's (within 1e-5
+    max(1, |lse|), -inf where pos < 0), the output bitwise equal to the
+    call without it, and both calls timed. The library time is that of
+    ``aten._scaled_dot_product_efficient_attention`` with
+    ``compute_log_sumexp``, which returns the output and its natural-log
+    lse, given the same dense mask of admitted rows as a float bias and K
+    and V repeated to the Hq heads (the repeat made once, outside the
+    timing); its lse is held against the kernel's and the difference
+    logged."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda,
+    )
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    HQ, KV, HD = heads
+    q = torch.randn((B, 1, HQ, HD), generator=gen, device="cuda").to(dtype)
+    kc = torch.randn((B, Sc, KV, HD), generator=gen, device="cuda").to(dtype)
+    vc = torch.randn((B, Sc, KV, HD), generator=gen, device="cuda").to(dtype)
+    posd = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    lse = torch.full((B, HQ), float("nan"), device="cuda")
+
+    def kern():
+        return decode_attention_cuda(q, kc, vc, posd)
+
+    def kern_lse():
+        return decode_attention_cuda(q, kc, vc, posd, lse=lse)
+
+    def plain():
+        return decode_attention_ref(q, kc, vc, posd, window=window,
+                                    return_lse=True)
+    sm90 = decode_attention_cuda.launches_sm90
+    out = kern_lse()
+    route = "sm90 mma.sync" if decode_attention_cuda.launches_sm90 > sm90 \
+        else "cuda-core fp32"
+    same = bool(torch.equal(out, kern()))
+    ref, ref_lse = plain()
+    empty = (posd < 0)[:, None].expand(B, HQ)
+    lse_err = float(((lse - ref_lse)[~empty].abs() /
+                     ref_lse[~empty].abs().clamp(min=1.0)).max())
+    neg_inf = bool(torch.isneginf(lse[empty]).all())
+    live = ~(posd < 0)
+    err = float((out[live].float() - ref[live].float()).abs().max())
+    ok = same and neg_inf and lse_err <= LSE_TOL and close(out[live],
+                                                           ref[live])
+    rows = np.clip(np.asarray(pos) + 1, 0, Sc)
+    elt = q.element_size()
+    n_bytes = elt * (2 * q.numel() + 2 * float(rows.sum()) * KV * HD) + \
+        4 * B + 4 * B * HQ
+    b_ms, b_by = bound_ms(n_bytes, 4.0 * float(rows.sum()) * HQ * HD, dtype)
+    ms, ms_lse = cuda_ms(kern, 50), cuda_ms(kern_lse, 50)
+    # the library: one call that returns the output and its lse
+    bias = torch.zeros((B, HQ, 1, Sc), dtype=dtype, device="cuda")
+    bias.masked_fill_(torch.arange(Sc, device="cuda") >= torch.as_tensor(
+        rows, device="cuda")[:, None, None, None], float("-inf"))
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (c.transpose(1, 2).repeat_interleave(HQ // KV, dim=1)
+              for c in (kc, vc))
+
+    def library():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qt, kt, vt, bias, True)
+    lib_lse = library()[1][:, :, 0]
+    lib_lse_err = float(((lib_lse - lse)[~empty].abs() /
+                         lse[~empty].abs().clamp(min=1.0)).max())
+    lib_ms = cuda_ms(library, 50)
+    shape = (f"B={B} Sc={Sc} Hq={HQ} K={KV} hd={HD} pos={list(pos)} "
+             f"window={window} lse")
+    log(f"[kernel] decode_attention_lse [{route}] {dtype} {shape}: lse "
+        f"within {lse_err:.3g} of max(1, |plain lse|) (tol {LSE_TOL}), -inf "
+        f"where pos < 0: {neg_inf}; output with the lse "
+        f"{'bitwise equal to' if same else 'DIFFERENT from'} the output "
+        f"without; {ms:.4f} ms without the lse, {ms_lse:.4f} ms with; "
+        f"the efficient-attention call {lib_ms:.4f} ms, its lse within "
+        f"{lib_lse_err:.3g} of the kernel's")
+    return {"shape": shape, "dtype": str(dtype), "err": err, "ok": ok,
+            "route": route, "ms": ms_lse, "ms_without_lse": ms,
+            "lse_err": lse_err, "lse_bitwise_same_output": same,
+            "plain_ms": cuda_ms(plain, 10), "library_ms": lib_ms,
+            "library_lse_err": lib_lse_err, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
 def _model_gates(gen, B: int, S: int, W: int) -> tuple:
@@ -1095,6 +1237,28 @@ def phase_kernels(report: dict) -> dict:
                      WHISPER_HEADS, Sc=448)
     cases["decode_attention"].append(c)
     main["decode_attention_whisper"] = c
+    # B2 with its log-sum-exp: at phase 6's shape (B=4 over a rank's 4096
+    # rows, rank 1's first steps admitting none), and at Llama's and
+    # RecurrentGemma's decode shapes, some positions negative
+    cases["decode_attention_lse"] = []
+    for dtype in (torch.bfloat16, torch.float32):
+        cases["decode_attention_lse"] += [
+            _decode_lse_case([4088, -8, 4095, 7], None, dtype, gen,
+                             LLAMA_HEADS, Sc=4096, B=4),
+            _decode_lse_case([-1, 300, 700, 1023, 1024, -3, 2047, 2300],
+                             None, dtype, gen, LLAMA_HEADS),
+            _decode_lse_case([0, -1, 300, 1023, 1024, 2047, -2, 3500], 2048,
+                             dtype, gen, RG_HEADS)]
+    main["decode_attention_lse"] = cases["decode_attention_lse"][0]
+    # phase 6b's shapes: a rank's 16 query heads over 4 KV heads, B1 at the
+    # forward's S=2048, B2 over the 1024-row cache at its positions
+    c = _flash_case(2048, None, bf16, gen, LLAMA_TP_HEADS)
+    cases["flash_attention"].append(c)
+    main["flash_attention_tp"] = c
+    c = _decode_case([1000, 1007, 1015, 1003], None, bf16, gen,
+                     LLAMA_TP_HEADS, Sc=1024, B=4)
+    cases["decode_attention"].append(c)
+    main["decode_attention_tp"] = c
     # what cuda_ms reads for a call that does next to nothing: the floor
     # under the short scans' times
     one = torch.zeros(1, device="cuda")
@@ -1140,6 +1304,8 @@ def phase_kernels(report: dict) -> dict:
         f"replaced (reverse scan, flips and products) "
         f"{main['rglru_scan_bwd']['replaced_ms']:.4f} ms in the same call")
     tols = {"rglru_scan": SCAN_TOL,
+            "decode_attention_lse": f"output as without the lse, bitwise; "
+                                    f"lse {LSE_TOL} max(1, |lse|)",
             "mlstm_chunk": f"{MLSTM_TOL}, state {MLSTM_STATE_TOL}",
             "rglru_scan_bwd": "1e-4 max|plain|",
             "mlstm_chunk_bwd": "1e-4 max|plain|, plain in fp64"}
@@ -1161,6 +1327,9 @@ def phase_kernels(report: dict) -> dict:
             if "rel_err" in c:
                 state += (" (relative to max |plain|: "
                           f"{', '.join(f'{r:.3g}' for r in c['rel_err'])})")
+            if "ms_without_lse" in c:
+                state += (f" (lse within {c['lse_err']:.3g}; "
+                          f"{c['ms_without_lse']:.4f} ms without the lse)")
             if "library_backend" in c:
                 lib += f" backward, {c['library_backend']}"
             if c.get("library_causal_ms") is not None:
@@ -1334,6 +1503,105 @@ def ab_scan(parent: Path) -> int:
                 times[tag].append(cuda_ms(fwd, 50))
         log(f"[ab] forward {shape}: max |kernel - plain| {errs}; ms {times}")
         if max(errs.values()) >= SCAN_TOL:
+            failed.append(shape)
+    log(f"[ab] {'failed: ' + str(failed) if failed else 'ok'}")
+    return 1 if failed else 0
+
+
+# B2's bf16 kernel built from another commit's csrc, and this checkout's:
+# (B, Sc, heads, positions, window) of phase 2's bf16 decode cases
+AB_DECODE_CASES = (
+    (8, 2048, LLAMA_HEADS, [0, 300, 700, 1023, 1024, 1500, 2047, 2300]),
+    (8, 2048, RG_HEADS, [0, 1, 300, 1023, 1024, 2047, 2048, 3500]),
+    (4, 2048, (40, 8, 128), [0, 1, 500, 2047]),
+    (4, 2048, STARCODER2_HEADS, [1, 0, 1500, 3000]),
+    (8, 448, WHISPER_HEADS, [0, 1, 223, 447, 5, 100, 300, 446]),
+    (4, 4096, LLAMA_HEADS, [4088, 4090, 4095, 4093]))
+
+
+def ab_decode(parent: Path) -> int:
+    """B2's bf16 kernel (``decode_attention_sm90.cu``) built from ``parent``
+    (a ``csrc`` directory) and from this checkout's, each called through
+    its own C interface (a ``csrc`` whose kernel takes no lse pointer is
+    called without it) at its own split count on the
+    same seeded inputs: the ``HMMA`` count of each library's SASS, its
+    registers (``ptxas``), the outputs compared bit for bit (and each
+    side's two calls), and the times in turns (parent, change, change,
+    parent). Returns 1 if the outputs differ."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention.kernel import plan_splits
+    name = "decode_attention_sm90"
+    sides = {"parent": parent.resolve(), "change": build.CSRC}
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip())
+    libs, with_lse = {}, {}
+    for tag, csrc in sides.items():
+        build.build_all((name,), csrc)
+        path = build.library_path(name, csrc)
+        libs[tag] = ctypes.CDLL(str(path))
+        with_lse[tag] = "void* lse" in (csrc / f"{name}.cu").read_text()
+        regs = [line.strip() for line in
+                path.with_suffix(".log").read_text().splitlines()
+                if "registers" in line]
+        log(f"[ab] {tag} {name}: {count_sass(path, 'HMMA')} HMMA in its "
+            f"SASS; the lse pointer in its interface: {with_lse[tag]}; "
+            f"ptxas {regs}")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def caller(tag, q, kc, vc, posb):
+        lib = libs[tag]
+        B, _, Hq, hd = q.shape
+        Sc, K = kc.shape[1], kc.shape[2]
+        per_sm = I(0)
+        lib.decode_attention_blocks_per_sm_sm90(I(hd), ctypes.byref(per_sm))
+        n_split = plan_splits(B, K, Sc, n_sm, per_sm.value)
+        fn = lib.decode_attention_fwd_sm90
+        fn.argtypes = [P] * (8 if with_lse[tag] else 7) + [I] * 6 + [P]
+        fn.restype = I
+        part_acc = torch.empty(B * Hq * n_split * hd, device="cuda")
+        part_ml = torch.empty(B * Hq * n_split * 2, device="cuda")
+        out = torch.empty_like(q)
+        ptrs = [q.data_ptr(), kc.data_ptr(), vc.data_ptr(), posb.data_ptr(),
+                out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr()]
+        if with_lse[tag]:
+            ptrs.append(None)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def call():
+            err = fn(*ptrs, B, Hq, K, Sc, hd, n_split, stream)
+            if err:
+                raise RuntimeError(f"{tag} {name}: CUDA error {err}")
+            return out
+        # raw pointers do not keep the tensors alive: the closure must
+        call.scratch = (part_acc, part_ml)
+        return call
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    failed = []
+    for B, Sc, (HQ, KV, HD), pos in AB_DECODE_CASES:
+        shape = f"B={B} Sc={Sc} Hq={HQ} K={KV} hd={HD} pos={pos}"
+        q, kc, vc = (torch.randn(shp, generator=gen, device="cuda").to(
+            torch.bfloat16) for shp in ((B, 1, HQ, HD), (B, Sc, KV, HD),
+                                        (B, Sc, KV, HD)))
+        posb = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        calls = {tag: caller(tag, q, kc, vc, posb) for tag in sides}
+        outs = {tag: fn().clone() for tag, fn in calls.items()}
+        same = bool(torch.equal(outs["parent"], outs["change"]))
+        again = {tag: bool(torch.equal(fn(), outs[tag]))
+                 for tag, fn in calls.items()}
+        if not same:
+            d = (outs["parent"].float() - outs["change"].float()).abs()
+            log(f"[ab]   {int((d > 0).sum())} of {d.numel()} elements "
+                f"differ, by at most {float(d.max()):.3g}; each side's two "
+                f"calls equal: {again}")
+        times = {tag: [] for tag in sides}
+        for tag in ("parent", "change", "change", "parent"):
+            times[tag].append(cuda_ms(calls[tag], 50))
+        log(f"[ab] decode {shape}: outputs bitwise equal {same}; ms {times}")
+        if not same:
             failed.append(shape)
     log(f"[ab] {'failed: ' + str(failed) if failed else 'ok'}")
     return 1 if failed else 0
@@ -1897,6 +2165,358 @@ def phase_serve(report: dict, tag: str, arch: str, lengths, max_len: int,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the multi-device layers, two ranks on one card
+# ---------------------------------------------------------------------------
+
+def _logits_check(out, ref) -> dict:
+    """max |out - ref| / max |ref|, the share of rows whose argmax agrees,
+    and whether it agrees wherever the reference's top-2 gap exceeds
+    DIST_TOL max |ref|."""
+    o, r = out.float(), ref.float()
+    top = float(r.abs().max())
+    rel = float((o - r).abs().max()) / top
+    t2 = r.topk(2, dim=-1).values
+    clear = (t2[..., 0] - t2[..., 1]) > DIST_TOL * top
+    agree = o.argmax(-1) == r.argmax(-1)
+    ok = rel <= DIST_TOL and bool(agree[clear].all())
+    return {"rel": rel, "argmax_agree": float(agree.float().mean()),
+            "clear_rows": int(clear.sum()), "ok": ok}
+
+
+def _greedy(lm, params, tokens, max_len: int, steps: int):
+    """Prefill and ``steps`` greedy decode steps: (the logits of each, as
+    fp32 (steps + 1, B, V) on the host; the fed tokens (B, steps))."""
+    cache = lm.init_cache(tokens.shape[0], max_len, dtype=torch.bfloat16,
+                          device="cuda")
+    logits, cache = lm.prefill(params, {"tokens": tokens}, cache)
+    outs, fed = [logits.float().cpu()], []
+    for _ in range(steps):
+        fed.append(logits.argmax(-1))
+        logits, cache = lm.decode_step(params, fed[-1], cache)
+        outs.append(logits.float().cpu())
+    return torch.stack(outs), torch.stack(fed, 1)
+
+
+def _feed(lm, params, tokens, fed, max_len: int):
+    """Prefill, then decode steps fed ``fed`` (B, steps): (the logits as
+    fp32 (steps + 1, B, V) on the host, seconds of the prefill, of each
+    step, the cache's shape)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = lm.init_cache(tokens.shape[0], max_len, dtype=torch.bfloat16,
+                          device="cuda")
+    logits, cache = lm.prefill(params, {"tokens": tokens}, cache)
+    torch.cuda.synchronize()
+    walls, outs = [time.perf_counter() - t0], [logits.float().cpu()]
+    for i in range(fed.shape[1]):
+        t0 = time.perf_counter()
+        logits, cache = lm.decode_step(params, fed[:, i], cache)
+        outs.append(logits.float().cpu())     # synchronises
+        walls.append(time.perf_counter() - t0)
+    return torch.stack(outs), walls, tuple(cache["slots"][0]["k"].shape)
+
+
+def _from_rank0(t, rank: int):
+    """Rank 0's host tensor ``t`` on every rank (``t`` shaped alike)."""
+    import torch.distributed as dist
+    t = t.contiguous()
+    dist.broadcast(t, src=0)
+    return t
+
+
+def _counters(reset: bool = False) -> dict:
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda,
+    )
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda,
+    )
+    from repro_torch.models import sharding as SH
+    fns = {"flash_attention": flash_attention_cuda,
+           "decode_attention": decode_attention_cuda,
+           "all_reduce": SH.all_reduce}
+    attrs = {"flash_attention": ("launches", "launches_sm90"),
+             "decode_attention": ("launches", "launches_sm90",
+                                  "launches_lse"),
+             "all_reduce": ("calls", "bytes", "seconds", "host_staged")}
+    if reset:
+        for name, fn in fns.items():
+            for a in attrs[name]:
+                setattr(fn, a, 0 if a != "seconds" else 0.0)
+    return {f"{name}.{a}": getattr(fn, a) for name, fn in fns.items()
+            for a in attrs[name]}
+
+
+def _sharded_run(tag: str, rank: int, run, ref) -> dict:
+    """``run()`` -> (logits (n, B, V), walls, cache shape) under the active
+    rules, with the launch and all-reduce counters set to 0 just before
+    and read just after; each of its logits held against ``ref``."""
+    _counters(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, walls, cache_shape = run()
+    wall = time.perf_counter() - t0
+    counts = _counters()
+    checks = [_logits_check(o, r) for o, r in zip(outs, ref)]
+    for i, c in enumerate(checks):
+        what = "logits" if len(checks) == 1 else \
+            "prefill" if i == 0 else f"step {i}"
+        log(f"[dist r{rank}] {tag} {what}: max |dlogit| / max |logit| "
+            f"{c['rel']:.4g} (tol {DIST_TOL}), argmax agrees on "
+            f"{c['argmax_agree']:.3f} of the rows, on every row whose "
+            f"top-2 gap exceeds the tol ({c['clear_rows']}): {c['ok']}")
+    steps = (f", decode steps median {np.median(walls[1:]) * 1e3:.1f} ms"
+             if len(walls) > 1 else "")
+    log(f"[dist r{rank}] {tag}: {wall:.2f} s; first call {walls[0]:.3f} s"
+        f"{steps}; cache of a slot {cache_shape}; counters {counts}")
+    return {"checks": checks, "ok": all(c["ok"] for c in checks),
+            "wall_s": wall, "walls_s": walls, "cache_shape": cache_shape,
+            "counters": counts}
+
+
+def _bf16_step(x) -> float:
+    """One bf16 step (2^-7 of the binade) at x's largest |value|."""
+    top = float(x.float().abs().max())
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def _dist_layer_check(rank: int) -> dict:
+    """One layer's ``dist_decode_attention`` under the active ``kv_seq``
+    rules at 6a's shape (B=4, 32 over 8 heads of 128, bf16, a rank's 4096
+    of 8192 rows) against B2 unsharded over the whole cache, within
+    DIST_LAYER_STEPS bf16 steps of max |unsharded|, at positions where
+    rank 1 admits none, 8, 2048 and all of its rows. The control is the
+    combine with rank 1's weight set to 0, which is rank 0's B2 over its
+    own rows: it must miss by more than the tolerance wherever rank 1
+    admits 8 rows or more, or the check could not tell a dropped shard
+    from rounding. Every rank draws the same cache from one seed."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import sharding as SH
+    HQ, KV, HD = LLAMA_HEADS
+    B, Sc = DIST_KV["batch"], DIST_KV["max_len"]
+    seq = SH.shard_of("kv_seq")
+    rows = Sc // seq.size
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, kn, vn = (torch.randn(shp, generator=gen, device="cuda").to(
+        torch.bfloat16) for shp in ((B, 1, HQ, HD), (B, 1, KV, HD),
+                                    (B, 1, KV, HD)))
+    kc, vc = (torch.randn((B, Sc, KV, HD), generator=gen,
+                          device="cuda").to(torch.bfloat16) for _ in "kv")
+    res, ok = [], True
+    for pos in (rows - 1, rows + 7, rows + 2047, Sc - 1):
+        kl, vl = (c[:, seq.rank * rows:(seq.rank + 1) * rows].clone()
+                  for c in (kc, vc))
+        posd = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        out = L.dist_decode_attention(q, kl, vl, kn, vn, posd)[0]
+        kw, vw = kc.clone(), vc.clone()
+        kw[:, pos], vw[:, pos] = kn[:, 0], vn[:, 0]
+        ref = L.decode_attention(q, kw, vw, posd)
+        ctrl = L.decode_attention(q, kw[:, :rows].contiguous(),
+                                  vw[:, :rows].contiguous(), posd)
+        tol = DIST_LAYER_STEPS * _bf16_step(ref)
+        err = float((out.float() - ref.float()).abs().max())
+        ctrl_err = float((ctrl.float() - ref.float()).abs().max())
+        rank1_rows = min(max(pos + 1 - rows, 0), rows)
+        own = slice(seq.rank * rows, (seq.rank + 1) * rows)
+        cache_ok = bool(torch.equal(kl, kw[:, own]) and
+                        torch.equal(vl, vw[:, own]))
+        caught = ctrl_err > tol if rank1_rows >= 8 else True
+        ok = ok and err <= tol and caught and cache_ok
+        log(f"[dist r{rank}] 6a layer pos {pos}: dist_decode_attention "
+            f"within {err:.3g} of unsharded B2 (tol {tol:.3g}, "
+            f"{DIST_LAYER_STEPS} bf16 steps of max |ref| "
+            f"{float(ref.float().abs().max()):.3g}); the control without "
+            f"rank 1's {rank1_rows} rows off by {ctrl_err:.3g} "
+            f"({'caught' if ctrl_err > tol else 'not caught'}); cache rows "
+            f"as the unsharded write: {cache_ok}")
+        res.append({"pos": pos, "err": err, "tol": tol,
+                    "control_err": ctrl_err, "rank1_rows": rank1_rows,
+                    "cache_ok": cache_ok})
+    return {"cases": res, "ok": ok}
+
+
+def _dist_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
+    """One rank of phase 6 on cuda:0, in a gloo process group of ``world``
+    ranks that meet at the file ``rdv``. Writes its results to
+    ``out_dir/dist_rank<rank>.json``; a check that fails is recorded
+    there (the ranks keep their collectives in step), an error ends the
+    process."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dist_cases import rules_kv_seq, rules_tp
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardspecs import local_params
+    from repro_torch.models import LM
+    from repro_torch.models import sharding as SH
+    t_start = time.perf_counter()
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{rdv}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    mesh = make_mesh((1, world), ("data", "model"), backend="gloo",
+                     device="cuda:0")
+    cfg = get_config("llama3.1-8b")
+    lm = LM(cfg)
+    res = {"rank": rank}
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        params = lm.init(torch.Generator(device="cuda").manual_seed(0),
+                         dtype=torch.bfloat16, device="cuda")
+        # 6a: the KV sequence over the two ranks, every weight whole
+        kv = DIST_KV
+        tokens = torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (kv["batch"], kv["prompt"])), device="cuda")
+        shape = (kv["steps"] + 1, kv["batch"], cfg.vocab_size)
+        ref, fed = torch.zeros(shape), torch.zeros(
+            (kv["batch"], kv["steps"]), dtype=torch.long)
+        if rank == 0:
+            ref, fed = _greedy(lm, params, tokens, kv["max_len"],
+                               kv["steps"])
+        ref, fed = _from_rank0(ref, rank), _from_rank0(fed.cpu(), rank)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with SH.use_rules(rules_kv_seq(), mesh):
+            res["kv_seq_layer"] = _dist_layer_check(rank)
+            res["kv_seq"] = _sharded_run(
+                "6a kv_seq", rank, lambda: _feed(lm, params, tokens,
+                                                 fed.cuda(), kv["max_len"]),
+                ref)
+        res["kv_seq"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 6b: heads and d_ff over the two ranks, bf16 all-reduces
+        tp = DIST_TP
+        train_tokens = torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (1, tp["train_seq"])), device="cuda")
+        tokens = torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (tp["batch"], tp["prompt"])), device="cuda")
+        shape = (tp["steps"] + 1, tp["batch"], cfg.vocab_size)
+        ref, fed = torch.zeros(shape), torch.zeros(
+            (tp["batch"], tp["steps"]), dtype=torch.long)
+        ref_train = torch.zeros((1, tp["train_seq"], cfg.vocab_size),
+                                dtype=torch.bfloat16)
+        if rank == 0:
+            ref_train = lm.forward_train(params, {"tokens": train_tokens},
+                                         remat=False)[0].cpu()
+            ref, fed = _greedy(lm, params, tokens, tp["max_len"],
+                               tp["steps"])
+        ref, fed = _from_rank0(ref, rank), _from_rank0(fed.cpu(), rank)
+        ref_train = _from_rank0(ref_train, rank)
+        with SH.use_rules(rules_tp(), mesh):
+            local = local_params(params, cfg, mesh)
+            if rank != 0:        # rank 0 keeps the whole model: the reference
+                del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            n_local = sum(t.numel() for t in _leaves(local))
+            log(f"[dist r{rank}] 6b: {n_local} parameters on this rank "
+                f"({2 * n_local / 1e9:.2f} GB in bf16)")
+
+            def train_run():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = lm.forward_train(local, {"tokens": train_tokens},
+                                       remat=False)[0].float().cpu()
+                return out[None], [time.perf_counter() - t0], ()
+            res["tp_train"] = _sharded_run("6b tp forward_train", rank,
+                                           train_run, ref_train[None])
+            res["tp"] = _sharded_run(
+                "6b tp", rank, lambda: _feed(lm, local, tokens, fed.cuda(),
+                                             tp["max_len"]), ref)
+        res["local_parameters"] = n_local
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"[dist r{rank}] peak memory {res['peak_gb']:.2f} GB (6a "
+        f"{res['kv_seq']['peak_gb']:.2f}); {res['seconds']:.1f} s")
+    Path(out_dir, f"dist_rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def phase_dist(report: dict) -> dict:
+    """Phase 6: Llama-3.1-8B at full width and depth on two gloo ranks that
+    share the card (NCCL takes one rank a card), spawned with
+    ``torch.multiprocessing``; fails if a rank fails, outlasts
+    ``DIST_TIMEOUT_S`` or finds its logits off. Returns the launches of
+    each sharded run, summed over the ranks, by path."""
+    import os
+
+    import torch.multiprocessing as mp
+    gc.collect()                  # the serve and training engines
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    rdv = out_dir / f"dist_rdv_{os.getpid()}"
+    rdv.unlink(missing_ok=True)
+    for r in range(DIST_WORLD):
+        (out_dir / f"dist_rank{r}.json").unlink(missing_ok=True)
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_dist_rank,
+                         args=(r, DIST_WORLD, str(rdv), str(out_dir)))
+             for r in range(DIST_WORLD)]
+    for p in procs:
+        p.start()
+    while any(p.is_alive() for p in procs):
+        if time.perf_counter() - t0 > DIST_TIMEOUT_S or any(
+                p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.5)
+    for p in procs:               # every rank ends here, done or not
+        if p.is_alive():
+            p.terminate()
+        p.join(10)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    rdv.unlink(missing_ok=True)
+    secs = time.perf_counter() - t0
+    bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
+    if bad:
+        raise SystemExit(f"phase 6: ranks failed or outlasted "
+                         f"{DIST_TIMEOUT_S} s (exit codes {bad})")
+    ranks = [json.loads((out_dir / f"dist_rank{r}.json").read_text())
+             for r in range(DIST_WORLD)]
+    failed = [(r["rank"], run) for r in ranks
+              for run in ("kv_seq_layer", "kv_seq", "tp_train", "tp")
+              if not r[run]["ok"]]
+    layers = 32
+    want_lse = layers * DIST_KV["steps"]
+    lse = [r["kv_seq"]["counters"]["decode_attention.launches_lse"]
+           for r in ranks]
+    cuda_core = [r[run]["counters"]["decode_attention.launches"] -
+                 r[run]["counters"]["decode_attention.launches_sm90"]
+                 for r in ranks for run in ("kv_seq", "tp")]
+    log(f"[dist] phase 6 in {secs:.1f} s; peak GB by rank "
+        f"{[round(r['peak_gb'], 2) for r in ranks]}; B2 launches with the "
+        f"lse by rank {lse} (expected {want_lse} each); B2 on the CUDA "
+        f"cores {cuda_core}")
+    report["dist"] = {"seconds": secs, "ranks": ranks}
+    if failed:
+        raise SystemExit(f"phase 6: sharded layer or logits off the "
+                         f"unsharded ones: {failed}")
+    if lse != [want_lse] * DIST_WORLD or any(cuda_core):
+        raise SystemExit(f"phase 6: B2 with the lse launched {lse} times, "
+                         f"{cuda_core} on the CUDA cores")
+
+    def launches(run: str, name: str) -> int:
+        return sum(r[run]["counters"][f"{name}.launches"] for r in ranks)
+    return {"dist-kv_seq": {"decode_attention": launches("kv_seq",
+                                                         "decode_attention"),
+                            "flash_attention": launches("kv_seq",
+                                                        "flash_attention")},
+            "dist-tp": {"decode_attention": launches("tp",
+                                                     "decode_attention"),
+                        "flash_attention": launches("tp", "flash_attention")
+                        + launches("tp_train", "flash_attention")}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1906,11 +2526,13 @@ def main() -> int:
         return ab_mlstm(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--ab-scan"] and len(sys.argv) == 3:
         return ab_scan(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--ab-decode"] and len(sys.argv) == 3:
+        return ab_decode(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--profile-check"] and len(sys.argv) == 3:
         return profile_check(int(sys.argv[2]))
     if sys.argv[1:]:
         print("usage: chip_smoke.py [--ab-mlstm DIR | --ab-scan DIR | "
-              "--profile-check N]",
+              "--ab-decode DIR | --profile-check N]",
               file=sys.stderr)
         return 2
     report: dict = {}
@@ -1965,6 +2587,9 @@ def main() -> int:
     by_path["train-xlstm-350m"] = phase_train(
         report, "train-xlstm-350m", "xlstm-350m", n_steps=XLSTM_TRAIN_STEPS)
     secs["5 train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    by_path.update(phase_dist(report))
+    secs["6 dist"] = time.perf_counter() - t0
     log(f"[time] seconds by phase: "
         f"{ {k: round(v, 1) for k, v in secs.items()} }")
     report["phase_s"] = secs
@@ -2004,6 +2629,20 @@ def main() -> int:
          "source": "src/repro_torch/csrc/decode_attention_sm90.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
          "case": "decode_attention_whisper", "path": WHISPER},
+        # phase 6: B2 on each rank's rows with its lse (6a), B2 and B1 on
+        # a rank's heads (6b)
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention_sm90.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
+         "case": "decode_attention_lse", "path": "dist-kv_seq"},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention_sm90.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
+         "case": "decode_attention_tp", "path": "dist-tp"},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:84",
+         "case": "flash_attention_tp", "path": "dist-tp"},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:54"},
@@ -2045,6 +2684,8 @@ def main() -> int:
             row["passes_ms"] = {k: ms for k, (_, ms) in c["passes"].items()}
         if "replaced_ms" in c:   # B3's backward: the route it replaced
             row["replaced_ms"] = c["replaced_ms"]
+        if "ms_without_lse" in c:   # B2 with its lse: the call without it
+            row["ms_without_lse"] = c["ms_without_lse"]
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(

@@ -145,10 +145,12 @@ decode_partial_kernel(const float* __restrict__ q,
 }
 
 // One block per (query head, slot): rescale each split's partial to the
-// global max and normalise by the global sum.
+// global max and normalise by the global sum; where lse is not null, write
+// the head's log-sum-exp M + log L (-inf with no admitted row).
 __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
                                       const float* __restrict__ part_ml,
-                                      float* __restrict__ out, int K, int G,
+                                      float* __restrict__ out,
+                                      float* __restrict__ lse, int K, int G,
                                       int hd, int n_split) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int kh = h / G, g = h - kh * G;
@@ -164,6 +166,8 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
   // L == 0 only if no row is admissible (pos < 0), which the engine never
   // produces; the output is then 0
   const float inv = L > 0.f ? 1.0f / L : 0.f;
+  if (lse != nullptr && threadIdx.x == 0)
+    lse[(long)b * K * G + h] = L > 0.f ? M + logf(L) : -INFINITY;
   for (int d = threadIdx.x; d < hd; d += blockDim.x) {
     float o = 0.f;
     for (int s = 0; s < n_split; ++s) {
@@ -178,7 +182,7 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
 template <int G>
 cudaError_t launch(const float* q, const float* kc, const float* vc,
                    const int* pos, float* out, float* part_acc,
-                   float* part_ml, int B, int K, int Sc, int hd,
+                   float* part_ml, float* lse, int B, int K, int Sc, int hd,
                    cudaStream_t stream) {
   const int n_split = (Sc + kSplit - 1) / kSplit;
   const int smem = (int)sizeof(float) * (G * hd + G * kSplit);
@@ -187,31 +191,39 @@ cudaError_t launch(const float* q, const float* kc, const float* vc,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_combine_kernel<<<dim3(K * G, B), 128, 0, stream>>>(
-      part_acc, part_ml, out, K, G, hd, n_split);
+      part_acc, part_ml, out, lse, K, G, hd, n_split);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_g(const float* q, const float* kc, const float* vc,
                        const int* pos, float* out, float* part_acc,
-                       float* part_ml, int B, int G, int K, int Sc, int hd,
-                       cudaStream_t s) {
+                       float* part_ml, float* lse, int B, int G, int K,
+                       int Sc, int hd, cudaStream_t s) {
   switch (G) {
     case 1:
-      return launch<1>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
+      return launch<1>(q, kc, vc, pos, out, part_acc, part_ml, lse, B,
+                       K, Sc, hd, s);
     case 2:
-      return launch<2>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
+      return launch<2>(q, kc, vc, pos, out, part_acc, part_ml, lse, B,
+                       K, Sc, hd, s);
     case 4:
-      return launch<4>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
+      return launch<4>(q, kc, vc, pos, out, part_acc, part_ml, lse, B,
+                       K, Sc, hd, s);
     case 5:  // llama4-maverick: 40 query heads over 8 KV heads
-      return launch<5>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
+      return launch<5>(q, kc, vc, pos, out, part_acc, part_ml, lse, B,
+                       K, Sc, hd, s);
     case 8:
-      return launch<8>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
+      return launch<8>(q, kc, vc, pos, out, part_acc, part_ml, lse, B,
+                       K, Sc, hd, s);
     case 10:  // recurrentgemma-2b: 10 query heads over one KV head
-      return launch<10>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
+      return launch<10>(q, kc, vc, pos, out, part_acc, part_ml, lse, B,
+                        K, Sc, hd, s);
     case 12:  // starcoder2-15b: 48 query heads over 4 KV heads
-      return launch<12>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
+      return launch<12>(q, kc, vc, pos, out, part_acc, part_ml, lse, B,
+                        K, Sc, hd, s);
     case 16:
-      return launch<16>(q, kc, vc, pos, out, part_acc, part_ml, B, K, Sc, hd, s);
+      return launch<16>(q, kc, vc, pos, out, part_acc, part_ml, lse, B,
+                        K, Sc, hd, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -225,13 +237,14 @@ extern "C" int decode_attention_split_rows() { return kSplit; }
 // C interface (bound with ctypes). q (B,1,Hq,hd), caches (B,Sc,K,hd), out
 // like q, all fp32; pos (B,) int32; all contiguous device memory, 16-byte
 // aligned; part_acc holds B*K*n_split*G*hd floats and part_ml
-// B*K*n_split*G*2, with n_split = ceil(Sc / decode_attention_split_rows()).
-// Returns a cudaError_t.
+// B*K*n_split*G*2, with n_split = ceil(Sc / decode_attention_split_rows());
+// lse, if not null, B*Hq floats for each head's log-sum-exp. Returns a
+// cudaError_t.
 extern "C" int decode_attention_fwd(const void* q, const void* kc,
                                     const void* vc, const void* pos,
                                     void* out, void* part_acc, void* part_ml,
-                                    int B, int Hq, int K, int Sc, int hd,
-                                    void* stream) {
+                                    void* lse, int B, int Hq, int K, int Sc,
+                                    int hd, void* stream) {
   if (B <= 0 || Sc <= 0 || K <= 0 || Hq % K != 0 || hd <= 0 || hd > 256 ||
       hd % 4 != 0)
     return (int)cudaErrorInvalidValue;
@@ -239,6 +252,7 @@ extern "C" int decode_attention_fwd(const void* q, const void* kc,
       static_cast<const float*>(q), static_cast<const float*>(kc),
       static_cast<const float*>(vc), static_cast<const int*>(pos),
       static_cast<float*>(out), static_cast<float*>(part_acc),
-      static_cast<float*>(part_ml), B, Hq / K, K, Sc, hd,
+      static_cast<float*>(part_ml), static_cast<float*>(lse), B, Hq / K, K,
+      Sc, hd,
       static_cast<cudaStream_t>(stream));
 }

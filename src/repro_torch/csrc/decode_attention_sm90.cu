@@ -11,7 +11,11 @@
 //   (see decode_attention.cu). An idle slot whose pos ran past the cache
 //   reads Sc rows and never out of bounds; pos < 0 admits no row and gives
 //   0. Query head h reads KV head h / G in place. Scores, softmax and
-//   accumulation are fp32; the output is bf16.
+//   accumulation are fp32; the output is bf16. On request the launch also
+//   writes each head's log-sum-exp (fp32, natural log of the sum of
+//   exp(score / sqrt(hd)) over the admitted rows, -inf with none), which
+//   flash-decoding across ranks combines (models/layers.py::
+//   dist_decode_attention).
 //
 // What bounds it on an H100: bytes. One query token per head does 4 * G * hd
 // flops per cached row against 4 * hd bytes read, far below the ~295 flops
@@ -53,7 +57,7 @@
 //     spread over all the blocks.
 #include <cooperative_groups.h>
 
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -63,24 +67,13 @@ constexpr int kRows = 16;     // cache rows per warp tile (one k-step of P V)
 constexpr int kStages = 3;    // ring depth of each warp
 constexpr int kMaxSplit = 64;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared; src_bytes 0 fills the 16 bytes with zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using sm90::cp_async_commit;
+using sm90::cp_async_wait;
+using sm90::cp_async16_zfill;
+using sm90::pack_bf16;
+using sm90::smem_u32;
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
@@ -107,10 +100,6 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
   return make_float2(__uint_as_float(u << 16),
                      __uint_as_float(u & 0xffff0000u));
@@ -130,6 +119,7 @@ struct Params {
   __nv_bfloat16* out;
   float* part_acc;  // (B*K, n_split, G, hd)
   float* part_ml;   // (B*K, n_split, G, 2): max (log2 units) and sum
+  float* lse;       // (B, Hq) log-sum-exp in natural units, or null
   int Sc, K, G, hd, n_split;
 };
 
@@ -167,8 +157,10 @@ __device__ __forceinline__ void split_partial(const Params& p,
       const int r = e / kChunks, c = e % kChunks;
       const bool ok = row0 + r < r1 && c * 8 < hd;
       const long off = ok ? (row0 + r) * row_stride + c * 8 : 0;
-      cp_async16(smem_u32(ks + swz<HDP>(r, c)), kbase + off, ok ? 16 : 0);
-      cp_async16(smem_u32(vs + swz<HDP>(r, c)), vbase + off, ok ? 16 : 0);
+      cp_async16_zfill(smem_u32(ks + swz<HDP>(r, c)), kbase + off,
+                       ok ? 16 : 0);
+      cp_async16_zfill(smem_u32(vs + swz<HDP>(r, c)), vbase + off,
+                       ok ? 16 : 0);
     }
   };
   // Q's G rows (zero-padded to 16) into their own tile after the rings,
@@ -178,8 +170,8 @@ __device__ __forceinline__ void split_partial(const Params& p,
   for (int e = tid; e < kRows * kChunks; e += kThreads) {
     const int r = e / kChunks, c = e % kChunks;
     const bool ok = r < G && c * 8 < hd;
-    cp_async16(smem_u32(qs + swz<HDP>(r, c)), qh + (ok ? r * hd + c * 8 : 0),
-               ok ? 16 : 0);
+    cp_async16_zfill(smem_u32(qs + swz<HDP>(r, c)),
+                     qh + (ok ? r * hd + c * 8 : 0), ok ? 16 : 0);
   }
   cp_async_commit();
 #pragma unroll
@@ -388,6 +380,10 @@ decode_sm90_kernel(const Params p) {
     }
     // L == 0 only if no row is admitted (pos < 0): the output is then 0
     row_inv[tid] = L > 0.f ? 1.f / L : 0.f;
+    // the log-sum-exp of the scaled scores, in natural units (M is in log2
+    // units), -inf with no row; the first split's block writes it
+    if (p.lse != nullptr && split == 0)
+      p.lse[bk * G + tid] = L > 0.f ? M * kLn2 + logf(L) : -INFINITY;
   }
   __syncthreads();
   const int n4 = per / 4;                     // float4s of the output
@@ -477,14 +473,16 @@ extern "C" int decode_attention_blocks_per_sm_sm90(int hd, int* per_sm) {
 
 // C interface (bound with ctypes). q (B,1,Hq,hd), caches (B,Sc,K,hd), out
 // like q, all bf16; pos (B,) int32; all contiguous device memory, 16-byte
-// aligned. part_acc holds B*K*n_split*G*hd floats, part_ml B*K*n_split*G*2.
+// aligned. part_acc holds B*K*n_split*G*hd floats, part_ml B*K*n_split*G*2;
+// lse, if not null, B*Hq floats for each head's log-sum-exp.
 // 1 <= n_split <= 64; with more than one split every block of the grid must
 // fit on the card at once (decode_attention_blocks_per_sm_sm90), or the
 // cooperative launch is refused. Returns a cudaError_t.
 extern "C" int decode_attention_fwd_sm90(const void* q, const void* kc,
                                          const void* vc, const void* pos,
                                          void* out, void* part_acc,
-                                         void* part_ml, int B, int Hq, int K,
+                                         void* part_ml, void* lse, int B,
+                                         int Hq, int K,
                                          int Sc, int hd, int n_split,
                                          void* stream) {
   if (B <= 0 || Sc <= 0 || K <= 0 || Hq % K != 0 || Hq / K > 16 ||
@@ -498,6 +496,7 @@ extern "C" int decode_attention_fwd_sm90(const void* q, const void* kc,
              static_cast<__nv_bfloat16*>(out),
              static_cast<float*>(part_acc),
              static_cast<float*>(part_ml),
+             static_cast<float*>(lse),
              Sc, K, Hq / K, hd, n_split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd <= 64) return (int)launch<64>(prm, B, s);

@@ -2,7 +2,9 @@
 // (flash_attention_sm90.cu, the forward, and flash_attention_bwd.cu, its
 // backward): mbarriers, TMA loads of 128-byte-swizzled 64-column slabs,
 // 4-byte cp.async copies that arrive on an mbarrier, wgmma shared-memory
-// descriptors and products, and the host side that encodes the tensor maps.
+// descriptors and products, and the host side that encodes the tensor maps;
+// and by decode_attention_sm90.cu and tf32.cuh: shared addresses, 16-byte
+// cp.async copies with their groups, and bf16 packing.
 #pragma once
 
 #include <cuda.h>
@@ -83,6 +85,21 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
 }
 
 // --- cp.async --------------------------------------------------------------
+
+// 16 bytes from global to the shared address dst; src_bytes of them read
+// from src and the rest zero-filled (0: sixteen zero bytes, src not read).
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src,
+                                                 int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 // One 4-byte element into shared memory, zero when !in (then src is not
 // read).

@@ -24,13 +24,8 @@ __device__ __forceinline__ void cp_async4(void* dst, const float* src,
                    smem_u32(dst)),
                "l"(src), "r"(ok ? 4 : 0));
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using sm90::cp_async_commit;
+using sm90::cp_async_wait;
 
 // ---------------------------------------------------------------------------
 // split TF32 on mma.sync.m16n8k8

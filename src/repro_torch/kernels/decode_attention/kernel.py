@@ -13,14 +13,21 @@ Neither takes a window: a flat cache and a rotating window cache admit the
 same rows, ``[0, min(pos + 1, Sc))`` of each slot (see the kernels'
 headers), so one launch serves both. ``pos`` is never read on the host.
 
+Both write each head's log-sum-exp on request (``lse=``, an fp32 (B, Hq)
+tensor): the natural log of the sum of exp(score / sqrt(hd)) over the
+admitted rows, from the combine's max and sum, -inf where a slot admits no
+row (pos < 0). The output is the same with and without it: the lse adds B
+x Hq stores to the one launch.
+
 ``decode_attention_cuda.launches`` counts the calls of both routes,
-``decode_attention_cuda.launches_sm90`` those of the bf16 kernel.
+``decode_attention_cuda.launches_sm90`` those of the bf16 kernel,
+``decode_attention_cuda.launches_lse`` those that wrote the lse.
 """
 from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -71,7 +78,7 @@ def _card(index: int, hd: int) -> Tuple[int, int]:
 def _cuda_core_entry():
     lib = build.load("decode_attention")
     fn = lib.decode_attention_fwd
-    fn.argtypes = [_P] * 7 + [_I] * 5 + [_P]
+    fn.argtypes = [_P] * 8 + [_I] * 5 + [_P]
     fn.restype = _I
     lib.decode_attention_split_rows.argtypes = []
     lib.decode_attention_split_rows.restype = _I
@@ -81,7 +88,7 @@ def _cuda_core_entry():
 def _sm90_entry():
     lib = build.load("decode_attention_sm90")
     fn = lib.decode_attention_fwd_sm90
-    fn.argtypes = [_P] * 7 + [_I] * 6 + [_P]
+    fn.argtypes = [_P] * 8 + [_I] * 6 + [_P]
     fn.restype = _I
     return lib, fn
 
@@ -122,7 +129,22 @@ def _check(q, k_cache, v_cache, pos):
     return B, Hq, K, Sc, hd, G, posb.contiguous()
 
 
-def _launch_cuda_core(q, k_cache, v_cache, posb, B, Hq, K, Sc, hd, G):
+def _check_lse(lse, q) -> None:
+    """Raise unless ``lse`` is a contiguous fp32 (B, Hq) tensor on q's
+    device."""
+    B, Hq = q.shape[0], q.shape[2]
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (B, Hq) or
+            lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 (B, Hq) = "
+                         f"({B}, {Hq}) tensor on {q.device}, not "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _launch_cuda_core(q, k_cache, v_cache, posb, lse, B, Hq, K, Sc, hd, G):
     """The fp32 kernel on the CUDA cores: a partial and a combine pass."""
     lib, fn = _cuda_core_entry()
     n_split = -(-Sc // lib.decode_attention_split_rows())
@@ -135,12 +157,12 @@ def _launch_cuda_core(q, k_cache, v_cache, posb, B, Hq, K, Sc, hd, G):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                  posb.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-                 part_ml.data_ptr(), B, Hq, K, Sc, hd, stream)
+                 part_ml.data_ptr(), _ptr(lse), B, Hq, K, Sc, hd, stream)
     build.raise_on_error(lib, "decode_attention_fwd", err)
     return out
 
 
-def _launch_sm90(q, k_cache, v_cache, posb, B, Hq, K, Sc, hd, G):
+def _launch_sm90(q, k_cache, v_cache, posb, lse, B, Hq, K, Sc, hd, G):
     """The bf16 kernel on the tensor cores, at ``plan_splits``'s split
     count."""
     lib, fn = _sm90_entry()
@@ -154,26 +176,34 @@ def _launch_sm90(q, k_cache, v_cache, posb, B, Hq, K, Sc, hd, G):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                  posb.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-                 part_ml.data_ptr(), B, Hq, K, Sc, hd, n_split, stream)
+                 part_ml.data_ptr(), _ptr(lse), B, Hq, K, Sc, hd, n_split,
+                 stream)
     build.raise_on_error(lib, "decode_attention_fwd_sm90", err)
     return out
 
 
-def decode_attention_cuda(q, k_cache, v_cache, pos):
+def decode_attention_cuda(q, k_cache, v_cache, pos, lse=None):
     """q: (B, 1, Hq, hd); caches (B, Sc, K, hd) CUDA tensors, fp32 or bf16;
     pos: an int, a 0-d tensor or a (B,) tensor. Returns (B, 1, Hq, hd) in
-    q.dtype. Raises on input the kernel does not take and on any CUDA error
-    of the launch."""
+    q.dtype. ``lse``, if given, is an fp32 (B, Hq) tensor the launch fills
+    with each head's log-sum-exp. Raises on input the kernel does not take
+    and on any CUDA error of the launch."""
     B, Hq, K, Sc, hd, G, posb = _check(q, k_cache, v_cache, pos)
+    if lse is not None:
+        _check_lse(lse, q)
     if q.dtype == torch.bfloat16:
-        out = _launch_sm90(q, k_cache, v_cache, posb, B, Hq, K, Sc, hd, G)
+        out = _launch_sm90(q, k_cache, v_cache, posb, lse, B, Hq, K, Sc, hd,
+                           G)
         decode_attention_cuda.launches_sm90 += 1
     else:
-        out = _launch_cuda_core(q, k_cache, v_cache, posb, B, Hq, K, Sc, hd,
-                                 G)
+        out = _launch_cuda_core(q, k_cache, v_cache, posb, lse, B, Hq, K, Sc,
+                                hd, G)
     decode_attention_cuda.launches += 1
+    if lse is not None:
+        decode_attention_cuda.launches_lse += 1
     return out
 
 
 decode_attention_cuda.launches = 0       # type: ignore[attr-defined]
 decode_attention_cuda.launches_sm90 = 0  # type: ignore[attr-defined]
+decode_attention_cuda.launches_lse = 0   # type: ignore[attr-defined]

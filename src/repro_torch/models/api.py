@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rglru, transformer, whisper, xlstm
+from repro_torch.models import sharding as SH
 from repro_torch.models.params import init_from_specs
 
 _FAMILY_MODULES = {"dense": transformer, "moe": transformer,
@@ -48,6 +49,14 @@ class LM:
         self.mod = family_module(cfg)
         self.cfg = cfg
 
+    def _check_rules(self):
+        """Raise under sharding rules for a family the multi-device layers
+        do not cover yet, rather than run it unsharded."""
+        if SH.active() and self.cfg.family not in SH.SHARDED_FAMILIES:
+            raise NotImplementedError(
+                f"{self.cfg.name}: the {self.cfg.family} family under "
+                "sharding rules comes with ROADMAP A11")
+
     # -- params / cache ------------------------------------------------------
     def init(self, generator: torch.Generator, dtype=torch.float32,
              device=None):
@@ -58,6 +67,7 @@ class LM:
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    window: Optional[int] = None, device=None):
+        self._check_rules()
         return self.mod.init_cache(self.cfg, batch, max_len, dtype,
                                    window=window,
                                    device=resolve_device(device))
@@ -66,14 +76,17 @@ class LM:
     def forward_train(self, params, batch, *, window=None, remat=True):
         """Full-sequence forward; ``remat`` recomputes each layer group's
         activations in the backward rather than keeping them."""
+        self._check_rules()
         return self.mod.forward_train(params, self.cfg, batch,
                                       window=window, remat=remat)
 
     def prefill(self, params, batch, cache, *, window=None):
+        self._check_rules()
         return self.mod.prefill(params, self.cfg, batch, cache,
                                 window=window)
 
     def decode_step(self, params, token, cache, *, window=None):
+        self._check_rules()
         return self.mod.decode_step(params, self.cfg, token, cache,
                                     window=window)
 

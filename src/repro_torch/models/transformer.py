@@ -11,7 +11,9 @@ dim G under ``slots[i]`` (the JAX package stacks them with ``vmap`` to
 ``scan`` over them); here a written-out loop walks group g, then slot i.
 The KV cache is ``{"slots": ({"k", "v"}, ...), "pos"}``, one (G, B, Sc, K,
 hd) pair a slot; ``prefill`` and ``decode_step`` write into them in place
-and return them.
+and return them. Under sharding rules (dense and vlm only; ``api.LM``
+refuses the rest) each rank runs its block of the layers and the cache
+(``models.layers``); embeddings and logits are whole on every rank.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as SH
 from repro_torch.models.moe_layer import init_moe, moe_forward
 from repro_torch.models.params import layer_of, prefixed, unbind_layers
 
@@ -56,14 +59,35 @@ def param_specs(cfg) -> Dict[str, tuple]:
     return specs
 
 
+def local_cache(cfg, batch: int, max_len: int,
+                window: Optional[int] = None) -> tuple:
+    """The shape (G, batch, rows, KV heads, hd) of one slot's K (or V) cache
+    on this rank under the active rules: ``max_len`` / n rows where
+    ``kv_seq`` shards the sequence over n ranks (as ``cache_specs``' kv5
+    places it), and the KV heads that the rank's query heads read where
+    ``heads`` is sharded (``layers.head_plan``). ``batch`` is the rank's
+    own share of the batch. Outside a rules context, the whole cache."""
+    Sc = min(max_len, window) if window else max_len
+    seq = SH.shard_of("kv_seq")
+    if seq.size > 1:
+        if window:
+            raise NotImplementedError("a rotating window cache sharded over "
+                                      "kv_seq comes with ROADMAP A11")
+        if Sc % seq.size:
+            raise ValueError(f"max_len {Sc} does not split over the "
+                             f"{seq.size} ranks of kv_seq")
+        Sc //= seq.size
+    return (_n_groups(cfg), batch, Sc, L.head_plan(cfg).n_kv, cfg.head_dim)
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                window: Optional[int] = None, device=None) -> dict:
-    G = _n_groups(cfg)
-    Sc = min(max_len, window) if window else max_len
+    """Zeroed caches; under sharding rules this rank's block of them
+    (``local_cache``), ``batch`` its share of the batch."""
+    shape = local_cache(cfg, batch, max_len, window)
 
     def kv():
-        return torch.zeros((G, batch, Sc, cfg.n_kv_heads, cfg.head_dim),
-                           dtype=dtype, device=device)
+        return torch.zeros(shape, dtype=dtype, device=device)
     return {"slots": tuple({"k": kv(), "v": kv()} for _ in _slot_kinds(cfg)),
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 

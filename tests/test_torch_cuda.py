@@ -199,6 +199,42 @@ def test_decode_kernel_matches_plain(cuda, dtype, B, Sc, Hq, K, hd, pos,
     assert _close(out, ref)
 
 
+# B2's log-sum-exp: the decode cases, and slots with no admitted row
+# (pos < 0), among them the layout of a rank's rows in flash-decoding
+# across ranks (models/layers.py::dist_decode_attention)
+LSE_CASES = DECODE_CASES + [
+    (4, 4096, 32, 8, 128, [4088, -8, 4095, 7], None),
+    (8, 2048, 10, 1, 256, [0, -1, 300, 1023, 1024, 2047, -2, 3500], 2048),
+]
+LSE_TOL = 1e-5    # of max(1, |lse|): fp32 math on the same inputs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sc,Hq,K,hd,pos,window", LSE_CASES)
+def test_decode_kernel_writes_lse(cuda, dtype, B, Sc, Hq, K, hd, pos,
+                                  window):
+    """Both routes write the lse within 1e-5 max(1, |lse|) of the plain
+    version's, -inf where pos < 0, and the output bitwise equal to the
+    call without it."""
+    q = _randn(cuda, (B, 1, Hq, hd), dtype)
+    kc = _randn(cuda, (B, Sc, K, hd), dtype)
+    vc = _randn(cuda, (B, Sc, K, hd), dtype)
+    posd = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
+    lse = torch.full((B, Hq), float("nan"), device="cuda")
+    before = decode_attention_cuda.launches_lse
+    out = decode_attention_cuda(q, kc, vc, posd, lse=lse)
+    plain = decode_attention_cuda(q, kc, vc, posd)
+    _, ref = decode_attention_ref(q, kc, vc, posd, window=window,
+                                  return_lse=True)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches_lse == before + 1
+    assert torch.equal(out, plain)
+    empty = (posd.expand(B) < 0)[:, None].expand(B, Hq)
+    assert torch.isneginf(lse[empty]).all() and torch.isneginf(ref[empty]).all()
+    err = (lse - ref)[~empty].abs() / ref[~empty].abs().clamp(min=1.0)
+    assert float(err.max()) < LSE_TOL
+
+
 @pytest.mark.parametrize("B,S,W", SCAN_CASES)
 def test_rglru_scan_kernel_matches_plain(cuda, B, S, W):
     la = -torch.rand((B, S, W), generator=cuda, device="cuda") * 0.5
