@@ -187,6 +187,35 @@ its own lines; any failure exits non-zero without the result line:
    seconds), its peak memory and its seconds. A rank that fails, or a
    phase past 600 s, fails the run.
 
+7. the steps of ``launch/steps.py`` at Llama-3.1-8B's full width,
+   with seeded weights, bf16. 7a, one rank (a ``gloo`` world of one, mesh
+   (1, 1)), all 32 layers, through what the production serve launcher
+   calls (``build_step``, ``init_params``, ``launch.serve``'s batch set-up
+   and ``run_steps``): prefill_32k at B=1 (cut from 32; B1 at S=32768
+   into a 32768-row cache of 4.29 GB), then decode_32k at B=8 (cut from
+   128; the prefill's rows copied into each slot, position 32752, 16
+   serve steps: B2 over 32753-32768 rows a slot, 34.4 GB of cache), the
+   first step's tokens equal to ``LM.decode_step``'s on the same cache,
+   B1's 32 and B2's 512 launches all on the sm90 kernels. 7b, two
+   ``gloo`` ranks sharing the card: ``build_train_step`` under
+   ``standard_rules`` on mesh (1, 2), 16 of the 32 layers (two ranks'
+   blocks, moments, gradients and logits fit the card; all 32 would need
+   ~84 GB), B=1, S=4096, remat, 2 steps, after rank 0 ran the same steps
+   unsharded on its one-rank pool, both at the schedule's peak rate from
+   the first step; each step's loss and grad norm, and after step 2 every
+   parameter block's change from its initial value and AdamW's m and v
+   leaf by leaf, within ``TRAIN_TP_*`` of the unsharded step's; B1
+   launches forward 2 (all sm90) and backward 1 a layer a step; the
+   all-reduces (count, bytes, host seconds). 7c, the same two processes: mesh (2, 1) cut by
+   ``split_disagg_mesh(mesh, 1)`` (pools [[0]] and [[1]], as the JAX
+   split), rank 0 prefilling B=1 S=4096 in the prefill pool, rank 1
+   serving B=8 over 4096 rows for 16 steps in the decode pool, each
+   against the unsharded model's first tokens, its launches counted
+   around its steps alone (B1 32 and B2 512, all sm90). Phase 2 holds B1 at
+   S=32768 (the plain version in blocks of 1024 query rows) and B2 over
+   32768 rows at these shapes. A rank that fails, or phase 7 past 600 s,
+   fails the run.
+
 Each serve and each training run starts with the previous one's engine
 freed and the allocator's cache emptied, and prints its peak device
 memory. The seconds of each phase are printed before the table.
@@ -300,6 +329,35 @@ DIST_LAYER_STEPS = 4
 DIST_KV = {"batch": 4, "max_len": 8192, "prompt": 4088, "steps": 16}
 DIST_TP = {"train_seq": 2048, "batch": 4, "max_len": 1024, "prompt": 1000,
            "steps": 16}
+# phase 7: the steps of launch/steps.py at Llama-3.1-8B's full width. 7a:
+# prefill_32k's 32 sequences cut to 1, decode_32k's 128 to 8 (their 34.4 GB
+# of KV cache beside 16.06 GB of weights); 7b: 16 of its 32 layers, so that
+# two ranks' blocks, AdamW moments, gradients and logits fit the card; 7c:
+# the pools
+STEPS_PREFILL_BATCH = 1
+LONG_SEQ = 32768                # prefill_32k's and decode_32k's rows
+STEPS_DECODE_BATCH = 8
+STEPS_DECODE_POS = 32752        # the 16 steps write the cache's last rows
+STEPS_DECODE_STEPS = 16
+STEPS_TRAIN_LAYERS = 16
+STEPS_TRAIN_STEPS = 2
+STEPS_POOL_SEQ = 4096
+STEPS_WORLD = 2
+STEPS_TIMEOUT_S = 600
+# 7b against the unsharded step (bf16; the sharded layers all-reduce fp32
+# partial products and cast once): the loss and the grad norm relative to
+# the reference's; after the steps, each parameter leaf's change from its
+# initial value (in fp32) within a share of the reference's change (the
+# norm of the difference over the norm of the reference's), and AdamW's m
+# and v within a share of the leaf's max |ref|. The steps run at the
+# schedule's peak rate from the first (a warm-up of one step): AdamW's
+# first update moves each value with a gradient by about lr, several bf16
+# steps of a weight at the init's scale, so a missing or wrong update shows
+TRAIN_TP_WARMUP = 1
+TRAIN_TP_LOSS_TOL = 5e-3
+TRAIN_TP_GNORM_TOL = 5e-2
+TRAIN_TP_DELTA_TOL = 0.5
+TRAIN_TP_MOMENT_TOL = 0.1
 
 
 def log(msg: str) -> None:
@@ -442,14 +500,33 @@ def phase_environment(report: dict) -> str:
 # phase 2
 # ---------------------------------------------------------------------------
 
+def _flash_plain(q, k, v, causal: bool, window, blocks, return_lse=False):
+    """B1's plain version, in ``blocks`` query rows at a time where given
+    (causal, no window: each block over the keys up to its last row): at
+    S=32768 the whole would need 137 GB of fp32 scores."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    if blocks is None:
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   return_lse=return_lse)
+    assert causal and window is None
+    parts = [flash_attention_ref(q[:, i:i + blocks], k[:, :i + blocks],
+                                 v[:, :i + blocks], causal=True,
+                                 q_pos_offset=i, return_lse=True)
+             for i in range(0, q.shape[1], blocks)]
+    out = torch.cat([o for o, _ in parts], 1)
+    if not return_lse:
+        return out
+    return out, torch.cat([lse for _, lse in parts], 2)
+
+
 def _flash_case(S: int, window, dtype, gen, heads, causal: bool = True,
-                B: int = 1, Sq=None) -> dict:
+                B: int = 1, Sq=None, plain_blocks=None) -> dict:
     """B1 at B x (Sq query rows over S keys; Sq = S unless given), causal
-    (queries at the first positions) or not."""
+    (queries at the first positions) or not; the plain version in
+    ``plain_blocks`` query rows at a time where given."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     HQ, KV, HD = heads
     Sq = S if Sq is None else Sq
     q = torch.randn((B, Sq, HQ, HD), generator=gen, device="cuda").to(dtype)
@@ -465,7 +542,7 @@ def _flash_case(S: int, window, dtype, gen, heads, causal: bool = True,
                                     lse=lse)
 
     def plain():
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return _flash_plain(q, k, v, causal, window, plain_blocks)
     sm90 = flash_attention_cuda.launches_sm90
     out, ref = kern(), plain()
     route = "sm90 wgmma" if flash_attention_cuda.launches_sm90 > sm90 else \
@@ -474,8 +551,8 @@ def _flash_case(S: int, window, dtype, gen, heads, causal: bool = True,
     # L, which the backward reads: against the plain L, and the output
     # with it bit for bit the output without it
     same = bool(torch.equal(kern_lse(), out))
-    plain_lse = flash_attention_ref(q, k, v, causal=causal, window=window,
-                                    return_lse=True)[1]
+    plain_lse = _flash_plain(q, k, v, causal, window, plain_blocks,
+                             return_lse=True)[1]
     lse_err = float(((lse - plain_lse).abs() /
                      plain_lse.abs().clamp(min=1.0)).max())
     ok = ok and same and lse_err <= LSE_TOL
@@ -1169,6 +1246,23 @@ def _scan_bwd_case(B: int, S: int, W: int, gen) -> dict:
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
 
+def _long_cases(gen, cases: dict, main: dict) -> None:
+    """Phase 7a's shapes: B1 at prefill_32k's S=32768 (Llama's 32 over 8
+    heads, causal; the plain version in blocks of 1024 query rows) and B2
+    over decode_32k's 32768 rows, B=8, at the serve's first position
+    32752 and at others up to the cache's last row."""
+    bf16 = torch.bfloat16
+    c = _flash_case(LONG_SEQ, None, bf16, gen, LLAMA_HEADS,
+                    plain_blocks=1024)
+    cases["flash_attention"].append(c)
+    main["flash_attention_32k"] = c
+    c = _decode_case([STEPS_DECODE_POS, LONG_SEQ - 1, 32760, 16383, 0, 32000,
+                      24575, LONG_SEQ - 2], None, bf16, gen, LLAMA_HEADS,
+                     Sc=LONG_SEQ, B=STEPS_DECODE_BATCH)
+    cases["decode_attention"].append(c)
+    main["decode_attention_32k"] = c
+
+
 def phase_kernels(report: dict) -> dict:
     """Returns the main-path case of each kernel, for the table: bf16
     attention at the llama serve's shapes, the scan at the hybrid serve's
@@ -1259,6 +1353,7 @@ def phase_kernels(report: dict) -> dict:
                      LLAMA_TP_HEADS, Sc=1024, B=4)
     cases["decode_attention"].append(c)
     main["decode_attention_tp"] = c
+    _long_cases(gen, cases, main)
     # what cuda_ms reads for a call that does next to nothing: the floor
     # under the short scans' times
     one = torch.zeros(1, device="cuda")
@@ -2517,6 +2612,522 @@ def phase_dist(report: dict) -> dict:
                         + launches("tp_train", "flash_attention")}}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the steps of launch/steps.py
+# ---------------------------------------------------------------------------
+
+def _step_counters(reset: bool = False) -> dict:
+    """B1 forward (all, sm90), B1 backward, B2 (all, sm90) and the
+    all-reduces (count, bytes, host seconds), set to 0 where ``reset``."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda,
+    )
+    out = _counters(reset)
+    if reset:
+        flash_attention_bwd_cuda.launches = 0
+    out["flash_attention_bwd.launches"] = flash_attention_bwd_cuda.launches
+    return out
+
+
+def _peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_steps_serve(report: dict) -> dict:
+    """7a: Llama-3.1-8B at full width and depth on a one-rank mesh (1, 1),
+    through what the production serve launcher calls: ``build_step`` of
+    prefill_32k at B=1 (B1 at S=32768, a 32768-row cache), then
+    decode_32k at B=8, the prefill's rows copied into every slot at
+    position 32752, 16 serve steps (B2 over 32753-32768 rows a slot). The
+    first serve step's tokens must equal ``LM.decode_step``'s on the same
+    cache (the same layers, the rules' axes all of size 1). Returns the
+    launches by path."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.launch.mesh import init_world, make_smoke_mesh
+    from repro_torch.launch.serve import (cut_shape, first_tokens,
+                                          prompt_batch, run_steps)
+    from repro_torch.launch.steps import build_step, init_params, materialize
+    from repro_torch.models import LM
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    import os
+    rdv = ROOT / "build" / f"steps_rdv_1_{os.getpid()}"
+    rdv.parent.mkdir(exist_ok=True)
+    rdv.unlink(missing_ok=True)
+    init_world(rdv=f"file://{rdv}")
+    res: dict = {}
+    try:
+        mesh = make_smoke_mesh(device="cuda:0")
+        cfg = get_config("llama3.1-8b")
+        pshape = cut_shape(INPUT_SHAPES["prefill_32k"], STEPS_PREFILL_BATCH)
+        pre = build_step(cfg, mesh, pshape)
+        params = init_params(cfg, pre, torch.Generator(
+            device="cuda").manual_seed(0), "cuda")
+        batch = prompt_batch(cfg, pre, pshape, 0, "cuda")
+        cache = materialize(pre.args[2], "cuda")
+        _step_counters(reset=True)
+        tokens, walls = run_steps(pre, params, batch, cache, 1, "cuda")
+        pc = _step_counters()
+        res["prefill"] = {"wall_s": walls[0], "counters": pc,
+                          "cache_gb": sum(t.numel() * t.element_size() for t
+                                          in _leaves(cache)) / 1e9,
+                          "tokens": tokens[0].tolist()}
+        log(f"[steps] 7a prefill_32k B={pshape.global_batch} (cut from "
+            f"{INPUT_SHAPES['prefill_32k'].global_batch}): "
+            f"{walls[0]:.3f} s; B1 launches {pc['flash_attention.launches']}"
+            f" ({pc['flash_attention.launches_sm90']} sm90); cache "
+            f"{res['prefill']['cache_gb']:.2f} GB; tokens "
+            f"{res['prefill']['tokens']}")
+        dshape = cut_shape(INPUT_SHAPES["decode_32k"], STEPS_DECODE_BATCH)
+        dec = build_step(cfg, mesh, dshape)
+        dcache = materialize(dec.args[2], "cuda")
+        for src, dst in zip(cache["slots"], dcache["slots"]):
+            for name in ("k", "v"):
+                dst[name].copy_(src[name].expand_as(dst[name]))
+        del cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        pos = torch.tensor(STEPS_DECODE_POS, dtype=torch.int32, device="cuda")
+        dcache["pos"] = pos
+        first = first_tokens(cfg, dec, dshape, 0, "cuda")
+        # the reference: the unsharded model's step on the same cache (it
+        # writes row pos, which the serve step then writes with the same
+        # values)
+        logits, _ = LM(cfg).decode_step(params, first, dcache)
+        ref = logits.argmax(-1).to(torch.int32)
+        dcache["pos"] = pos.clone()
+        _step_counters(reset=True)
+        tokens, walls = run_steps(dec, params, first, dcache,
+                                  STEPS_DECODE_STEPS, "cuda")
+        dc = _step_counters()
+        same = bool(torch.equal(tokens[0], ref))
+        res["serve"] = {"walls_s": walls, "counters": dc,
+                        "first_tokens_equal_reference": same,
+                        "cache_gb": sum(t.numel() * t.element_size() for t
+                                        in _leaves(dcache)) / 1e9,
+                        "tokens_per_s": dshape.global_batch * len(walls)
+                        / sum(walls)}
+        want = cfg.n_layers * STEPS_DECODE_STEPS
+        log(f"[steps] 7a decode_32k B={dshape.global_batch} (cut from "
+            f"{INPUT_SHAPES['decode_32k'].global_batch}) over "
+            f"{dshape.seq_len} rows from position {STEPS_DECODE_POS}: "
+            f"{STEPS_DECODE_STEPS} steps, median "
+            f"{np.median(walls) * 1e3:.1f} ms (first {walls[0] * 1e3:.1f}), "
+            f"{res['serve']['tokens_per_s']:.1f} tokens/s; B2 launches "
+            f"{dc['decode_attention.launches']} "
+            f"({dc['decode_attention.launches_sm90']} sm90, {want} "
+            f"expected); cache {res['serve']['cache_gb']:.2f} GB; first "
+            f"step's tokens equal LM.decode_step's: {same}")
+        res["peak_gb"] = _peak_gb()
+        res["seconds"] = time.perf_counter() - t_start
+        log(f"[steps] 7a: peak {res['peak_gb']:.2f} GB; "
+            f"{res['seconds']:.1f} s")
+        del params, dcache
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["steps_serve"] = res
+    bad = []
+    if pc["flash_attention.launches_sm90"] != cfg.n_layers or \
+            pc["flash_attention.launches"] != cfg.n_layers:
+        bad.append(f"prefill B1 launches {pc['flash_attention.launches']}")
+    if dc["decode_attention.launches_sm90"] != want or \
+            dc["decode_attention.launches"] != want:
+        bad.append(f"serve B2 launches {dc['decode_attention.launches']}")
+    if not same:
+        bad.append("the first serve step's tokens differ from "
+                   "LM.decode_step's")
+    if bad:
+        raise SystemExit(f"phase 7a: {bad}")
+    return {"steps-prefill": {"flash_attention": pc[
+                "flash_attention.launches"]},
+            "steps-serve": {"decode_attention": dc[
+                "decode_attention.launches"]}}
+
+
+def _leaf_err(a: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((a.float() - ref.float()).abs().max())
+
+
+def _train_tp_check(rank: int, blocks: dict, params, opt, init: dict,
+                    ref) -> dict:
+    """7b's leaf-by-leaf check of the ranks' blocks against rank 0's
+    unsharded reference: each parameter's change from ``init`` (this
+    rank's parameters before the steps, on the host), AdamW's m and v.
+    ``ref`` (rank 0 only): part -> path -> the unsharded leaf on the host,
+    for the parts "params", "init", "m" and "v". The other ranks send
+    their blocks to rank 0 (through the host), which cuts each reference
+    leaf to the sender's block (model coordinate = rank on the (1, n)
+    mesh) and compares on the card. Returns rank 0's worst errors over the
+    tolerances and the share of compared parameter values that moved."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import shardspecs as SS
+    from repro_torch.models.params import flatten
+    flat = {"params": flatten(params), "m": flatten(opt["m"]),
+            "v": flatten(opt["v"])}
+    device = flat["params"]["embed"].device
+
+    def mine(part, key):
+        if part == "delta":
+            return flat["params"][key].float() - init[key].to(device).float()
+        return flat[part][key]
+
+    def want(part, key, src):
+        def leaf(name):
+            t = ref[name][key]
+            if key in blocks:
+                t = SS.cut(t, tuple(
+                    (start + src * n if n != full else 0, n)
+                    for (start, n), full in zip(blocks[key][0], t.shape)))
+            return t.to(device)
+        if part == "delta":
+            return leaf("params").float() - leaf("init").float()
+        return leaf(part)
+
+    worst = {"delta": 0.0, "m": 0.0, "v": 0.0}
+    failed = []
+    moved = compared = 0
+    for part in ("delta", "m", "v"):
+        for key in sorted(flat["params"]):
+            got_here = mine(part, key)
+            if rank:
+                dist.send(got_here.cpu(), dst=0)
+                continue
+            for src in range(dist.get_world_size()):
+                got = got_here
+                if src:
+                    got = torch.empty(got_here.shape, dtype=got_here.dtype)
+                    dist.recv(got, src=src)
+                    got = got.to(device)
+                ref_t = want(part, key, src)
+                if part == "delta":
+                    scale = float(torch.linalg.vector_norm(ref_t))
+                    err = float(torch.linalg.vector_norm(got - ref_t))
+                    tol = TRAIN_TP_DELTA_TOL * scale
+                    moved += int(torch.count_nonzero(ref_t))
+                    compared += ref_t.numel()
+                else:
+                    err = _leaf_err(got, ref_t)
+                    tol = TRAIN_TP_MOMENT_TOL * float(
+                        ref_t.float().abs().max())
+                worst[part] = max(worst[part], err / tol if tol else
+                                  (0.0 if err == 0 else math.inf))
+                if err > tol:
+                    failed.append((part, key, src, err, tol))
+    return {"worst_over_tol": worst, "failed": failed[:20],
+            "n_failed": len(failed),
+            "moved_share": moved / compared if compared else None}
+
+
+def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
+    """One rank of 7b and 7c on cuda:0 in a gloo world of two. 7b:
+    Llama-3.1-8B at full width and STEPS_TRAIN_LAYERS layers, rank 0 first
+    training it unsharded through ``build_train_step`` on its one-rank
+    pool (rank 1 waiting, nothing allocated), then both on the (1, 2)
+    mesh under ``standard_rules``, held against the reference. 7c: the
+    (2, 1) mesh cut by ``split_disagg_mesh(mesh, 1)``, rank 0 prefilling
+    in the prefill pool, rank 1 decoding in the decode pool. Writes its
+    results to ``out_dir/steps_rank<rank>.json``."""
+    import dataclasses as dc
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import INPUT_SHAPES, InputShape
+    from repro_torch.launch.mesh import make_mesh, split_disagg_mesh
+    from repro_torch.launch.serve import (first_tokens, primed_cache,
+                                          prompt_batch, run_steps)
+    from repro_torch.launch.shardspecs import param_blocks
+    from repro_torch.launch.steps import (build_step, build_train_step,
+                                          init_params, materialize)
+    from repro_torch.launch.train import local_batches
+    from repro_torch.models import LM
+    from repro_torch.models.params import flatten
+    from repro_torch.training.optimizer import AdamWConfig
+    t_start = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{rdv}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=STEPS_TIMEOUT_S))
+    mesh12 = make_mesh((1, world), ("data", "model"), backend="gloo",
+                       device="cuda:0")
+    mesh21 = make_mesh((world, 1), ("data", "model"), backend="gloo",
+                       device="cuda:0")
+    pools = split_disagg_mesh(mesh21, 1)
+    own = pools[0] if pools[0].get_coordinate() is not None else pools[1]
+    res = {"rank": rank, "pools": [p.mesh.tolist() for p in pools]}
+    full = get_config("llama3.1-8b")
+    cfg = dc.replace(full, n_layers=STEPS_TRAIN_LAYERS)
+    shape = dc.replace(INPUT_SHAPES["train_4k"], global_batch=1)
+    opt_cfg = AdamWConfig(state_dtype=torch.bfloat16,
+                          warmup_steps=TRAIN_TP_WARMUP)
+
+    def train(built, tag):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = init_params(cfg, built, gen, "cuda")
+        init = {k: t.to("cpu", copy=True)
+                for k, t in flatten(params).items()}
+        opt = materialize(built.args[1], "cuda")
+        batches = local_batches(cfg, built, shape, 0, "cuda")
+        steps = []
+        _step_counters(reset=True)
+        for i in range(STEPS_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = built.fn(params, opt, next(batches))
+            m = {k: float(v) for k, v in m.items()}
+            m["wall_s"] = time.perf_counter() - t0
+            steps.append(m)
+            log(f"[steps r{rank}] 7b {tag} step {i}: {m['wall_s']:.2f} s, "
+                f"loss {m['loss']:.6f}, grad norm {m['grad_norm']:.6f}, "
+                f"lr {m['lr']:.3g}")
+        return params, opt, init, steps, _step_counters()
+
+    # 7b's reference: unsharded, on rank 0's one-rank pool, before rank 1
+    # allocates anything
+    torch.cuda.reset_peak_memory_stats()
+    ref = None
+    if rank == 0:
+        built = build_train_step(cfg, own, shape, opt_cfg=opt_cfg)
+        params, opt, init, steps, counts = train(built, "unsharded")
+        ref = {"params": {k: t.cpu() for k, t in flatten(params).items()},
+               "init": init,
+               "m": {k: t.cpu() for k, t in flatten(opt["m"]).items()},
+               "v": {k: t.cpu() for k, t in flatten(opt["v"]).items()}}
+        res["train_ref"] = {"steps": steps, "counters": counts,
+                            "peak_gb": _peak_gb()}
+        del params, opt, init, built
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref_steps = [torch.tensor([s["loss"], s["grad_norm"]], dtype=torch.float64)
+                 for s in (res["train_ref"]["steps"] if rank == 0 else
+                           [{"loss": 0.0, "grad_norm": 0.0}] *
+                           STEPS_TRAIN_STEPS)]
+    for t in ref_steps:
+        dist.broadcast(t, src=0)
+    torch.cuda.reset_peak_memory_stats()
+    built = build_train_step(cfg, mesh12, shape, opt_cfg=opt_cfg)
+    params, opt, init, steps, counts = train(built, "tensor-parallel")
+    checks = []
+    for s, want in zip(steps, ref_steps):
+        loss_err = abs(s["loss"] - float(want[0])) / abs(float(want[0]))
+        gn_err = abs(s["grad_norm"] - float(want[1])) / abs(float(want[1]))
+        checks.append({"loss_rel": loss_err, "grad_norm_rel": gn_err,
+                       "ok": loss_err <= TRAIN_TP_LOSS_TOL and
+                       gn_err <= TRAIN_TP_GNORM_TOL})
+    n_local = sum(t.numel() for t in flatten(params).values())
+    res["train_tp"] = {"steps": steps, "counters": counts, "checks": checks,
+                       "local_parameters": n_local, "peak_gb": _peak_gb()}
+    for i, c in enumerate(checks):
+        log(f"[steps r{rank}] 7b step {i} against unsharded: loss "
+            f"{c['loss_rel']:.3g} (tol {TRAIN_TP_LOSS_TOL}), grad norm "
+            f"{c['grad_norm_rel']:.3g} (tol {TRAIN_TP_GNORM_TOL}) of the "
+            f"reference's: {c['ok']}")
+    log(f"[steps r{rank}] 7b: {n_local} parameters on this rank; B1 "
+        f"forward {counts['flash_attention.launches']} "
+        f"({counts['flash_attention.launches_sm90']} sm90), backward "
+        f"{counts['flash_attention_bwd.launches']}; all-reduces "
+        f"{counts['all_reduce.calls']} ({counts['all_reduce.bytes']} bytes, "
+        f"{counts['all_reduce.seconds']:.2f} host s); peak "
+        f"{res['train_tp']['peak_gb']:.2f} GB")
+    t0 = time.perf_counter()
+    leaves = _train_tp_check(rank, param_blocks(cfg, mesh12), params, opt,
+                             init, ref)
+    res["train_tp"]["leaves"] = leaves
+    res["train_tp"]["leaf_check_s"] = time.perf_counter() - t0
+    if rank == 0:
+        log(f"[steps r0] 7b after step {STEPS_TRAIN_STEPS}: every rank's "
+            f"parameter blocks' change from their initial values, AdamW m "
+            f"and v against the unsharded step's, leaf by leaf: worst error "
+            f"over its tolerance {leaves['worst_over_tol']} (the change "
+            f"within {TRAIN_TP_DELTA_TOL} of the norm of the reference's, "
+            f"m and v within {TRAIN_TP_MOMENT_TOL} max |ref|); "
+            f"{leaves['n_failed']} leaves past it; the steps moved "
+            f"{leaves['moved_share']:.4f} of the compared parameter values; "
+            f"{res['train_tp']['leaf_check_s']:.1f} s")
+    del params, opt, init, built, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    # 7c: the disaggregated pools
+    torch.cuda.reset_peak_memory_stats()
+    res["pool"] = own.mesh.tolist()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lm = LM(full)
+    if own is pools[0]:
+        pshape = InputShape("prefill_4k", STEPS_POOL_SEQ, 1, "prefill")
+        built = build_step(full, own, pshape)
+        params = init_params(full, built, gen, "cuda")
+        batch = prompt_batch(full, built, pshape, 0, "cuda")
+        _step_counters(reset=True)
+        tokens, walls = run_steps(built, params, batch,
+                                  materialize(built.args[2], "cuda"), 1,
+                                  "cuda")
+        counts = _step_counters()
+        logits, _ = lm.prefill(params, batch, materialize(built.args[2],
+                                                          "cuda"))
+        same = bool(torch.equal(tokens[0], logits.argmax(-1).to(torch.int32)))
+        what = f"prefill B=1 S={STEPS_POOL_SEQ}"
+    else:
+        dshape = InputShape("decode_4k", STEPS_POOL_SEQ, STEPS_DECODE_BATCH,
+                            "decode")
+        built = build_step(full, own, dshape)
+        params = init_params(full, built, gen, "cuda")
+        pos = STEPS_POOL_SEQ - STEPS_DECODE_STEPS
+        cache = primed_cache(built, torch.Generator(device="cuda")
+                             .manual_seed(1), "cuda", pos)
+        first = first_tokens(full, built, dshape, 0, "cuda")
+        logits, _ = lm.decode_step(params, first, cache)
+        cache["pos"] = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        _step_counters(reset=True)
+        tokens, walls = run_steps(built, params, first, cache,
+                                  STEPS_DECODE_STEPS, "cuda")
+        counts = _step_counters()
+        same = bool(torch.equal(tokens[0], logits.argmax(-1).to(torch.int32)))
+        what = (f"serve B={STEPS_DECODE_BATCH} over {STEPS_POOL_SEQ} rows, "
+                f"{STEPS_DECODE_STEPS} steps from position {pos}")
+    res["pool_run"] = {"what": what, "walls_s": walls, "counters": counts,
+                       "first_tokens_equal_reference": same,
+                       "peak_gb": _peak_gb(),
+                       "seconds": time.perf_counter() - t0}
+    log(f"[steps r{rank}] 7c pools {res['pools']} (prefill, decode); this "
+        f"rank's pool {res['pool']}: {what}: median "
+        f"{np.median(walls) * 1e3:.1f} ms a call; B1 "
+        f"{counts['flash_attention.launches']}, B2 "
+        f"{counts['decode_attention.launches']} launches; first tokens "
+        f"equal the unsharded model's: {same}; peak "
+        f"{res['pool_run']['peak_gb']:.2f} GB")
+    del params, built
+    res["seconds"] = time.perf_counter() - t_start
+    Path(out_dir, f"steps_rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def phase_steps_ranks(report: dict) -> dict:
+    """7b and 7c: two gloo ranks sharing the card (``_steps_rank``), spawned
+    with ``torch.multiprocessing``; fails if a rank fails, outlasts what
+    is left of STEPS_TIMEOUT_S or finds a result off. Returns the launches
+    by path."""
+    import os
+
+    import torch.multiprocessing as mp
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    rdv = out_dir / f"steps_rdv_{os.getpid()}"
+    rdv.unlink(missing_ok=True)
+    for r in range(STEPS_WORLD):
+        (out_dir / f"steps_rank{r}.json").unlink(missing_ok=True)
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_steps_rank,
+                         args=(r, STEPS_WORLD, str(rdv), str(out_dir)))
+             for r in range(STEPS_WORLD)]
+    for p in procs:
+        p.start()
+    limit = STEPS_TIMEOUT_S - report["steps_serve"]["seconds"]
+    while any(p.is_alive() for p in procs):
+        if time.perf_counter() - t0 > limit or any(
+                p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+        p.join(10)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    rdv.unlink(missing_ok=True)
+    secs = time.perf_counter() - t0
+    bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
+    if bad:
+        raise SystemExit(f"phase 7b/7c: ranks failed or outlasted "
+                         f"{limit:.0f} s (exit codes {bad})")
+    ranks = [json.loads((out_dir / f"steps_rank{r}.json").read_text())
+             for r in range(STEPS_WORLD)]
+    report["steps_ranks"] = {"seconds": secs, "ranks": ranks}
+    problems = []
+    for r in ranks:
+        if not all(c["ok"] for c in r["train_tp"]["checks"]):
+            problems.append(f"rank {r['rank']}: loss or grad norm off")
+        if not r["pool_run"]["first_tokens_equal_reference"]:
+            problems.append(f"rank {r['rank']}: 7c tokens off")
+        if r["pools"] != [[[0]], [[1]]]:
+            problems.append(f"pools {r['pools']}")
+    leaves = ranks[0]["train_tp"]["leaves"]
+    if leaves["n_failed"]:
+        problems.append(f"{leaves['n_failed']} leaves off: "
+                        f"{leaves['failed'][:5]}")
+    # each pool's launches, all of them and the sm90 kernel's: one prefill
+    # of 32 layers, 16 serve steps of 32
+    pool = [ranks[0]["pool_run"]["counters"], ranks[1]["pool_run"]["counters"]]
+    got = {"B1 in the prefill pool": (
+               pool[0]["flash_attention.launches"],
+               pool[0]["flash_attention.launches_sm90"], 32),
+           "B2 in the decode pool": (
+               pool[1]["decode_attention.launches"],
+               pool[1]["decode_attention.launches_sm90"],
+               32 * STEPS_DECODE_STEPS),
+           "B2 in the prefill pool": (pool[0]["decode_attention.launches"],
+                                      0, 0),
+           "B1 in the decode pool": (pool[1]["flash_attention.launches"],
+                                     0, 0)}
+    for what, (n, n_sm90, expected) in got.items():
+        if not n == n_sm90 == expected:
+            problems.append(f"7c launches: {what} {n} ({n_sm90} sm90), "
+                            f"{expected} expected")
+    per_layer = STEPS_TRAIN_LAYERS * STEPS_TRAIN_STEPS
+    fwd = [(r["train_tp"]["counters"]["flash_attention.launches"],
+            r["train_tp"]["counters"]["flash_attention.launches_sm90"])
+           for r in ranks]
+    bwd = [r["train_tp"]["counters"]["flash_attention_bwd.launches"]
+           for r in ranks]
+    if fwd != [(2 * per_layer,) * 2] * STEPS_WORLD or \
+            bwd != [per_layer] * STEPS_WORLD:
+        problems.append(f"B1 launches forward {fwd}, backward {bwd}")
+    log(f"[steps] 7b/7c in {secs:.1f} s; peak GB by rank: reference "
+        f"{ranks[0]['train_ref']['peak_gb']:.2f}, tensor-parallel "
+        f"{[round(r['train_tp']['peak_gb'], 2) for r in ranks]}, pools "
+        f"{[round(r['pool_run']['peak_gb'], 2) for r in ranks]}")
+    if problems:
+        raise SystemExit(f"phase 7b/7c: {problems}")
+
+    def total(run, name):
+        return sum(r[run]["counters"][f"{name}.launches"] for r in ranks)
+    return {"steps-train-tp": {
+                "flash_attention": total("train_tp", "flash_attention"),
+                "flash_attention_bwd": total("train_tp",
+                                             "flash_attention_bwd")},
+            "steps-pools": {
+                "flash_attention": total("pool_run", "flash_attention"),
+                "decode_attention": total("pool_run", "decode_attention")}}
+
+
+def phase_steps(report: dict) -> dict:
+    """Phase 7: 7a, then 7b and 7c; fails past STEPS_TIMEOUT_S."""
+    t0 = time.perf_counter()
+    by_path = phase_steps_serve(report)
+    by_path.update(phase_steps_ranks(report))
+    secs = time.perf_counter() - t0
+    log(f"[steps] phase 7 in {secs:.1f} s (7a {report['steps_serve']['seconds']:.1f}, "
+        f"7b and 7c {report['steps_ranks']['seconds']:.1f})")
+    if secs > STEPS_TIMEOUT_S:
+        raise SystemExit(f"phase 7 took {secs:.0f} s, past "
+                         f"{STEPS_TIMEOUT_S}")
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2590,6 +3201,9 @@ def main() -> int:
     t0 = time.perf_counter()
     by_path.update(phase_dist(report))
     secs["6 dist"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    by_path.update(phase_steps(report))
+    secs["7 steps"] = time.perf_counter() - t0
     log(f"[time] seconds by phase: "
         f"{ {k: round(v, 1) for k, v in secs.items()} }")
     report["phase_s"] = secs
@@ -2643,6 +3257,15 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:84",
          "case": "flash_attention_tp", "path": "dist-tp"},
+        # phase 7a: B1 at prefill_32k's S, B2 over decode_32k's rows
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:84",
+         "case": "flash_attention_32k", "path": "steps-prefill"},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention_sm90.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
+         "case": "decode_attention_32k", "path": "steps-serve"},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:54"},

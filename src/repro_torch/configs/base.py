@@ -1,7 +1,8 @@
 """Model architecture configs for the PyTorch port.
 
 A copy of the JAX package's ``ModelConfig`` (same fields, same
-``reduced()``), so the port depends on nothing in ``repro``. Each ported
+``reduced()``), ``InputShape``, ``INPUT_SHAPES`` and ``ARCH_IDS``, so the
+port depends on nothing in ``repro``. Each ported
 architecture has one module in ``repro_torch/configs`` exporting ``CONFIG``
 (the exact published shape, cited).
 """
@@ -191,6 +192,34 @@ class ModelConfig:
     def with_window(self, window: int) -> "ModelConfig":
         return dataclasses.replace(self, window=window)
 
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+ARCH_IDS = (
+    "qwen1_5_4b",
+    "granite_3_8b",
+    "llama3_405b",
+    "starcoder2_15b",
+    "llama4_maverick",
+    "whisper_large_v3",
+    "xlstm_350m",
+    "recurrentgemma_2b",
+    "phi3_5_moe",
+    "chameleon_34b",
+)
 
 # CLI-facing aliases (the assignment spells them with dots/dashes)
 ARCH_ALIASES = {

@@ -6,17 +6,56 @@
 ``gloo`` on the CPU and for ranks that share one card, ``nccl`` for one rank
 per card. The caller initialises ``torch.distributed`` (its rendezvous, rank
 and world size) first; nothing here reads a cluster's environment.
-``make_production_mesh`` and ``split_disagg_mesh`` come with ROADMAP A11.
+``make_production_mesh`` is the JAX package's (16, 16) or (2, 16, 16) mesh
+over a world of that many ranks; ``split_disagg_mesh`` cuts a mesh's data
+axis into the prefill and decode pools.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import atexit
+import datetime
+import os
+import shutil
+import tempfile
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
-from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 BACKENDS = ("gloo", "nccl")
+# how long a collective of the launchers' world waits for its ranks
+TIMEOUT_S = 600.0
+
+
+def init_world(*, rank: int = 0, world: int = 1,
+               rdv: Optional[str] = None) -> None:
+    """Initialise ``torch.distributed``'s default process group on
+    ``gloo``: ``world`` ranks meeting at ``rdv`` (an ``init_method`` URL: ``file://PATH`` or
+    ``tcp://localhost:PORT``), this process rank ``rank``. A world of one
+    needs no rendezvous: it meets at a file in a new temporary directory."""
+    if rdv is None:
+        if world != 1:
+            raise ValueError(f"a world of {world} ranks needs a rendezvous "
+                             "(--rdv file://PATH or tcp://HOST:PORT)")
+        tmp = tempfile.mkdtemp()
+        atexit.register(shutil.rmtree, tmp, True)
+        rdv = "file://" + os.path.join(tmp, "rdv")
+    dist.init_process_group("gloo", init_method=rdv, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=TIMEOUT_S))
+
+
+def parse_mesh(text: str) -> Tuple[int, ...]:
+    """"DxM" (or "PxDxM") -> the mesh's shape."""
+    try:
+        shape = tuple(int(n) for n in text.lower().split("x"))
+    except ValueError:
+        shape = ()
+    if len(shape) not in (2, 3) or min(shape) < 1:
+        raise ValueError(f"mesh {text!r}: write DxM (data x model) or PxDxM")
+    return shape
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *, backend: str,
@@ -46,6 +85,8 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, backend: str,
         raise ValueError(f"mesh {tuple(shape)} holds {n} ranks; the world "
                          f"has {dist.get_world_size()}")
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     if backend == "nccl" and device.type != "cuda":
         raise ValueError("nccl needs one CUDA device a rank")
     if device.type == "cuda":
@@ -53,6 +94,77 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, backend: str,
     return init_device_mesh(
         device.type, tuple(shape), mesh_dim_names=tuple(axes),
         backend_override={a: backend for a in axes})
+
+
+def make_production_mesh(*, multi_pod: bool = False, backend: str,
+                         device):
+    """The production mesh: (16, 16) over ("data", "model"), or (2, 16, 16)
+    over ("pod", "data", "model"), one rank a device. Raises unless the
+    world has that many ranks; it never builds a smaller mesh instead."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = int(np.prod(shape))
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n:
+        raise ValueError(f"the production mesh {shape} needs a world of {n} "
+                         f"ranks, one a device; this one has {world}: pass "
+                         "another --mesh for a smaller world")
+    return make_mesh(shape, axes, backend=backend, device=device)
+
+
+def split_disagg_mesh(mesh, n_prefill: int):
+    """Split the data axis of a mesh into prefill/decode sub-meshes: the
+    prefill pool the data coordinates [0, n_prefill), the decode pool
+    [n_prefill, data), each a ``DeviceMesh`` with the mesh's axis names
+    and its ranks in the order ``np.take`` of the JAX function gives them
+    (the paper's prefill/decode GPU pools as a partition of the data
+    axis). Every rank of the mesh must call it, with the same arguments:
+    making a sub-mesh's process groups is a collective over the whole
+    world, so each rank builds both pools, in the same order. A rank's own
+    pool is the one whose ``get_coordinate()`` is not None."""
+    ranks = mesh.mesh.cpu().numpy()         # (data, model) or (pod, data, model)
+    names = tuple(mesh.mesh_dim_names)
+    axis = names.index("data")
+    assert 0 < n_prefill < ranks.shape[axis]
+    backend = dist.get_backend(mesh.get_group(names[0]))
+    override = tuple((backend, None) for _ in names)
+
+    def take(sl):
+        return DeviceMesh(mesh.device_type,
+                          torch.tensor(np.take(ranks, sl, axis=axis)),
+                          mesh_dim_names=names, backend_override=override)
+    pre = take(range(n_prefill))
+    dec = take(range(n_prefill, ranks.shape[axis]))
+    return pre, dec
+
+
+def add_mesh_args(ap) -> None:
+    """A launcher's mesh options: the mesh, and this process's place in the
+    world (one rank a process)."""
+    ap.add_argument("--mesh", default="production",
+                    help="'production' (16x16, a world of 256 ranks) or DxM "
+                         "(data x model), e.g. 1x1 for one process")
+    ap.add_argument("--rank", type=int, default=0)
+    ap.add_argument("--world", type=int, default=1)
+    ap.add_argument("--rdv", default=None,
+                    help="rendezvous URL (file://PATH or tcp://HOST:PORT); "
+                         "a world of one needs none")
+
+
+def launcher_mesh(args, device):
+    """The mesh of a launcher's options (``add_mesh_args``) over a ``gloo``
+    world it initialises; ``device`` is this rank's device."""
+    init_world(rank=args.rank, world=args.world, rdv=args.rdv)
+    try:
+        if args.mesh == "production":
+            return make_production_mesh(backend="gloo", device=device)
+        shape = parse_mesh(args.mesh)
+        axes = ("data", "model") if len(shape) == 2 else \
+            ("pod", "data", "model")
+        return make_mesh(shape, axes, backend="gloo", device=device)
+    except BaseException:
+        dist.destroy_process_group()
+        raise
 
 
 def make_smoke_mesh(*, backend: str = "gloo", device="cpu"):

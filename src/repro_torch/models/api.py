@@ -55,7 +55,7 @@ class LM:
         if SH.active() and self.cfg.family not in SH.SHARDED_FAMILIES:
             raise NotImplementedError(
                 f"{self.cfg.name}: the {self.cfg.family} family under "
-                "sharding rules comes with ROADMAP A11")
+                "sharding rules comes with ROADMAP A12")
 
     # -- params / cache ------------------------------------------------------
     def init(self, generator: torch.Generator, dtype=torch.float32,
@@ -93,6 +93,14 @@ class LM:
     # -- losses ---------------------------------------------------------------
     def loss(self, params, batch, *, window=None, remat=True):
         """Causal LM loss: tokens predict labels; labels < 0 are masked."""
+        nll, count, aux = self.loss_terms(params, batch, window=window,
+                                          remat=remat)
+        return nll / count.clamp(min=1.0) + MOE_AUX_WEIGHT * aux
+
+    def loss_terms(self, params, batch, *, window=None, remat=True):
+        """(the summed NLL of the unmasked labels, their count, the MoE FFNs'
+        aux loss): ``loss`` is sum / max(count, 1) + MOE_AUX_WEIGHT aux. A
+        sharded step sums the first two over the batch's ranks."""
         logits, aux = self.forward_train(params, batch, window=window,
                                          remat=remat)
         labels = batch["labels"]
@@ -100,5 +108,4 @@ class LM:
         gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long()
                             )[..., 0].float()
         mask = (labels >= 0).float()
-        loss = ((lse - gold) * mask).sum() / mask.sum().clamp(min=1.0)
-        return loss + MOE_AUX_WEIGHT * aux
+        return ((lse - gold) * mask).sum(), mask.sum(), aux

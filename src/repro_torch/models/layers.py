@@ -23,6 +23,12 @@ attention output's and the FFN's partial products in the activation dtype
 (``tp_attn_out``, ``tp_mlp_forward``), where otherwise, as GSPMD does for
 the JAX functions, the partial product is formed and all-reduced in fp32
 and cast once.
+
+The collectives differentiate (``models.sharding``), so the layers train
+under the same rules: where a replicated activation enters a block whose
+work is cut (the projections of the rank's heads, the FFN's d_ff columns),
+``sharding.entry`` sums its gradient over the axis. The leaves a rank holds
+whole but uses only in part are ``partial_leaves``.
 """
 from __future__ import annotations
 
@@ -298,8 +304,27 @@ def _rank_heads(p, q, k, v, cfg):
     return q, k, v
 
 
+def partial_leaves(cfg) -> Tuple[str, ...]:
+    """The attention leaves that a rank holds whole but uses only in part
+    under the active rules: with the heads cut over an axis, the QK-norm's
+    weights (applied to the rank's heads only) and, in the ``"whole"`` KV
+    plan, wk, wv, bk and bv (the rank reads the KV heads of its own query
+    heads). A rank's gradient of such a leaf is its heads' share; the
+    whole gradient is the SUM over the heads' axis. Every other leaf is
+    either the rank's block or used whole, and its gradient complete."""
+    plan = head_plan(cfg)
+    if plan.axis is None:
+        return ()
+    names = ("q_norm", "k_norm")
+    if plan.kv == "whole":
+        names += ("wk", "wv", "bk", "bv")
+    return names
+
+
 def _project_qkv(p, x, cfg, positions):
     B, S = x.shape[0], x.shape[1]
+    if SH.active():       # the heads' work is cut: the gradient of x sums
+        x = SH.entry(x, head_plan(cfg).axis)
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -364,7 +389,7 @@ def attn_prefill(p, x, cfg, k_cache, v_cache, *, window=None):
     if seq.size > 1:
         if window is not None:
             raise NotImplementedError("a window cache sharded over kv_seq "
-                                      "comes with ROADMAP A11")
+                                      "comes with ROADMAP A12")
         cache_fill_rows(k_cache, k, seq.rank * k_cache.shape[1], seq.size)
         cache_fill_rows(v_cache, v, seq.rank * v_cache.shape[1], seq.size)
     else:
@@ -388,7 +413,7 @@ def attn_decode(p, x, cfg, k_cache, v_cache, pos, *, window=None):
     elif seq.size > 1:
         raise NotImplementedError("a window or per-slot positions over a "
                                   "kv_seq-sharded cache come with ROADMAP "
-                                  "A11")
+                                  "A12")
     else:
         cache_update_decode(k_cache, k, posv, window=window)
         cache_update_decode(v_cache, v, posv, window=window)
@@ -477,6 +502,8 @@ def mlp_forward(p, x, cfg):
     sh = SH.shard_of("d_ff")
     sharded = sh.size > 1 and width % sh.size == 0
     _check_width(p, "wi", width // sh.size if sharded else width)
+    if sharded:           # d_ff's work is cut: the gradient of x sums
+        x = SH.entry(x, SH.rule("d_ff"))
     if _tp_axis_ok(width):
         return tp_mlp_forward(p, x, cfg)
     h = _ffn_hidden(p, x)

@@ -9,7 +9,7 @@ init a normal std, "ones", "zeros", ``LRU_LAMBDA`` or ``IF_BIAS``. Leaves under
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -65,22 +65,43 @@ def _draw(init, shape, generator, device):
     return torch.randn(shape, generator=generator, device=device) * init
 
 
+def narrow(t, blk):
+    """A view of ``t`` narrowed to ``blk``, (start, length) a dim."""
+    for d, (start, length) in enumerate(blk):
+        if length != t.shape[d]:
+            t = t.narrow(d, start, length)
+    return t
+
+
 def init_from_specs(specs: Dict[str, tuple], generator: torch.Generator,
-                    dtype, device) -> dict:
+                    dtype, device, blocks: Optional[Dict[str, tuple]] = None
+                    ) -> dict:
     """Random weights with the JAX package's distributions, drawn from
     ``generator`` (which lives on ``device``). Stacked leaves are drawn one
-    layer at a time, so the fp32 draw never holds more than one layer."""
+    layer at a time, so the fp32 draw never holds more than one layer.
+
+    ``blocks`` maps a leaf to the block of it to keep, (start, length)
+    along each dim (a stacked leaf's layer dim whole): every leaf is drawn
+    whole, so the generator runs as it does without ``blocks`` and the
+    blocks of the ranks make the weights that one device would draw."""
     flat = {}
     for key, (shape, init) in specs.items():
         dt = leaf_dtype(init, dtype)
+        blk = (blocks or {}).get(key)
+        kept = tuple(n for _, n in blk) if blk else tuple(shape)
         if init == "ones":
-            flat[key] = torch.ones(shape, dtype=dt, device=device)
+            flat[key] = torch.ones(kept, dtype=dt, device=device)
         elif init == "zeros":
-            flat[key] = torch.zeros(shape, dtype=dt, device=device)
+            flat[key] = torch.zeros(kept, dtype=dt, device=device)
         else:
-            t = torch.empty(shape, dtype=dt, device=device)
-            for part in (t if key.split("/")[0] in STACKED else [t]):
-                part.copy_(_draw(init, part.shape, generator, device))
+            t = torch.empty(kept, dtype=dt, device=device)
+            stacked = key.split("/")[0] in STACKED
+            for part in (t if stacked else [t]):
+                whole = _draw(init, shape[1:] if stacked else shape,
+                              generator, device)
+                if blk:
+                    whole = narrow(whole, blk[1:] if stacked else blk)
+                part.copy_(whole)
             flat[key] = t
     return unflatten(flat)
 

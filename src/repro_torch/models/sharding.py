@@ -37,7 +37,7 @@ _MESH = None
 # rules whose value is a flag, not a mesh axis
 FLAGS = ("tp_bf16_ar", "fsdp_gather")
 # the families whose layers run under rules (``models.layers``); the others
-# raise there until ROADMAP A11
+# raise there until ROADMAP A12
 SHARDED_FAMILIES = ("dense", "vlm")
 
 
@@ -73,7 +73,7 @@ def use_rules(rules: Dict[str, MeshAxes], mesh=None):
     global _RULES, _MESH
     if rules.get("fsdp_gather"):
         raise NotImplementedError("fsdp_gather (ZeRO-3's per-layer gather) "
-                                  "comes with ROADMAP A11")
+                                  "comes with ROADMAP A12")
     names = tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
     for key, value in rules.items():
         if key in FLAGS:
@@ -116,13 +116,13 @@ class Shard(NamedTuple):
 def shard_of(name: str) -> Shard:
     """The (process group, rank, size) of the mesh axis that logical axis
     ``name`` maps to; (None, 0, 1) where it maps to none. A rule over more
-    than one mesh axis (the multi-pod batch) has no single group: A11."""
+    than one mesh axis (the multi-pod batch) has no single group: A12."""
     axes = _axis_names(rule(name))
     if not axes:
         return Shard(None, 0, 1)
     if len(axes) > 1:
         raise NotImplementedError(f"rule {name!r} spans mesh axes {axes}: "
-                                  "flattened axes come with ROADMAP A11")
+                                  "flattened axes come with ROADMAP A12")
     m, axis = _MESH, axes[0]
     size = m.size(m.mesh_dim_names.index(axis))
     if size == 1:
@@ -133,24 +133,14 @@ def shard_of(name: str) -> Shard:
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
-def all_reduce(x: torch.Tensor, axis: Optional[str], op: str = "sum"):
-    """All-reduce ``x`` in place over the process group of mesh axis
-    ``axis`` (``op`` "sum" or "max") and return it; the identity on an axis
-    of size 1 or none. On a ``gloo`` group a CUDA tensor is copied to the
-    host, reduced there and copied back: gloo's own CUDA path stages through
-    the host the same way, and one explicit copy takes every dtype and op
-    whatever the card's gloo build accepts. The collectives have no
-    backward: a tensor that requires grad raises."""
-    if axis is None:
-        return x
+def _axis_size(axis: str) -> int:
     m = _MESH
-    if m.size(m.mesh_dim_names.index(axis)) == 1:
-        return x
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError("the multi-device layers' all-reduce has no "
-                           "backward: sharded training comes with ROADMAP "
-                           "A11 (run under torch.no_grad())")
-    group = m.get_group(axis)
+    return m.size(m.mesh_dim_names.index(axis))
+
+
+def _reduce(x: torch.Tensor, axis: str, op: str) -> torch.Tensor:
+    """``x`` all-reduced in place over mesh axis ``axis``, counted."""
+    group = _MESH.get_group(axis)
     t0 = time.perf_counter()
     if x.device.type == "cuda" and dist.get_backend(group) == "gloo":
         host = x.cpu()
@@ -165,24 +155,112 @@ def all_reduce(x: torch.Tensor, axis: Optional[str], op: str = "sum"):
     return x
 
 
-# the calls' count, bytes and host seconds (a staged call's copies included)
+class _SumReduce(torch.autograd.Function):
+    """The SUM all-reduce of a partial product: the identity backward (each
+    rank's partial product gets the whole output's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.mark_dirty(x)
+        return _reduce(x, axis, "sum")
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _Entry(torch.autograd.Function):
+    """The identity forward; the gradient's SUM all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _reduce(dy.clone(), ctx.axis, "sum"), None
+
+
+def _differentiated(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def all_reduce(x: torch.Tensor, axis: Optional[str], op: str = "sum"):
+    """All-reduce ``x`` in place over the process group of mesh axis
+    ``axis`` (``op`` "sum" or "max") and return it; the identity on an axis
+    of size 1 or none. On a ``gloo`` group a CUDA tensor is copied to the
+    host, reduced there and copied back: gloo's own CUDA path stages through
+    the host the same way, and one explicit copy takes every dtype and op
+    whatever the card's gloo build accepts.
+
+    A SUM differentiates as the all-reduce of a partial product does: its
+    backward is the identity. A MAX has no backward (only the decode step's
+    log-sum-exp takes one): a tensor that requires grad raises."""
+    if axis is None or _axis_size(axis) == 1:
+        return x
+    if _differentiated(x):
+        if op != "sum":
+            raise RuntimeError(f"the {op!r} all-reduce has no backward "
+                               "(run under torch.no_grad())")
+        return _SumReduce.apply(x, axis)
+    return _reduce(x, axis, op)
+
+
+def entry(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
+    """``x`` where a replicated activation enters a block whose work is cut
+    over mesh axis ``axis`` (the attention's heads, the FFN's d_ff): the
+    identity forward, and in the backward the SUM over the axis of the
+    ranks' partial gradients, so that each rank goes on with the whole
+    gradient of ``x``. Outside autograd, or on an axis of size 1, ``x``
+    itself."""
+    if axis is None or _axis_size(axis) == 1 or not _differentiated(x):
+        return x
+    return _Entry.apply(x, axis)
+
+
+# the all-reduces' count, bytes and host seconds (a staged call's copies
+# included): the forward's, and in training also the backward's (``entry``,
+# ``all_gather``'s reduce-scatter) and those that remat's recompute repeats
 all_reduce.seconds = 0.0    # type: ignore[attr-defined]
 all_reduce.calls = 0        # type: ignore[attr-defined]
 all_reduce.bytes = 0        # type: ignore[attr-defined]
 all_reduce.host_staged = 0  # type: ignore[attr-defined]
 
 
-def all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-    """The ranks' ``x`` of mesh axis ``axis``, concatenated along ``dim`` in
-    rank order (the whole of a tensor a NamedSharding cut along ``dim``);
-    staged through the host as ``all_reduce`` does on ``gloo``."""
-    m = _MESH
-    n = m.size(m.mesh_dim_names.index(axis))
-    if n == 1:
-        return x
-    group = m.get_group(axis)
+def _gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    n = _axis_size(axis)
+    group = _MESH.get_group(axis)
     staged = x.device.type == "cuda" and dist.get_backend(group) == "gloo"
     src = x.cpu() if staged else x.contiguous()
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(x.device)
+
+
+class _Gather(torch.autograd.Function):
+    """Backward: each rank's own slice of the SUM of the ranks' gradients
+    (a reduce-scatter, as an all-reduce and a slice)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.width = axis, dim, x.shape[dim]
+        return _gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        whole = _reduce(dy.contiguous().clone(), ctx.axis, "sum")
+        r = _MESH.get_local_rank(ctx.axis)
+        return whole.narrow(ctx.dim, r * ctx.width, ctx.width), None, None
+
+
+def all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` of mesh axis ``axis``, concatenated along ``dim`` in
+    rank order (the whole of a tensor a NamedSharding cut along ``dim``);
+    staged through the host as ``all_reduce`` does on ``gloo``. Its
+    backward gives each rank its slice of the ranks' summed gradients."""
+    if _axis_size(axis) == 1:
+        return x
+    if _differentiated(x):
+        return _Gather.apply(x, axis, dim)
+    return _gather(x, axis, dim)

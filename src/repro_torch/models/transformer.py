@@ -72,7 +72,7 @@ def local_cache(cfg, batch: int, max_len: int,
     if seq.size > 1:
         if window:
             raise NotImplementedError("a rotating window cache sharded over "
-                                      "kv_seq comes with ROADMAP A11")
+                                      "kv_seq comes with ROADMAP A12")
         if Sc % seq.size:
             raise ValueError(f"max_len {Sc} does not split over the "
                              f"{seq.size} ranks of kv_seq")

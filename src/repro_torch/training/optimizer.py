@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -76,22 +76,31 @@ def slices(t: torch.Tensor):
     return t.split(rows, dim=0)
 
 
-def global_norm(leaves) -> torch.Tensor:
+def sum_squares(leaves) -> torch.Tensor:
+    """The fp32 sum of the leaves' squares (None where there is none)."""
     total = None
     for x in leaves:
         for s in slices(x):
             part = torch.sum(torch.square(s.float()))
             total = part if total is None else total + part
-    return torch.sqrt(total)
+    return total
+
+
+def global_norm(leaves) -> torch.Tensor:
+    return torch.sqrt(sum_squares(leaves))
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state):
+def apply_updates(cfg: AdamWConfig, params, grads, state, *,
+                  gnorm: Optional[torch.Tensor] = None):
     """One AdamW step, written into ``params`` and ``state``'s m and v in
-    place. Returns (params, new state, metrics)."""
+    place. Returns (params, new state, metrics). ``gnorm`` is the global
+    gradient norm where the caller computes it (a sharded step, over every
+    rank's blocks); else the norm of ``grads``."""
     count = state["count"] + 1
     flat_g = flatten(grads)
-    gnorm = global_norm(flat_g.values())
+    if gnorm is None:
+        gnorm = global_norm(flat_g.values())
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_schedule(cfg)(count)
     c1 = 1.0 - cfg.b1 ** count.float()

@@ -29,6 +29,8 @@ cancel, and the plain version's own fp32 rounding on the card reaches
 2.7e-4 at the served prefill's shape). 1e-4 on the logits and on the
 loss of the reduced models.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -958,3 +960,108 @@ def test_mlstm_chunk_backward_takes_4_byte_aligned_operands(cuda):
     torch.cuda.synchronize()
     for ours, other, theirs in zip(got, again, want):
         assert torch.equal(ours, theirs) and torch.equal(other, theirs)
+
+
+# prefill_32k and decode_32k at Llama-3.1-8B's heads (32 over 8, hd 128),
+# the launch steps' shapes: B1 at S=32768 against the plain version taken
+# in blocks of 1024 query rows (the whole would need 137 GB of scores), B2
+# over 32768 rows a slot
+LONG = 32768
+
+
+def _flash_plain_blocks(q, k, v, rows=1024):
+    outs, lses = [], []
+    for i in range(0, q.shape[1], rows):
+        o, lse = flash_attention_ref(q[:, i:i + rows], k[:, :i + rows],
+                                     v[:, :i + rows], causal=True,
+                                     q_pos_offset=i, return_lse=True)
+        outs.append(o)
+        lses.append(lse)
+    return torch.cat(outs, 1), torch.cat(lses, 2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_at_32k_rows(cuda, dtype):
+    q = _randn(cuda, (1, LONG, 32, 128), dtype)
+    k = _randn(cuda, (1, LONG, 8, 128), dtype)
+    v = _randn(cuda, (1, LONG, 8, 128), dtype)
+    lse = torch.empty((1, 32, LONG), device="cuda")
+    out = flash_attention_cuda(q, k, v, causal=True, lse=lse)
+    ref, ref_lse = _flash_plain_blocks(q, k, v)
+    torch.cuda.synchronize()
+    assert _close(out, ref)
+    assert float(((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)
+                  ).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_at_32k_rows(cuda, dtype):
+    pos = [32752, 32767, 32760, 16383, 0, 32000, 24575, 32766]
+    q = _randn(cuda, (8, 1, 32, 128), dtype)
+    kc = _randn(cuda, (8, LONG, 8, 128), dtype)
+    vc = _randn(cuda, (8, LONG, 8, 128), dtype)
+    posd = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
+    before = decode_attention_cuda.launches
+    out = decode_attention_cuda(q, kc, vc, posd)
+    ref = decode_attention_ref(q, kc, vc, posd)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == before + 1
+    assert _close(out, ref)
+    for p in (32752, 32767):      # a scalar position, as the serve step's
+        one = torch.tensor(p, dtype=torch.int32, device="cuda")
+        assert _close(decode_attention_cuda(q, kc, vc, one),
+                      decode_attention_ref(q, kc, vc, one))
+
+
+def test_collectives_and_train_step_on_a_one_rank_mesh(cuda, tmp_path):
+    """On a one-rank gloo mesh over the card: ``all_reduce``, ``entry`` and
+    ``all_gather`` pass a tensor that requires grad and its gradient
+    through unchanged, and ``build_train_step`` of the reduced Llama in
+    fp32 (remat on) gives the losses, grad norms and parameters of the
+    unsharded ``make_train_step`` on the card within 1e-5."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch.mesh import init_world, make_smoke_mesh
+    from repro_torch.launch.steps import build_step, init_params, materialize
+    from repro_torch.models import LM
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.params import flatten
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import make_train_step
+    init_world(rdv=f"file://{tmp_path}/rdv")
+    try:
+        mesh = make_smoke_mesh(device="cuda")
+        with SH.use_rules(SH.standard_rules(False), mesh):
+            x = torch.randn(3, 4, device="cuda", requires_grad=True)
+            y = SH.all_reduce(x * 2.0, "model") + SH.entry(x, "model") + \
+                SH.all_gather(x, "model", 1)
+            y.sum().backward()
+            assert torch.equal(x.grad, torch.full_like(x, 4.0))
+        cfg = get_config("llama3.1-8b").reduced()
+        shape = dataclasses.replace(INPUT_SHAPES["train_4k"],
+                                    global_batch=2, seq_len=64)
+        opt_cfg = AdamWConfig(state_dtype=torch.float32)
+        built = build_step(cfg, mesh, shape, dtype=torch.float32,
+                           opt_cfg=opt_cfg)
+        gen = torch.Generator(device="cuda")
+        params = init_params(cfg, built, gen.manual_seed(0), "cuda")
+        ref = LM(cfg).init(gen.manual_seed(0), device="cuda")
+        opt, ref_opt = (materialize(built.args[1], "cuda") for _ in "ab")
+        step = make_train_step(LM(cfg), opt_cfg)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 65), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        batch = {"tokens": tokens[:, :-1].contiguous(),
+                 "labels": tokens[:, 1:].contiguous()}
+        for _ in range(2):
+            params, opt, m = built.fn(params, opt, batch)
+            ref, ref_opt, want = step(ref, ref_opt, batch)
+            for k in ("loss", "grad_norm", "lr"):
+                assert abs(float(m[k]) - float(want[k])) <= \
+                    1e-5 * max(1.0, abs(float(want[k]))), k
+        for key, t in flatten(params).items():
+            r = flatten(ref)[key].detach()
+            assert float((t - r).abs().max()) <= \
+                1e-5 * max(1.0, float(r.abs().max())), key
+    finally:
+        dist.destroy_process_group()

@@ -466,7 +466,7 @@ def test_smoke_mesh_is_jax_smoke_mesh(tmp_path):
 
 def test_refusals():
     """Rules on a family the multi-device layers do not cover raise, naming
-    A11; parameters not cut to the rules raise, naming local_params."""
+    A12; parameters not cut to the rules raise, naming local_params."""
     from repro_torch.configs import get_config
     from repro_torch.models import LM
     from repro_torch.models import layers as L
@@ -474,7 +474,7 @@ def test_refusals():
     with SH.use_rules(rules, _Mesh()):
         for arch in ("recurrentgemma-2b", "xlstm-350m", "whisper-large-v3",
                      "phi3.5-moe-42b-a6.6b"):
-            with pytest.raises(NotImplementedError, match="A11"):
+            with pytest.raises(NotImplementedError, match="A12"):
                 LM(get_config(arch).reduced()).init_cache(2, 32,
                                                           device="cpu")
         cfg = get_config("llama3.1-8b").reduced()
@@ -494,7 +494,7 @@ def test_rules_without_process_group_raise():
     with SH.use_rules({"heads": None, "tp_bf16_ar": True}):
         assert SH.active() and SH.shard_of("heads").size == 1
     assert not SH.active()
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A12"):
         with SH.use_rules({"fsdp_gather": True}):
             pass
 

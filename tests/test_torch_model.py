@@ -143,6 +143,19 @@ def test_config_copy_matches_jax(arch):
         assert dataclasses.asdict(j) == dataclasses.asdict(t)
 
 
+def test_input_shapes_and_arch_ids_match_jax():
+    """``InputShape``, ``INPUT_SHAPES`` and ``ARCH_IDS``, copied into the
+    port's ``configs/base.py``."""
+    from repro.configs.base import INPUT_SHAPES as JAX_SHAPES
+    from repro_torch.configs import ARCH_IDS as TORCH_ARCH_IDS
+    from repro_torch.configs import INPUT_SHAPES
+    assert TORCH_ARCH_IDS == ARCH_IDS
+    assert list(INPUT_SHAPES) == list(JAX_SHAPES)
+    for name, shape in INPUT_SHAPES.items():
+        assert dataclasses.asdict(shape) == dataclasses.asdict(
+            JAX_SHAPES[name])
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_every_jax_arch_loads_and_builds(arch):
     """Every architecture of the JAX package loads in the port, under its

@@ -396,8 +396,35 @@ def test_launch_train_smoke_on_cpu(monkeypatch, capsys, tmp_path):
     assert os.path.exists(path)
 
 
-def test_launch_train_refuses_the_production_path(monkeypatch):
+def test_launch_train_production_path_on_cpu(monkeypatch, capsys):
+    """The production path (``build_train_step`` on a 1x1 mesh, bf16,
+    train_4k's sequence, its batch cut to 1) with the config reduced: each
+    step's loss printed, and the losses, grad norms and lr those of
+    ``make_train_step`` on the same weights and ``TokenStream`` batches.
+    Without a card and without --device cpu it raises."""
     from repro_torch.launch import train as launcher
-    monkeypatch.setattr(sys, "argv", ["train", "--arch", "llama3.1-8b"])
-    with pytest.raises(SystemExit, match="A11"):
-        launcher.main()
+    from repro_torch.training.train_loop import make_train_step
+    cfg = get_config("llama3.1-8b").reduced()
+    monkeypatch.setattr(launcher, "get_config", lambda arch: cfg)
+    got = launcher.train_production(launcher.parse_args(
+        ["--arch", "llama3.1-8b", "--mesh", "1x1", "--batch", "1",
+         "--steps", "2", "--device", "cpu"]))
+    out = capsys.readouterr().out
+    assert "step 0 loss" in out and "step 1 loss" in out
+    assert "global batch 1, cut from 256" in out
+    lm = LM(cfg)
+    params = lm.init(torch.Generator("cpu").manual_seed(0),
+                     dtype=torch.bfloat16, device="cpu")
+    opt_cfg = opt.AdamWConfig(state_dtype=torch.bfloat16)
+    state = opt.init_state(opt_cfg, params)
+    step = make_train_step(lm, opt_cfg)
+    data = TokenStream(cfg, seed=0)
+    for m in got:
+        batch = {k: torch.from_numpy(v) for k, v in
+                 data.batch(1, 4096).items()}
+        params, state, want = step(params, state, batch)
+        for k in ("loss", "grad_norm", "lr"):
+            assert m[k] == float(want[k]), k
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launcher.main(["--arch", "llama3.1-8b", "--mesh", "1x1"])
