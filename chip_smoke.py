@@ -176,8 +176,9 @@ its own lines; any failure exits non-zero without the result line:
    rank 1 admits 8 rows or more, and each rank's cache rows against the
    unsharded write. 6b: heads and
    d_ff over "model" with ``tp_bf16_ar``, each rank its ``local_params``
-   (16 query heads over 4 KV heads, d_ff 7168, embed and unembed whole):
-   ``forward_train`` at B=1 S=2048 without a gradient, then a prefill of
+   (16 query heads over 4 KV heads, d_ff 7168, 64128 of the vocabulary's
+   rows of embed and columns of unembed): ``forward_train`` at B=1 S=2048
+   without a gradient (its vocabulary blocks gathered), then a prefill of
    B=4 prompts of 1000 tokens and 16 decode steps. Rank 0 first runs the
    same tokens unsharded, greedily; both ranks are fed its tokens and
    hold each step's logits against its (max |dlogit| / max |logit| within
@@ -198,23 +199,31 @@ its own lines; any failure exits non-zero without the result line:
    first step's tokens equal to ``LM.decode_step``'s on the same cache,
    B1's 32 and B2's 512 launches all on the sm90 kernels. 7b, two
    ``gloo`` ranks sharing the card: ``build_train_step`` under
-   ``standard_rules`` on mesh (1, 2), 16 of the 32 layers (two ranks'
-   blocks, moments, gradients and logits fit the card; all 32 would need
-   ~84 GB), B=1, S=4096, remat, 2 steps, after rank 0 ran the same steps
-   unsharded on its one-rank pool, both at the schedule's peak rate from
-   the first step; each step's loss and grad norm, and after step 2 every
-   parameter block's change from its initial value and AdamW's m and v
-   leaf by leaf, within ``TRAIN_TP_*`` of the unsharded step's; B1
-   launches forward 2 (all sm90) and backward 1 a layer a step; the
-   all-reduces (count, bytes, host seconds). 7c, the same two processes: mesh (2, 1) cut by
+   ``standard_rules`` on mesh (1, 2), all 32 layers, the heads, d_ff and
+   the vocabulary cut (``embed``/``unembed`` a rank's 64128 ids; the
+   loss's log-sum-exp over the two blocks), B=1, S=4096, remat, 2 steps,
+   after rank 0 ran the same steps unsharded on its one-rank pool (and
+   freed the card), both at the schedule's peak rate from the first step;
+   each step's loss and grad norm, and after step 2 every parameter
+   block's change from its initial value and AdamW's m and v leaf by
+   leaf, within ``TRAIN_TP_*`` of the unsharded step's; B1 launches
+   forward 2 (all sm90) and backward 1 a layer a step; each rank's peak
+   memory, parameters, step walls and all-reduces (count, bytes, host
+   seconds); the host's ``MemAvailable`` before it. 7c, the same two
+   processes: mesh (2, 1) cut by
    ``split_disagg_mesh(mesh, 1)`` (pools [[0]] and [[1]], as the JAX
    split), rank 0 prefilling B=1 S=4096 in the prefill pool, rank 1
    serving B=8 over 4096 rows for 16 steps in the decode pool, each
    against the unsharded model's first tokens, its launches counted
-   around its steps alone (B1 32 and B2 512, all sm90). Phase 2 holds B1 at
-   S=32768 (the plain version in blocks of 1024 query rows) and B2 over
-   32768 rows at these shapes. A rank that fails, or phase 7 past 600 s,
-   fails the run.
+   around its steps alone (B1 32 and B2 512, all sm90). 7d, the same two
+   processes: the multi-pod batch, ``build_train_step`` on the (2, 1, 1)
+   mesh over ("pod", "data", "model"), train_4k's batch cut to 2, one row
+   a rank over the flattened ("pod", "data"), 8 of the 32 layers (two
+   whole replicas share the card), 2 steps held as 7b's against rank 0's
+   unsharded step on both rows; the all-reduces over the flattened
+   group. Phase 2 holds B1 at S=32768 (the plain version in blocks of 1024
+   query rows) and B2 over 32768 rows at these shapes. A rank that fails,
+   or phase 7 past 600 s, fails the run.
 
 Each serve and each training run starts with the previous one's engine
 freed and the allocator's cache emptied, and prints its peak device
@@ -331,16 +340,20 @@ DIST_TP = {"train_seq": 2048, "batch": 4, "max_len": 1024, "prompt": 1000,
            "steps": 16}
 # phase 7: the steps of launch/steps.py at Llama-3.1-8B's full width. 7a:
 # prefill_32k's 32 sequences cut to 1, decode_32k's 128 to 8 (their 34.4 GB
-# of KV cache beside 16.06 GB of weights); 7b: 16 of its 32 layers, so that
-# two ranks' blocks, AdamW moments, gradients and logits fit the card; 7c:
-# the pools
+# of KV cache beside 16.06 GB of weights); 7b: all 32 layers, the
+# vocabulary cut with the layers (a rank's blocks, AdamW moments,
+# gradients and logits ~36 GB); 7c: the pools; 7d: 8 of the 32 layers, as
+# two whole replicas of ~28 GB each (data parallel over the flattened
+# ("pod", "data")) must share the one card
 STEPS_PREFILL_BATCH = 1
 LONG_SEQ = 32768                # prefill_32k's and decode_32k's rows
 STEPS_DECODE_BATCH = 8
 STEPS_DECODE_POS = 32752        # the 16 steps write the cache's last rows
 STEPS_DECODE_STEPS = 16
-STEPS_TRAIN_LAYERS = 16
+STEPS_TRAIN_LAYERS = 32
 STEPS_TRAIN_STEPS = 2
+STEPS_POD_LAYERS = 8
+STEPS_POD_BATCH = 2
 STEPS_POOL_SEQ = 4096
 STEPS_WORLD = 2
 STEPS_TIMEOUT_S = 600
@@ -2339,8 +2352,13 @@ def _counters(reset: bool = False) -> dict:
         for name, fn in fns.items():
             for a in attrs[name]:
                 setattr(fn, a, 0 if a != "seconds" else 0.0)
-    return {f"{name}.{a}": getattr(fn, a) for name, fn in fns.items()
-            for a in attrs[name]}
+        SH.all_reduce.by_axis = {}
+    out = {f"{name}.{a}": getattr(fn, a) for name, fn in fns.items()
+           for a in attrs[name]}
+    # mesh axes ("pod+data" flattened) -> [count, bytes]
+    out["all_reduce.by_axis"] = {k: list(v) for k, v in
+                                 SH.all_reduce.by_axis.items()}
+    return out
 
 
 def _sharded_run(tag: str, rank: int, run, ref) -> dict:
@@ -2447,6 +2465,7 @@ def _dist_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
     from repro_torch.launch.shardspecs import local_params
     from repro_torch.models import LM
     from repro_torch.models import sharding as SH
+    from repro_torch.models.transformer import whole_logits
     t_start = time.perf_counter()
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2517,8 +2536,9 @@ def _dist_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
             def train_run():
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                out = lm.forward_train(local, {"tokens": train_tokens},
-                                       remat=False)[0].float().cpu()
+                out = whole_logits(lm.forward_train(
+                    local, {"tokens": train_tokens}, remat=False)[0],
+                    cfg).float().cpu()
                 return out[None], [time.perf_counter() - t0], ()
             res["tp_train"] = _sharded_run("6b tp forward_train", rank,
                                            train_run, ref_train[None])
@@ -2755,68 +2775,89 @@ def _leaf_err(a: torch.Tensor, ref: torch.Tensor) -> float:
     return float((a.float() - ref.float()).abs().max())
 
 
-def _train_tp_check(rank: int, blocks: dict, params, opt, init: dict,
-                    ref) -> dict:
-    """7b's leaf-by-leaf check of the ranks' blocks against rank 0's
-    unsharded reference: each parameter's change from ``init`` (this
-    rank's parameters before the steps, on the host), AdamW's m and v.
-    ``ref`` (rank 0 only): part -> path -> the unsharded leaf on the host,
-    for the parts "params", "init", "m" and "v". The other ranks send
-    their blocks to rank 0 (through the host), which cuts each reference
-    leaf to the sender's block (model coordinate = rank on the (1, n)
-    mesh) and compares on the card. Returns rank 0's worst errors over the
+# elements of a leaf compared on the card at a time (the leaf check's
+# fp32 temporaries stay ~2 GB beside the two ranks' parameters and moments)
+CHECK_PIECE = 1 << 27
+
+
+def _pieces(*ts):
+    """The same rows of ``ts`` (one shape) along their first dim, about
+    CHECK_PIECE elements a piece, on the card."""
+    n = ts[0].shape[0]
+    step = max(1, CHECK_PIECE * n // max(ts[0].numel(), 1))
+    for lo in range(0, n, step):
+        yield [t[lo:lo + step].to("cuda") for t in ts]
+
+
+def _train_check(rank: int, blocks: dict, params, opt, init: dict,
+                 ref) -> dict:
+    """The leaf-by-leaf check of the ranks' blocks after a held training
+    run (7b, 7d) against rank 0's unsharded reference: each parameter's
+    change from its initial value, AdamW's m and v. ``init``: this rank's
+    parameters before the steps, on the host. ``ref`` (rank 0 only): part
+    -> path -> the unsharded leaf after the steps on the host, for the
+    parts "params", "m" and "v". The other ranks send their blocks (and
+    initial values) to rank 0 (through the host), which cuts each
+    reference leaf to the sender's block (model coordinate = rank on the
+    (1, n) mesh; whole where ``blocks`` lists no cut) and compares on the
+    card, a piece of rows at a time (``_pieces``). Both changes are taken
+    from the sender's initial values: the sharded and the unsharded runs
+    draw the same weights (``init_params`` keeps a rank's block of each
+    whole draw), and where they did not, the reference's change would
+    carry the difference and fail. Returns rank 0's worst errors over the
     tolerances and the share of compared parameter values that moved."""
     import torch.distributed as dist
 
     from repro_torch.launch import shardspecs as SS
     from repro_torch.models.params import flatten
-    flat = {"params": flatten(params), "m": flatten(opt["m"]),
+    flat = {"params": flatten(params), "init": init, "m": flatten(opt["m"]),
             "v": flatten(opt["v"])}
-    device = flat["params"]["embed"].device
-
-    def mine(part, key):
-        if part == "delta":
-            return flat["params"][key].float() - init[key].to(device).float()
-        return flat[part][key]
 
     def want(part, key, src):
-        def leaf(name):
-            t = ref[name][key]
-            if key in blocks:
-                t = SS.cut(t, tuple(
-                    (start + src * n if n != full else 0, n)
-                    for (start, n), full in zip(blocks[key][0], t.shape)))
-            return t.to(device)
-        if part == "delta":
-            return leaf("params").float() - leaf("init").float()
-        return leaf(part)
+        t = ref[part][key]
+        if key in blocks:
+            t = SS.cut(t, tuple(
+                (start + src * n if n != full else 0, n)
+                for (start, n), full in zip(blocks[key][0], t.shape)))
+        return t
 
     worst = {"delta": 0.0, "m": 0.0, "v": 0.0}
     failed = []
     moved = compared = 0
     for part in ("delta", "m", "v"):
+        names = ("params", "init") if part == "delta" else (part,)
         for key in sorted(flat["params"]):
-            got_here = mine(part, key)
+            mine = [flat[n][key] for n in names]
             if rank:
-                dist.send(got_here.cpu(), dst=0)
+                for t in mine:
+                    dist.send(t.cpu(), dst=0)
                 continue
             for src in range(dist.get_world_size()):
-                got = got_here
+                got = mine
                 if src:
-                    got = torch.empty(got_here.shape, dtype=got_here.dtype)
-                    dist.recv(got, src=src)
-                    got = got.to(device)
-                ref_t = want(part, key, src)
+                    got = [torch.empty(t.shape, dtype=t.dtype) for t in mine]
+                    for t in got:
+                        dist.recv(t, src=src)
                 if part == "delta":
-                    scale = float(torch.linalg.vector_norm(ref_t))
-                    err = float(torch.linalg.vector_norm(got - ref_t))
-                    tol = TRAIN_TP_DELTA_TOL * scale
-                    moved += int(torch.count_nonzero(ref_t))
-                    compared += ref_t.numel()
+                    # the norms of the reference's change and of the error
+                    sq_ref = sq_err = 0.0
+                    for p_, i_, r_ in _pieces(
+                            got[0], got[1], want("params", key, src)):
+                        start = i_.float()
+                        d_ref = r_.float() - start
+                        d_err = p_.float() - start - d_ref
+                        sq_ref += float(d_ref.square().sum())
+                        sq_err += float(d_err.square().sum())
+                        moved += int(torch.count_nonzero(d_ref))
+                        compared += d_ref.numel()
+                    err = math.sqrt(sq_err)
+                    tol = TRAIN_TP_DELTA_TOL * math.sqrt(sq_ref)
                 else:
-                    err = _leaf_err(got, ref_t)
-                    tol = TRAIN_TP_MOMENT_TOL * float(
-                        ref_t.float().abs().max())
+                    err = top = 0.0
+                    for g_, r_ in _pieces(got[0], want(part, key, src)):
+                        err = max(err, _leaf_err(g_, r_))
+                        top = max(top, float(r_.float().abs().max()))
+                    tol = TRAIN_TP_MOMENT_TOL * top
                 worst[part] = max(worst[part], err / tol if tol else
                                   (0.0 if err == 0 else math.inf))
                 if err > tol:
@@ -2826,55 +2867,39 @@ def _train_tp_check(rank: int, blocks: dict, params, opt, init: dict,
             "moved_share": moved / compared if compared else None}
 
 
-def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
-    """One rank of 7b and 7c on cuda:0 in a gloo world of two. 7b:
-    Llama-3.1-8B at full width and STEPS_TRAIN_LAYERS layers, rank 0 first
-    training it unsharded through ``build_train_step`` on its one-rank
-    pool (rank 1 waiting, nothing allocated), then both on the (1, 2)
-    mesh under ``standard_rules``, held against the reference. 7c: the
-    (2, 1) mesh cut by ``split_disagg_mesh(mesh, 1)``, rank 0 prefilling
-    in the prefill pool, rank 1 decoding in the decode pool. Writes its
-    results to ``out_dir/steps_rank<rank>.json``."""
-    import dataclasses as dc
-    import datetime
+def _mem_available_gb() -> float:
+    """The host's ``MemAvailable`` (/proc/meminfo), in GB."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
 
+
+def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
+                   opt_cfg) -> dict:
+    """Train ``cfg`` on ``shape`` for STEPS_TRAIN_STEPS steps through
+    ``build_train_step`` on ``mesh`` and hold it against rank 0's run of
+    the same steps on ``ref_mesh`` (its one-rank pool, unsharded, every
+    row of the batch), run first while the other ranks wait with nothing
+    allocated, its parameters and moments kept on the host and the card
+    freed: each step's loss and grad norm within TRAIN_TP_LOSS_TOL and
+    TRAIN_TP_GNORM_TOL of the reference's, then ``_train_check``. Both
+    draw the weights from seed 0 and the batches from ``TokenStream``'s
+    seed 0. Returns the reference's and the run's steps, launches,
+    all-reduces, peaks and checks."""
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import INPUT_SHAPES, InputShape
-    from repro_torch.launch.mesh import make_mesh, split_disagg_mesh
-    from repro_torch.launch.serve import (first_tokens, primed_cache,
-                                          prompt_batch, run_steps)
     from repro_torch.launch.shardspecs import param_blocks
-    from repro_torch.launch.steps import (build_step, build_train_step,
-                                          init_params, materialize)
+    from repro_torch.launch.steps import (build_train_step, init_params,
+                                          materialize)
     from repro_torch.launch.train import local_batches
-    from repro_torch.models import LM
     from repro_torch.models.params import flatten
-    from repro_torch.training.optimizer import AdamWConfig
-    t_start = time.perf_counter()
-    torch.cuda.set_device(0)
-    dist.init_process_group(
-        "gloo", init_method=f"file://{rdv}", rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=STEPS_TIMEOUT_S))
-    mesh12 = make_mesh((1, world), ("data", "model"), backend="gloo",
-                       device="cuda:0")
-    mesh21 = make_mesh((world, 1), ("data", "model"), backend="gloo",
-                       device="cuda:0")
-    pools = split_disagg_mesh(mesh21, 1)
-    own = pools[0] if pools[0].get_coordinate() is not None else pools[1]
-    res = {"rank": rank, "pools": [p.mesh.tolist() for p in pools]}
-    full = get_config("llama3.1-8b")
-    cfg = dc.replace(full, n_layers=STEPS_TRAIN_LAYERS)
-    shape = dc.replace(INPUT_SHAPES["train_4k"], global_batch=1)
-    opt_cfg = AdamWConfig(state_dtype=torch.bfloat16,
-                          warmup_steps=TRAIN_TP_WARMUP)
 
-    def train(built, tag):
+    def train(built, what, keep_init):
         gen = torch.Generator(device="cuda").manual_seed(0)
         params = init_params(cfg, built, gen, "cuda")
         init = {k: t.to("cpu", copy=True)
-                for k, t in flatten(params).items()}
+                for k, t in flatten(params).items()} if keep_init else None
         opt = materialize(built.args[1], "cuda")
         batches = local_batches(cfg, built, shape, 0, "cuda")
         steps = []
@@ -2886,36 +2911,41 @@ def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
             m = {k: float(v) for k, v in m.items()}
             m["wall_s"] = time.perf_counter() - t0
             steps.append(m)
-            log(f"[steps r{rank}] 7b {tag} step {i}: {m['wall_s']:.2f} s, "
-                f"loss {m['loss']:.6f}, grad norm {m['grad_norm']:.6f}, "
+            log(f"[steps r{rank}] {tag} {what} step {i}: {m['wall_s']:.2f} "
+                f"s, loss {m['loss']:.6f}, grad norm {m['grad_norm']:.6f}, "
                 f"lr {m['lr']:.3g}")
         return params, opt, init, steps, _step_counters()
 
-    # 7b's reference: unsharded, on rank 0's one-rank pool, before rank 1
-    # allocates anything
+    res = {}
+    if rank == 0:
+        log(f"[steps r0] {tag}: host MemAvailable "
+            f"{_mem_available_gb():.1f} GB before the reference")
     torch.cuda.reset_peak_memory_stats()
     ref = None
     if rank == 0:
-        built = build_train_step(cfg, own, shape, opt_cfg=opt_cfg)
-        params, opt, init, steps, counts = train(built, "unsharded")
+        built = build_train_step(cfg, ref_mesh, shape, opt_cfg=opt_cfg)
+        params, opt, _, steps, counts = train(built, "unsharded", False)
         ref = {"params": {k: t.cpu() for k, t in flatten(params).items()},
-               "init": init,
                "m": {k: t.cpu() for k, t in flatten(opt["m"]).items()},
                "v": {k: t.cpu() for k, t in flatten(opt["v"]).items()}}
-        res["train_ref"] = {"steps": steps, "counters": counts,
-                            "peak_gb": _peak_gb()}
-        del params, opt, init, built
+        res["ref"] = {"steps": steps, "counters": counts,
+                      "peak_gb": _peak_gb()}
+        del params, opt, built
         gc.collect()
         torch.cuda.empty_cache()
+        res["mem_available_gb"] = _mem_available_gb()
+        log(f"[steps r0] {tag}: reference peak {_peak_gb():.2f} GB; host "
+            f"MemAvailable {res['mem_available_gb']:.1f} GB with its "
+            "parameters and moments")
     ref_steps = [torch.tensor([s["loss"], s["grad_norm"]], dtype=torch.float64)
-                 for s in (res["train_ref"]["steps"] if rank == 0 else
+                 for s in (res["ref"]["steps"] if rank == 0 else
                            [{"loss": 0.0, "grad_norm": 0.0}] *
                            STEPS_TRAIN_STEPS)]
     for t in ref_steps:
         dist.broadcast(t, src=0)
     torch.cuda.reset_peak_memory_stats()
-    built = build_train_step(cfg, mesh12, shape, opt_cfg=opt_cfg)
-    params, opt, init, steps, counts = train(built, "tensor-parallel")
+    built = build_train_step(cfg, mesh, shape, opt_cfg=opt_cfg)
+    params, opt, init, steps, counts = train(built, "sharded", True)
     checks = []
     for s, want in zip(steps, ref_steps):
         loss_err = abs(s["loss"] - float(want[0])) / abs(float(want[0]))
@@ -2924,27 +2954,31 @@ def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
                        "ok": loss_err <= TRAIN_TP_LOSS_TOL and
                        gn_err <= TRAIN_TP_GNORM_TOL})
     n_local = sum(t.numel() for t in flatten(params).values())
-    res["train_tp"] = {"steps": steps, "counters": counts, "checks": checks,
-                       "local_parameters": n_local, "peak_gb": _peak_gb()}
+    res.update(steps=steps, counters=counts, checks=checks,
+               local_parameters=n_local, peak_gb=_peak_gb())
     for i, c in enumerate(checks):
-        log(f"[steps r{rank}] 7b step {i} against unsharded: loss "
+        log(f"[steps r{rank}] {tag} step {i} against unsharded: loss "
             f"{c['loss_rel']:.3g} (tol {TRAIN_TP_LOSS_TOL}), grad norm "
             f"{c['grad_norm_rel']:.3g} (tol {TRAIN_TP_GNORM_TOL}) of the "
             f"reference's: {c['ok']}")
-    log(f"[steps r{rank}] 7b: {n_local} parameters on this rank; B1 "
+    log(f"[steps r{rank}] {tag}: {n_local} parameters on this rank; B1 "
         f"forward {counts['flash_attention.launches']} "
         f"({counts['flash_attention.launches_sm90']} sm90), backward "
         f"{counts['flash_attention_bwd.launches']}; all-reduces "
         f"{counts['all_reduce.calls']} ({counts['all_reduce.bytes']} bytes, "
-        f"{counts['all_reduce.seconds']:.2f} host s); peak "
-        f"{res['train_tp']['peak_gb']:.2f} GB")
+        f"{counts['all_reduce.seconds']:.2f} host s; [count, bytes] by mesh "
+        f"axes {counts['all_reduce.by_axis']}); peak {res['peak_gb']:.2f} "
+        f"GB")
+    # the training's cached blocks back to the card, on every rank
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    leaves = _train_tp_check(rank, param_blocks(cfg, mesh12), params, opt,
-                             init, ref)
-    res["train_tp"]["leaves"] = leaves
-    res["train_tp"]["leaf_check_s"] = time.perf_counter() - t0
+    leaves = _train_check(rank, param_blocks(cfg, mesh, built.rules), params,
+                          opt, init, ref)
+    res["leaves"] = leaves
+    res["leaf_check_s"] = time.perf_counter() - t0
     if rank == 0:
-        log(f"[steps r0] 7b after step {STEPS_TRAIN_STEPS}: every rank's "
+        log(f"[steps r0] {tag} after step {STEPS_TRAIN_STEPS}: every rank's "
             f"parameter blocks' change from their initial values, AdamW m "
             f"and v against the unsharded step's, leaf by leaf: worst error "
             f"over its tolerance {leaves['worst_over_tol']} (the change "
@@ -2952,11 +2986,61 @@ def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
             f"m and v within {TRAIN_TP_MOMENT_TOL} max |ref|); "
             f"{leaves['n_failed']} leaves past it; the steps moved "
             f"{leaves['moved_share']:.4f} of the compared parameter values; "
-            f"{res['train_tp']['leaf_check_s']:.1f} s")
+            f"{res['leaf_check_s']:.1f} s")
     del params, opt, init, built, ref
     gc.collect()
     torch.cuda.empty_cache()
     dist.barrier()
+    return res
+
+
+
+def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
+    """One rank of 7b, 7c and 7d on cuda:0 in a gloo world of two. 7b:
+    Llama-3.1-8B at full width and STEPS_TRAIN_LAYERS layers on the (1, 2)
+    mesh under ``standard_rules`` (heads, d_ff and the vocabulary cut),
+    held against rank 0's unsharded run on its one-rank pool
+    (``_held_training``). 7c: the (2, 1) mesh cut by
+    ``split_disagg_mesh(mesh, 1)``, rank 0 prefilling in the prefill pool,
+    rank 1 decoding in the decode pool. 7d: STEPS_POD_LAYERS layers on the
+    (2, 1, 1) mesh over ("pod", "data", "model"), one row of the batch a
+    rank over the flattened ("pod", "data"), held likewise. Writes its
+    results to ``out_dir/steps_rank<rank>.json``."""
+    import dataclasses as dc
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import INPUT_SHAPES, InputShape
+    from repro_torch.launch.mesh import make_mesh, split_disagg_mesh
+    from repro_torch.launch.serve import (first_tokens, primed_cache,
+                                          prompt_batch, run_steps)
+    from repro_torch.launch.steps import build_step, init_params, materialize
+    from repro_torch.models import LM
+    from repro_torch.training.optimizer import AdamWConfig
+    t_start = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{rdv}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=STEPS_TIMEOUT_S))
+    mesh12 = make_mesh((1, world), ("data", "model"), backend="gloo",
+                       device="cuda:0")
+    mesh21 = make_mesh((world, 1), ("data", "model"), backend="gloo",
+                       device="cuda:0")
+    mesh_pod = make_mesh((world, 1, 1), ("pod", "data", "model"),
+                         backend="gloo", device="cuda:0")
+    pools = split_disagg_mesh(mesh21, 1)
+    own = pools[0] if pools[0].get_coordinate() is not None else pools[1]
+    res = {"rank": rank, "pools": [p.mesh.tolist() for p in pools]}
+    full = get_config("llama3.1-8b")
+    train_4k = INPUT_SHAPES["train_4k"]
+    opt_cfg = AdamWConfig(state_dtype=torch.bfloat16,
+                          warmup_steps=TRAIN_TP_WARMUP)
+    # 7b: tensor parallel, the vocabulary cut, at full depth
+    res["train_tp"] = _held_training(
+        rank, "7b", dc.replace(full, n_layers=STEPS_TRAIN_LAYERS),
+        dc.replace(train_4k, global_batch=1), pools[0], mesh12, opt_cfg)
     # 7c: the disaggregated pools
     torch.cuda.reset_peak_memory_stats()
     res["pool"] = own.mesh.tolist()
@@ -3007,13 +3091,22 @@ def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
         f"equal the unsharded model's: {same}; peak "
         f"{res['pool_run']['peak_gb']:.2f} GB")
     del params, built
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    # 7d: the multi-pod batch over the flattened ("pod", "data"), a whole
+    # replica a rank: 8 of the 32 layers, so that two fit the card
+    res["train_pod"] = _held_training(
+        rank, "7d", dc.replace(full, n_layers=STEPS_POD_LAYERS),
+        dc.replace(train_4k, global_batch=STEPS_POD_BATCH), pools[0],
+        mesh_pod, opt_cfg)
     res["seconds"] = time.perf_counter() - t_start
     Path(out_dir, f"steps_rank{rank}.json").write_text(json.dumps(res))
     dist.destroy_process_group()
 
 
 def phase_steps_ranks(report: dict) -> dict:
-    """7b and 7c: two gloo ranks sharing the card (``_steps_rank``), spawned
+    """7b, 7c and 7d: two gloo ranks sharing the card (``_steps_rank``), spawned
     with ``torch.multiprocessing``; fails if a rank fails, outlasts what
     is left of STEPS_TIMEOUT_S or finds a result off. Returns the launches
     by path."""
@@ -3052,23 +3145,32 @@ def phase_steps_ranks(report: dict) -> dict:
     secs = time.perf_counter() - t0
     bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
     if bad:
-        raise SystemExit(f"phase 7b/7c: ranks failed or outlasted "
+        raise SystemExit(f"phase 7b/7c/7d: ranks failed or outlasted "
                          f"{limit:.0f} s (exit codes {bad})")
     ranks = [json.loads((out_dir / f"steps_rank{r}.json").read_text())
              for r in range(STEPS_WORLD)]
     report["steps_ranks"] = {"seconds": secs, "ranks": ranks}
     problems = []
+    held = {"train_tp": ("7b", STEPS_TRAIN_LAYERS),
+            "train_pod": ("7d", STEPS_POD_LAYERS)}
     for r in ranks:
-        if not all(c["ok"] for c in r["train_tp"]["checks"]):
-            problems.append(f"rank {r['rank']}: loss or grad norm off")
+        for run, (tag, _) in held.items():
+            if not all(c["ok"] for c in r[run]["checks"]):
+                problems.append(f"rank {r['rank']}: {tag} loss or grad norm "
+                                "off")
         if not r["pool_run"]["first_tokens_equal_reference"]:
             problems.append(f"rank {r['rank']}: 7c tokens off")
         if r["pools"] != [[[0]], [[1]]]:
             problems.append(f"pools {r['pools']}")
-    leaves = ranks[0]["train_tp"]["leaves"]
-    if leaves["n_failed"]:
-        problems.append(f"{leaves['n_failed']} leaves off: "
-                        f"{leaves['failed'][:5]}")
+        # 7d's all-reduces run over the flattened ("pod", "data") alone
+        axes = set(r["train_pod"]["counters"]["all_reduce.by_axis"])
+        if axes != {"pod+data"}:
+            problems.append(f"rank {r['rank']}: 7d all-reduces over {axes}")
+    for run, (tag, _) in held.items():
+        leaves = ranks[0][run]["leaves"]
+        if leaves["n_failed"]:
+            problems.append(f"{tag}: {leaves['n_failed']} leaves off: "
+                            f"{leaves['failed'][:5]}")
     # each pool's launches, all of them and the sm90 kernel's: one prefill
     # of 32 layers, 16 serve steps of 32
     pool = [ranks[0]["pool_run"]["counters"], ranks[1]["pool_run"]["counters"]]
@@ -3087,21 +3189,26 @@ def phase_steps_ranks(report: dict) -> dict:
         if not n == n_sm90 == expected:
             problems.append(f"7c launches: {what} {n} ({n_sm90} sm90), "
                             f"{expected} expected")
-    per_layer = STEPS_TRAIN_LAYERS * STEPS_TRAIN_STEPS
-    fwd = [(r["train_tp"]["counters"]["flash_attention.launches"],
-            r["train_tp"]["counters"]["flash_attention.launches_sm90"])
-           for r in ranks]
-    bwd = [r["train_tp"]["counters"]["flash_attention_bwd.launches"]
-           for r in ranks]
-    if fwd != [(2 * per_layer,) * 2] * STEPS_WORLD or \
-            bwd != [per_layer] * STEPS_WORLD:
-        problems.append(f"B1 launches forward {fwd}, backward {bwd}")
-    log(f"[steps] 7b/7c in {secs:.1f} s; peak GB by rank: reference "
-        f"{ranks[0]['train_ref']['peak_gb']:.2f}, tensor-parallel "
-        f"{[round(r['train_tp']['peak_gb'], 2) for r in ranks]}, pools "
-        f"{[round(r['pool_run']['peak_gb'], 2) for r in ranks]}")
+    # B1 a layer a step: forward 2 (remat's recompute), backward 1
+    for run, (tag, layers) in held.items():
+        per_layer = layers * STEPS_TRAIN_STEPS
+        fwd = [(r[run]["counters"]["flash_attention.launches"],
+                r[run]["counters"]["flash_attention.launches_sm90"])
+               for r in ranks]
+        bwd = [r[run]["counters"]["flash_attention_bwd.launches"]
+               for r in ranks]
+        if fwd != [(2 * per_layer,) * 2] * STEPS_WORLD or \
+                bwd != [per_layer] * STEPS_WORLD:
+            problems.append(f"{tag} B1 launches forward {fwd}, backward "
+                            f"{bwd}")
+    log(f"[steps] 7b/7c/7d in {secs:.1f} s; peak GB by rank: 7b reference "
+        f"{ranks[0]['train_tp']['ref']['peak_gb']:.2f}, tensor-parallel "
+        f"{[round(r['train_tp']['peak_gb'], 2) for r in ranks]}; pools "
+        f"{[round(r['pool_run']['peak_gb'], 2) for r in ranks]}; 7d "
+        f"reference {ranks[0]['train_pod']['ref']['peak_gb']:.2f}, "
+        f"data-parallel {[round(r['train_pod']['peak_gb'], 2) for r in ranks]}")
     if problems:
-        raise SystemExit(f"phase 7b/7c: {problems}")
+        raise SystemExit(f"phase 7b/7c/7d: {problems}")
 
     def total(run, name):
         return sum(r[run]["counters"][f"{name}.launches"] for r in ranks)
@@ -3109,19 +3216,23 @@ def phase_steps_ranks(report: dict) -> dict:
                 "flash_attention": total("train_tp", "flash_attention"),
                 "flash_attention_bwd": total("train_tp",
                                              "flash_attention_bwd")},
+            "steps-train-pod": {
+                "flash_attention": total("train_pod", "flash_attention"),
+                "flash_attention_bwd": total("train_pod",
+                                             "flash_attention_bwd")},
             "steps-pools": {
                 "flash_attention": total("pool_run", "flash_attention"),
                 "decode_attention": total("pool_run", "decode_attention")}}
 
 
 def phase_steps(report: dict) -> dict:
-    """Phase 7: 7a, then 7b and 7c; fails past STEPS_TIMEOUT_S."""
+    """Phase 7: 7a, then 7b, 7c and 7d; fails past STEPS_TIMEOUT_S."""
     t0 = time.perf_counter()
     by_path = phase_steps_serve(report)
     by_path.update(phase_steps_ranks(report))
     secs = time.perf_counter() - t0
     log(f"[steps] phase 7 in {secs:.1f} s (7a {report['steps_serve']['seconds']:.1f}, "
-        f"7b and 7c {report['steps_ranks']['seconds']:.1f})")
+        f"7b, 7c and 7d {report['steps_ranks']['seconds']:.1f})")
     if secs > STEPS_TIMEOUT_S:
         raise SystemExit(f"phase 7 took {secs:.0f} s, past "
                          f"{STEPS_TIMEOUT_S}")

@@ -27,8 +27,10 @@ What each rank writes (its own block, in fp32), by case:
   ``shardspecs.local_leaf``;
 - ``lm/<case>/{prefill,step<i>,train}``: the reduced model's logits through
   ``LM.prefill`` and ``decode_step`` (and ``forward_train`` under tensor
-  parallelism), ``lm/<case>/cache/<slot>/{k,v}`` its cache at the end;
-- ``local/<mesh>/<path>``: ``shardspecs.local_params`` of the model;
+  parallelism, its vocabulary block gathered), ``lm/<case>/cache/<slot>/
+  {k,v}`` its cache at the end;
+- ``local/<mesh>/<path>``: ``shardspecs.local_params`` of the model under
+  ``standard_rules`` (the layers' leaves and the vocabulary cut);
 - ``batch_axes/<mesh>/<batch>``: ``mesh.batch_axes_for`` of each batch in
   ``BATCHES``, its axes joined by commas.
 """
@@ -50,6 +52,7 @@ from repro_torch.models import LM
 from repro_torch.models import layers as L
 from repro_torch.models import sharding as SH
 from repro_torch.models.params import flatten
+from repro_torch.models.transformer import whole_logits
 
 MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
 ARCHS = {"llama": "llama3.1-8b", "starcoder2": "starcoder2-15b"}
@@ -133,8 +136,8 @@ def lm_case(inp, mesh, rules, tp: bool, dtype, tag: str,
     with SH.use_rules(rules, mesh):
         if tp:
             params = local_params(params, cfg, mesh)
-            out[f"{tag}/train"] = _np(lm.forward_train(
-                params, {"tokens": tokens}, remat=False)[0])
+            out[f"{tag}/train"] = _np(whole_logits(lm.forward_train(
+                params, {"tokens": tokens}, remat=False)[0], cfg))
         cache = lm.init_cache(tokens.shape[0], KV_SEQ_MAX_LEN, dtype=dtype,
                               device="cpu")
         logits, cache = lm.prefill(params, {"tokens": tokens}, cache)

@@ -24,6 +24,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from repro_torch.models.sharding import flatten_axes
+
 BACKENDS = ("gloo", "nccl")
 # how long a collective of the launchers' world waits for its ranks
 TIMEOUT_S = 600.0
@@ -62,7 +64,9 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, backend: str,
               device):
     """A ``DeviceMesh`` of ``shape`` named ``axes`` over the default process
     group's ranks in order (the last axis varies fastest, as
-    ``jax.make_mesh`` lays out devices), each axis' group on ``backend``.
+    ``jax.make_mesh`` lays out devices), each axis' group on ``backend``,
+    and a group on each run of adjacent axes that a rule may flatten
+    (``models.sharding.flatten_axes``; every rank makes them, in order).
     ``device`` is the device this rank computes on: a CUDA device becomes
     the current one (``nccl`` wants one card a rank; ``gloo`` ranks may
     share one, their CUDA tensors staged through the host by
@@ -91,9 +95,11 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, backend: str,
         raise ValueError("nccl needs one CUDA device a rank")
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    return init_device_mesh(
+    mesh = init_device_mesh(
         device.type, tuple(shape), mesh_dim_names=tuple(axes),
         backend_override={a: backend for a in axes})
+    flatten_axes(mesh, backend)
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False, backend: str,
@@ -130,9 +136,11 @@ def split_disagg_mesh(mesh, n_prefill: int):
     override = tuple((backend, None) for _ in names)
 
     def take(sl):
-        return DeviceMesh(mesh.device_type,
+        pool = DeviceMesh(mesh.device_type,
                           torch.tensor(np.take(ranks, sl, axis=axis)),
                           mesh_dim_names=names, backend_override=override)
+        flatten_axes(pool, backend)
+        return pool
     pre = take(range(n_prefill))
     dec = take(range(n_prefill, ranks.shape[axis]))
     return pre, dec
@@ -142,8 +150,10 @@ def add_mesh_args(ap) -> None:
     """A launcher's mesh options: the mesh, and this process's place in the
     world (one rank a process)."""
     ap.add_argument("--mesh", default="production",
-                    help="'production' (16x16, a world of 256 ranks) or DxM "
-                         "(data x model), e.g. 1x1 for one process")
+                    help="'production' (16x16, a world of 256 ranks), DxM "
+                         "(data x model), e.g. 1x1 for one process, or PxDxM "
+                         "(pod x data x model: the batch over pod and data "
+                         "flattened)")
     ap.add_argument("--rank", type=int, default=0)
     ap.add_argument("--world", type=int, default=1)
     ap.add_argument("--rdv", default=None,

@@ -10,9 +10,12 @@ specs places it, and ``local_params`` cuts the leaves to those blocks;
 ``local_batch`` takes this rank's rows of a batch as ``batch_specs``
 places them; ``local_cache`` gives the shape of this
 rank's KV cache (defined in ``models.transformer``, which sizes the cache
-with it). ``embed`` and ``unembed`` stay whole here: their vocabulary
-sharding (``("model", None)``, ``(None, "model")``) has no explicit layer
-in the JAX package and comes with ROADMAP A12, as do the FSDP specs.
+with it). Under rules whose ``vocab`` names "model", ``embed`` and
+``unembed`` are cut as their specs place them (``("model", None)``,
+``(None, "model")``): a rank holds its block of the vocabulary's rows or
+columns, which ``models.transformer`` looks up and multiplies. A spec
+entry may name a tuple of mesh axes, flattened (the multi-pod batch over
+("pod", "data")). The FSDP specs come with ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from typing import Optional, Tuple
 
 from repro_torch.models.api import family_module
 from repro_torch.models.params import flatten, map_leaves, narrow, unflatten
-from repro_torch.models.sharding import SHARDED_FAMILIES
+from repro_torch.models import sharding as SH
 # the shape of a rank's KV cache, kept beside the layers that size it
 from repro_torch.models.transformer import local_cache  # noqa: F401
 
@@ -35,6 +38,8 @@ _REPLICATED_LEAVES = {
 # by d_ff): the blocks that ``local_params`` keeps
 EXPLICIT_LEAVES = {"attn": ("wq", "wk", "wv", "bq", "bk", "bv", "wo"),
                    "ffn": ("wi", "wg", "wo")}
+# the leaves cut over the vocabulary, kept cut where the rules' vocab is
+VOCAB_LEAVES = ("embed", "unembed")
 
 
 def param_spec(cfg, path: str, ndim: int) -> Spec:
@@ -64,10 +69,6 @@ def param_spec(cfg, path: str, ndim: int) -> Spec:
     return (None,) * ndim
 
 
-def _axis_size(mesh, axis: str) -> int:
-    return mesh.size(mesh.mesh_dim_names.index(axis))
-
-
 def sanitize_spec(spec: Spec, shape, mesh) -> Spec:
     """Drop mesh-axis assignments that do not divide the dimension size
     (e.g. a 51866-token vocab over a 16-way model axis)."""
@@ -76,11 +77,8 @@ def sanitize_spec(spec: Spec, shape, mesh) -> Spec:
         if entry is None:
             out.append(None)
             continue
-        axes = entry if isinstance(entry, tuple) else (entry,)
-        prod = 1
-        for a in axes:
-            prod *= _axis_size(mesh, a)
-        out.append(entry if shape[d] % prod == 0 else None)
+        out.append(entry if shape[d] % SH.axis_size(mesh, entry) == 0
+                   else None)
     return tuple(out)
 
 
@@ -96,20 +94,16 @@ def param_specs(cfg, params, mesh=None):
 
 def block(spec: Spec, shape, mesh) -> Tuple[Tuple[int, int], ...]:
     """(start, length) along each dim of this rank's block of a tensor of
-    ``shape`` placed by ``spec``, in rank order along each axis, as
+    ``shape`` placed by ``spec``, in rank order along each axis (along a
+    tuple of axes, flattened, the first the most significant), as
     ``NamedSharding(mesh, spec)`` places it."""
     out = []
     for d, entry in enumerate(spec):
         if entry is None:
             out.append((0, shape[d]))
             continue
-        axes = entry if isinstance(entry, tuple) else (entry,)
-        if len(axes) > 1:
-            raise NotImplementedError(f"a dim over mesh axes {axes}: "
-                                      "flattened axes come with ROADMAP A12")
-        n = _axis_size(mesh, axes[0])
-        blk = shape[d] // n
-        out.append((mesh.get_local_rank(axes[0]) * blk if n > 1 else 0, blk))
+        blk = shape[d] // SH.axis_size(mesh, entry)
+        out.append((SH.axis_rank(mesh, entry) * blk, blk))
     return tuple(out)
 
 
@@ -141,30 +135,53 @@ def explicit(path: str) -> bool:
     return len(parts) >= 2 and parts[-1] in EXPLICIT_LEAVES.get(parts[-2], ())
 
 
-def param_blocks(cfg, mesh) -> dict:
+def cuts(rules: dict) -> tuple:
+    """(whether the rank holds its blocks of the explicit layers' leaves,
+    of ``embed`` and ``unembed``) under ``rules``: the layers' blocks where
+    heads and d_ff map to "model", none where both map to nothing; the
+    vocabulary's where vocab maps to "model". Raises for another cut,
+    which the parameter specs do not place."""
+    heads, d_ff, vocab = (rules.get(k) for k in ("heads", "d_ff", "vocab"))
+    if (heads, d_ff) not in ((None, None), ("model", "model")):
+        raise NotImplementedError(f"heads over {heads!r} and d_ff over "
+                                  f"{d_ff!r}: other cuts of the parameters "
+                                  "come with ROADMAP A12")
+    if vocab not in (None, "model"):
+        raise NotImplementedError(f"vocab over {vocab!r}: other cuts of the "
+                                  "parameters come with ROADMAP A12")
+    return heads is not None, vocab is not None
+
+
+def param_blocks(cfg, mesh, rules: Optional[dict] = None) -> dict:
     """leaf path -> ``leaf_block`` of it, for every leaf of ``cfg`` that the
-    explicit layers take cut and the mesh cuts; the leaves not listed stay
-    whole (norms, and ``embed``/``unembed``, whose vocabulary sharding
-    waits for A12). Pair the blocks with rules that shard ``heads`` and
-    ``d_ff`` over "model", as ``standard_rules`` does: the layers cut
-    their work by the rules and check the leaves' widths against them."""
-    if cfg.family not in SHARDED_FAMILIES:
+    rank holds cut under ``rules`` (``cuts``) and the mesh cuts; the leaves
+    not listed stay whole (norms; a vocabulary the axis does not divide,
+    as ``sanitize_spec`` says). ``rules``: by default the ones installed
+    by ``models.sharding.use_rules``, else ``standard_rules`` of the mesh.
+    The layers cut their work by the same rules and check the leaves'
+    widths against them."""
+    if cfg.family not in SH.SHARDED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family "
                                   "under sharding rules comes with ROADMAP "
                                   "A12")
+    if rules is None:
+        rules = SH.installed() if SH.active() else \
+            SH.standard_rules("pod" in mesh.mesh_dim_names)
+    layers, vocab = cuts(rules)
     out = {}
     for key, (shape, _) in family_module(cfg).param_specs(cfg).items():
-        if explicit(key):
+        if (layers and explicit(key)) or (vocab and key in VOCAB_LEAVES):
             blk, axes = leaf_block(cfg, key, shape, mesh)
             if axes:
                 out[key] = (blk, axes)
     return out
 
 
-def local_params(params, cfg, mesh) -> dict:
-    """This rank's parameters: each leaf of ``param_blocks`` cut to its
-    block, every other leaf whole."""
-    blocks = param_blocks(cfg, mesh)
+def local_params(params, cfg, mesh, rules: Optional[dict] = None) -> dict:
+    """This rank's parameters under ``rules`` (as ``param_blocks`` reads
+    them): each leaf of ``param_blocks`` cut to its block, every other
+    leaf whole."""
+    blocks = param_blocks(cfg, mesh, rules)
     return unflatten({k: cut(t, blocks[k][0]) if k in blocks else t
                       for k, t in flatten(params).items()})
 

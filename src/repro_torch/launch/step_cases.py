@@ -14,7 +14,10 @@ from a seed by the caller):
 - ``w/<cfg>/<path>``: the weights of each config in ``CONFIGS``,
   flattened as ``repro.training.checkpoint._flatten`` names them;
 - ``train/tokens``, ``train/labels``: the global training batch, some
-  labels masked;
+  labels masked; ``train/v510/{tokens,labels}`` the same within the
+  vocabulary of ``llama_v510``;
+- ``loss/tokens``, ``loss/labels``: a batch whose labels hold -1 and the
+  first and last id of every rank's vocabulary block on (1, 4);
 - ``serve/prompt`` (B, S) and ``serve/feed`` (B, n): the prefill's prompt
   and the tokens fed to the serve steps.
 
@@ -30,9 +33,16 @@ What each rank writes (fp32 unless said), by case:
 - ``split/<mesh>/<n>/{pre,dec}``: ``split_disagg_mesh``'s pools' ranks
   (data x model), and ``split/<mesh>/<n>/sum`` the SUM of the ranks over
   the rank's own pool's data axis;
+- ``loss/{nll,count}``: ``LM.loss_terms`` of the reduced Llama on (1, 4)
+  with ``embed``/``unembed`` cut over the vocabulary, and
+  ``loss/whole/{nll,count}`` the same outside rules on the whole weights;
 - ``production``: the message ``make_production_mesh`` raises with;
 - ``grad/{gather,reduce,entry}``: the gradients of ``all_gather``,
-  ``all_reduce`` and ``entry`` on the (1, 4) mesh.
+  ``all_reduce`` and ``entry`` on the (1, 4) mesh, and ``grad/flat/*``
+  over the flattened ("pod", "data") of the (2, 2, 1) mesh.
+
+A mesh's tag is its shape: "DxM" over ("data", "model"), "PxDxM" over
+("pod", "data", "model"), whose batch is cut over ("pod", "data").
 """
 from __future__ import annotations
 
@@ -51,12 +61,18 @@ from repro_torch.launch import shardspecs as SS
 from repro_torch.launch.mesh import (batch_axes_for, make_mesh,
                                      make_production_mesh, split_disagg_mesh)
 from repro_torch.launch.steps import build_step, materialize
+from repro_torch.models import LM
 from repro_torch.models import layers as L
 from repro_torch.models import sharding as SH
 from repro_torch.models.params import flatten
 from repro_torch.training.optimizer import AdamWConfig
 
-MESHES = {"1x4": (1, 4), "2x2": (2, 2), "4x1": (4, 1)}
+MESHES = {"1x4": (1, 4), "2x2": (2, 2), "4x1": (4, 1), "2x2x1": (2, 2, 1),
+          "2x1x2": (2, 1, 2)}
+
+
+def mesh_axes(shape) -> tuple:
+    return ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
 
 
 def whole_kv(cfg):
@@ -71,15 +87,30 @@ CONFIGS = {
     "starcoder2_whole": lambda: whole_kv(get_config("starcoder2-15b")
                                          .reduced()),
     "chameleon": lambda: get_config("chameleon-34b").reduced(),
+    "llama_v510": lambda: dataclasses.replace(
+        get_config("llama3.1-8b").reduced(), vocab_size=VOCAB_UNEVEN),
 }
+# a vocabulary that 4 does not divide: embed and unembed stay whole on (1, 4)
+VOCAB_UNEVEN = 510
 # (case, config, mesh): the reduced Llama's 2 KV heads over 4 ranks take the
-# "gather" plan, over 2 "own", over 1 none; starcoder2_whole "whole" with
-# QKV bias; chameleon the QK-norm's weights, used in part on each rank
+# "gather" plan, over 2 "own", over 1 none, its vocabulary cut over
+# "model"; on (2, 2, 1) and (2, 1, 2) its batch over ("pod", "data");
+# starcoder2_whole "whole" with QKV bias; chameleon the QK-norm's weights,
+# used in part on each rank; llama_v510 a vocabulary held whole
 TRAIN_CASES = (("llama/1x4", "llama", "1x4"), ("llama/2x2", "llama", "2x2"),
                ("llama/4x1", "llama", "4x1"),
+               ("llama/2x2x1", "llama", "2x2x1"),
+               ("llama/2x1x2", "llama", "2x1x2"),
+               ("llama_v510/1x4", "llama_v510", "1x4"),
                ("starcoder2_whole/1x4", "starcoder2_whole", "1x4"),
                ("chameleon/1x4", "chameleon", "1x4"))
 TRAIN_SHAPE = InputShape("train_small", 16, 4, "train")
+
+
+def train_batch(name: str) -> str:
+    """The inputs' prefix of config ``name``'s training batch."""
+    return "train/v510" if name == "llama_v510" else "train"
+
 TRAIN_STEPS = 2
 # the serve cases: the prefill fills 32 rows, then the serve steps write
 # rows 22-27 (crossing 24, a rank boundary under kv_seq on 1x4)
@@ -89,8 +120,9 @@ SERVE_POS = 22
 KV_SEQ = {"heads": None, "d_ff": None}     # weights whole, rows over "model"
 SERVE_CASES = (("kv_seq/1x4", "1x4", KV_SEQ, "model"),
                ("heads/1x4", "1x4", None, None),
-               ("heads/2x2", "2x2", None, None))
-ARGS_MESHES = ("1x4", "2x2")
+               ("heads/2x2", "2x2", None, None),
+               ("heads/2x2x1", "2x2x1", None, None))
+ARGS_MESHES = ("1x4", "2x2", "2x1x2")
 
 
 def train_opt() -> AdamWConfig:
@@ -112,14 +144,13 @@ def train_case(inp, case: str, name: str, mesh, out: Dict[str, np.ndarray]):
     cfg = CONFIGS[name]()
     built = build_step(cfg, mesh, TRAIN_SHAPE, dtype=torch.float32,
                        opt_cfg=train_opt())
-    params = _weights(inp, name, cfg)
-    if built.rules.get("heads") is not None:
-        params = SS.local_params(params, cfg, mesh)
+    params = SS.local_params(_weights(inp, name, cfg), cfg, mesh, built.rules)
     for key, t in flatten(built.args[0]).items():
         assert flatten(params)[key].shape == t.shape, key
     opt = materialize(built.args[1], "cpu")
     baxes = batch_axes_for(TRAIN_SHAPE.global_batch, mesh)
-    batch = SS.local_batch({k: torch.from_numpy(inp[f"train/{k}"])
+    batch = SS.local_batch({k: torch.from_numpy(inp[f"{train_batch(name)}/"
+                                                    f"{k}"])
                             for k in ("tokens", "labels")}, baxes, mesh)
     for i in range(TRAIN_STEPS):
         params, opt, metrics = built.fn(params, opt, batch)
@@ -137,9 +168,8 @@ def serve_case(inp, case: str, mesh, overrides, kv_seq,
               kv_seq_axis=kv_seq)
     pre = build_step(cfg, mesh, SERVE_PREFILL, **kw)
     dec = build_step(cfg, mesh, SERVE_DECODE, **kw)
-    params = _weights(inp, "llama", cfg)
-    if pre.rules.get("heads") is not None:
-        params = SS.local_params(params, cfg, mesh)
+    params = SS.local_params(_weights(inp, "llama", cfg), cfg, mesh,
+                             pre.rules)
     baxes = batch_axes_for(SERVE_PREFILL.global_batch, mesh)
     rows = SS.local_batch({"prompt": torch.from_numpy(inp["serve/prompt"]),
                            "feed": torch.from_numpy(inp["serve/feed"])},
@@ -184,25 +214,43 @@ def splits(meshes, out: Dict[str, np.ndarray]) -> None:
         out[f"split/{tag}/{n_pre}/sum"] = x.numpy()
 
 
-def collective_grads(mesh, out: Dict[str, np.ndarray]) -> None:
+def collective_grads(mesh, axis, tag: str,
+                     out: Dict[str, np.ndarray]) -> None:
     """Each rank's x (2, 3) = rank + arange; the gradients of sum(w_r y)
-    for y = all_gather(x, "model", 1), all_reduce(x) and entry(x), with
+    for y = all_gather(x, axis, 1), all_reduce(x) and entry(x), with
     w_r = (rank + 1) (1 + the column of y)."""
     r = dist.get_rank()
-    rules = SH.standard_rules(False)
+    rules = SH.standard_rules("pod" in mesh.mesh_dim_names)
     with SH.use_rules(rules, mesh):
         for name in ("gather", "reduce", "entry"):
             x = (torch.arange(6.0).reshape(2, 3) + r).requires_grad_()
             if name == "gather":
-                y = SH.all_gather(x, "model", 1)
+                y = SH.all_gather(x, axis, 1)
             elif name == "reduce":
-                y = SH.all_reduce(x * 1.0, "model")
+                y = SH.all_reduce(x * 1.0, axis)
             else:
-                y = SH.entry(x, "model")
+                y = SH.entry(x, axis)
             w = (r + 1.0) * (1.0 + torch.arange(float(y.shape[-1])))
             (y * w).sum().backward()
-            out[f"grad/{name}"] = _np(x.grad)
-            out[f"grad/{name}/y"] = _np(y)
+            out[f"{tag}/{name}"] = _np(x.grad)
+            out[f"{tag}/{name}/y"] = _np(y)
+
+
+def loss_case(inp, mesh, out: Dict[str, np.ndarray]) -> None:
+    """``LM.loss_terms`` with the vocabulary cut over "model" (the
+    reduced Llama's 512 ids in blocks of 128) and outside rules."""
+    cfg = CONFIGS["llama"]()
+    whole = _weights(inp, "llama", cfg)
+    batch = {k: torch.from_numpy(inp[f"loss/{k}"]) for k in ("tokens",
+                                                            "labels")}
+    rules = SH.standard_rules(False)
+    with torch.no_grad():
+        with SH.use_rules(rules, mesh):
+            nll, count, _ = LM(cfg).loss_terms(
+                SS.local_params(whole, cfg, mesh), batch, remat=False)
+        out["loss/nll"], out["loss/count"] = _np(nll), _np(count)
+        nll, count, _ = LM(cfg).loss_terms(whole, batch, remat=False)
+        out["loss/whole/nll"], out["loss/whole/count"] = _np(nll), _np(count)
 
 
 def main() -> None:
@@ -218,7 +266,7 @@ def main() -> None:
                             timeout=datetime.timedelta(seconds=60))
     inp = dict(np.load(args.inputs))
     out: Dict[str, np.ndarray] = {}
-    meshes = {tag: make_mesh(shape, ("data", "model"), backend="gloo",
+    meshes = {tag: make_mesh(shape, mesh_axes(shape), backend="gloo",
                              device="cpu") for tag, shape in MESHES.items()}
     for case, name, tag in TRAIN_CASES:
         train_case(inp, case, name, meshes[tag], out)
@@ -227,7 +275,9 @@ def main() -> None:
     for tag in ARGS_MESHES:
         args_shapes(meshes[tag], tag, out)
     splits(meshes, out)
-    collective_grads(meshes["1x4"], out)
+    collective_grads(meshes["1x4"], "model", "grad", out)
+    collective_grads(meshes["2x2x1"], ("pod", "data"), "grad/flat", out)
+    loss_case(inp, meshes["1x4"], out)
     try:
         make_production_mesh(backend="gloo", device="cpu")
         out["production"] = np.asarray("built")

@@ -8,17 +8,22 @@ holds its own block of every argument and runs the step on it eagerly,
 with the rules installed, and the layers call the collectives themselves.
 So ``BuiltStep.args`` are this rank's blocks, as tensors on the meta
 device (shapes and dtypes, nothing allocated): the parameters cut as
-``shardspecs.local_params`` cuts them, AdamW's m, v and count, the batch's
-rows as ``shardspecs.local_batch`` takes them and the cache as
+``shardspecs.local_params`` cuts them under the step's rules (the layers'
+leaves by heads and d_ff, ``embed`` and ``unembed`` by vocab), AdamW's m,
+v and count, the batch's rows as ``shardspecs.local_batch`` takes them
+(over the flattened ("pod", "data") on a multi-pod mesh) and the cache as
 ``transformer.local_cache`` sizes it. ``init_params`` draws the weights
 into those blocks. ``fn`` runs on real tensors of those shapes and updates
 the parameters, the optimizer state and the cache in place, where the JAX
 steps donate them.
 
 The train step computes what the JAX one computes over the global batch:
-the loss is the masked mean over every rank's rows, each leaf's gradient
-is the global one restricted to the rank's block, the gradient norm is the
-global norm, and the clip and AdamW run on those.
+the loss is the masked mean over every rank's rows (its log-sum-exp taken
+over the vocabulary's blocks, ``LM.loss_terms``), each leaf's gradient is
+the global one restricted to the rank's block, the gradient norm is the
+global norm, and the clip and AdamW run on those. The prefill and serve
+steps take the argmax of whole logits, gathered over the vocabulary's
+blocks by ``transformer.prefill`` and ``decode_step``.
 """
 from __future__ import annotations
 
@@ -65,40 +70,8 @@ def _rules_for(cfg: ModelConfig, mesh, overrides=None):
     return rules
 
 
-def _holds_blocks(cfg: ModelConfig, rules: dict) -> bool:
-    """Whether the rank holds its blocks of the explicit layers' leaves
-    (heads and d_ff over "model", as ``local_params`` cuts them) rather
-    than every leaf whole (neither sharded); raises for a family or a cut
-    the port's steps do not cover yet."""
-    if cfg.family not in SH.SHARDED_FAMILIES:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family "
-                                  "under sharding rules comes with ROADMAP "
-                                  "A12")
-    heads, d_ff = rules.get("heads"), rules.get("d_ff")
-    if heads is None and d_ff is None:
-        return False
-    if heads == d_ff == "model":
-        return True
-    raise NotImplementedError(f"heads over {heads!r} and d_ff over "
-                              f"{d_ff!r}: other cuts of the parameters come "
-                              "with ROADMAP A12")
-
-
-def _batch_axis(baxes) -> Optional[str]:
-    if len(baxes) > 1:
-        raise NotImplementedError(f"a batch over mesh axes {baxes}: "
-                                  "flattened axes come with ROADMAP A12")
-    return baxes[0] if baxes else None
-
-
 def _local_rows(global_batch: int, baxes, mesh) -> int:
     return SS.block((baxes or None,), (global_batch,), mesh)[0][1]
-
-
-def _blocks(cfg: ModelConfig, mesh, rules: dict) -> dict:
-    """``shardspecs.param_blocks`` where the rank holds blocks under
-    ``rules``, else none (every leaf whole)."""
-    return SS.param_blocks(cfg, mesh) if _holds_blocks(cfg, rules) else {}
 
 
 def _meta_params(cfg: ModelConfig, blocks: dict, dtype) -> dict:
@@ -117,7 +90,7 @@ def init_params(cfg: ModelConfig, built: BuiltStep,
     draw the weights that one device would), the rank's block of it kept,
     in the dtype of ``built.args[0]``."""
     dtype = flatten(built.args[0])["embed"].dtype
-    blocks = _blocks(cfg, built.mesh, built.rules)
+    blocks = SS.param_blocks(cfg, built.mesh, built.rules)
     return init_from_specs(family_module(cfg).param_specs(cfg), generator,
                            dtype, torch.device(device),
                            {k: b for k, (b, _) in blocks.items()})
@@ -160,9 +133,9 @@ def build_train_step(cfg: ModelConfig, mesh, shape: InputShape,
     lm = LM(cfg)
     opt_cfg = opt_cfg or AdamWConfig(state_dtype=torch.bfloat16)
     rules = _rules_for(cfg, mesh, rule_overrides)
-    blocks = _blocks(cfg, mesh, rules)
+    blocks = SS.param_blocks(cfg, mesh, rules)
     baxes = batch_axes_for(shape.global_batch, mesh)
-    bax = _batch_axis(baxes)
+    bax = baxes or None          # a tuple of two axes is flattened
     window = effective_window(cfg, shape)
 
     abstract_params = _meta_params(cfg, blocks, dtype)
@@ -239,9 +212,8 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: InputShape,
     if kv_seq_axis:
         rule_overrides = dict(rule_overrides or {}, kv_seq=kv_seq_axis)
     rules = _rules_for(cfg, mesh, rule_overrides)
-    blocks = _blocks(cfg, mesh, rules)
+    blocks = SS.param_blocks(cfg, mesh, rules)
     baxes = batch_axes_for(shape.global_batch, mesh)
-    _batch_axis(baxes)
     rows = _local_rows(shape.global_batch, baxes, mesh)
     window = effective_window(cfg, shape)
 
@@ -269,9 +241,8 @@ def build_serve_step(cfg: ModelConfig, mesh, shape: InputShape,
     if kv_seq_axis:
         rule_overrides = dict(rule_overrides or {}, kv_seq=kv_seq_axis)
     rules = _rules_for(cfg, mesh, rule_overrides)
-    blocks = _blocks(cfg, mesh, rules)
+    blocks = SS.param_blocks(cfg, mesh, rules)
     baxes = batch_axes_for(shape.global_batch, mesh)
-    _batch_axis(baxes)
     rows = _local_rows(shape.global_batch, baxes, mesh)
     window = effective_window(cfg, shape)
 

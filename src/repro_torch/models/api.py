@@ -100,12 +100,40 @@ class LM:
     def loss_terms(self, params, batch, *, window=None, remat=True):
         """(the summed NLL of the unmasked labels, their count, the MoE FFNs'
         aux loss): ``loss`` is sum / max(count, 1) + MOE_AUX_WEIGHT aux. A
-        sharded step sums the first two over the batch's ranks."""
+        sharded step sums the first two over the batch's ranks. Where
+        ``forward_train`` gives the rank's block of the vocabulary, the
+        log-sum-exp and the gold logit are reduced over its blocks
+        (``_block_terms``)."""
         logits, aux = self.forward_train(params, batch, window=window,
                                          remat=remat)
         labels = batch["labels"]
-        lse = torch.logsumexp(logits.float(), dim=-1)
-        gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long()
-                            )[..., 0].float()
         mask = (labels >= 0).float()
+        if logits.shape[-1] == self.cfg.vocab_size:
+            lse = torch.logsumexp(logits.float(), dim=-1)
+            gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None]
+                                .long())[..., 0].float()
+        else:
+            lse, gold = _block_terms(logits, labels, self.cfg)
         return ((lse - gold) * mask).sum(), mask.sum(), aux
+
+
+def _block_terms(logits, labels, cfg):
+    """(the log-sum-exp over the whole vocabulary, the gold logit) from
+    this rank's block of the logits over the ``vocab`` axis, in fp32: m =
+    the rows' max over the blocks (a MAX all-reduce, detached: the
+    log-sum-exp does not depend on m), lse = m + log(the SUM over the
+    blocks of sum exp(logits - m)); the gold logit from the block that
+    holds the label, 0 from the others, summed. A masked label (< 0)
+    takes its gold from no block."""
+    axis = SH.rule("vocab")
+    width = logits.shape[-1]
+    lo = transformer.vocab_block(cfg, width)
+    z = logits.float()
+    with torch.no_grad():
+        m = SH.all_reduce(z.amax(-1), axis, "max")
+    lse = m + torch.log(SH.all_reduce(torch.exp(z - m[..., None]).sum(-1),
+                                      axis))
+    local = labels.long() - lo
+    mine = (local >= 0) & (local < width)
+    gold = torch.gather(z, -1, local.clamp(0, width - 1)[..., None])[..., 0]
+    return lse, SH.all_reduce(gold * mine, axis)

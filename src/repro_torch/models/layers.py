@@ -533,7 +533,7 @@ def _tp_axis_ok(dim: int, axis_name: str = "d_ff") -> bool:
     ax = SH.rule(axis_name)
     m = SH.mesh()
     return bool(SH.rule("tp_bf16_ar") and ax is not None and m is not None
-                and dim % m.size(m.mesh_dim_names.index(ax)) == 0)
+                and dim % SH.axis_size(m, ax) == 0)
 
 
 def tp_mlp_forward(p, x, cfg):

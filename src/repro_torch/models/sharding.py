@@ -19,6 +19,11 @@ an annotation to act on.
 
 A rule that names a mesh axis needs a process group behind it:
 ``use_rules`` raises when it is given no mesh or a mesh without that axis.
+A rule may also name a tuple of adjacent mesh axes, such as the multi-pod
+batch ("pod", "data"): the axes flattened into one, its first axis the most
+significant, as ``NamedSharding(mesh, P(("pod", "data")))`` orders the
+ranks. ``flatten_axes`` gives a mesh the process groups of those runs of
+axes (``launch.mesh`` calls it for every mesh it makes).
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import contextlib
 import time
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -65,6 +71,59 @@ def _axis_names(value) -> Tuple[str, ...]:
     return value if isinstance(value, tuple) else (value,)
 
 
+def axis_size(m, axes) -> int:
+    """The size of mesh axis ``axes`` of mesh ``m``, or of the axes of a
+    tuple flattened into one (the product of their sizes)."""
+    n = 1
+    for a in _axis_names(axes):
+        n *= m.size(m.mesh_dim_names.index(a))
+    return n
+
+
+def axis_rank(m, axes) -> int:
+    """This rank's coordinate along ``axes`` of mesh ``m``: along a tuple,
+    its coordinates flattened with the first axis the most significant."""
+    r = 0
+    for a in _axis_names(axes):
+        r = r * m.size(m.mesh_dim_names.index(a)) + m.get_local_rank(a)
+    return r
+
+
+# the attribute of a mesh that holds its flattened axes' groups
+_FLAT = "_flat_groups"
+
+
+def flatten_axes(m, backend: str) -> None:
+    """Give mesh ``m`` a process group (on ``backend``) along every run of
+    two or more adjacent axes, in the rank order of ``axis_rank``; a run
+    of size 1 needs none. Making a group is a collective over the whole
+    world: every rank of the world calls this for every mesh, in the same
+    order (a rank outside ``m`` is a member of none of its groups)."""
+    ranks = m.mesh.cpu().numpy()
+    names = tuple(m.mesh_dim_names)
+    me = dist.get_rank()
+    groups = {}
+    for lo in range(len(names)):
+        for hi in range(lo + 2, len(names) + 1):
+            run = names[lo:hi]
+            n = axis_size(m, run)
+            groups[run] = None
+            if n == 1:
+                continue
+            # a row for each coordinate of the other axes: the run's ranks
+            rows = np.moveaxis(ranks, range(lo, hi), range(
+                ranks.ndim - (hi - lo), ranks.ndim)).reshape(-1, n)
+            for row in rows.tolist():
+                if row != sorted(row):
+                    raise ValueError(f"mesh axes {run}: ranks {row} are not "
+                                     "in increasing order, the order of a "
+                                     "process group")
+                group = dist.new_group(row, backend=backend)
+                if me in row:
+                    groups[run] = group
+    setattr(m, _FLAT, groups)
+
+
 @contextlib.contextmanager
 def use_rules(rules: Dict[str, MeshAxes], mesh=None):
     """Install ``rules`` and the ``DeviceMesh`` whose axes they name. Raises
@@ -83,6 +142,11 @@ def use_rules(rules: Dict[str, MeshAxes], mesh=None):
             raise ValueError(f"rule {key!r} names mesh axes {missing}, but "
                              f"the mesh has {list(names) or 'none'}: a "
                              "sharded axis needs a process group")
+        axes = _axis_names(value)
+        if len(axes) > 1 and axes not in getattr(mesh, _FLAT, {}):
+            raise ValueError(f"rule {key!r} names mesh axes {axes}, which "
+                             "are not a run of the mesh's adjacent axes "
+                             "in order: no process group flattens them")
     prev, prev_mesh = _RULES, _MESH
     _RULES, _MESH = rules, mesh
     try:
@@ -95,6 +159,11 @@ def active() -> bool:
     return _RULES is not None
 
 
+def installed() -> Optional[Dict[str, MeshAxes]]:
+    """The installed rules table (None outside a rules context)."""
+    return _RULES
+
+
 def rule(name: str):
     """Mesh axes mapped to a logical axis (None outside a rules context)."""
     return _RULES.get(name) if _RULES is not None else None
@@ -105,42 +174,44 @@ def mesh():
 
 
 class Shard(NamedTuple):
-    """A rank's place along one mesh axis: the axis' process group (None
-    for an axis of size 1 or no axis), the rank's coordinate on it and the
-    axis' size."""
+    """A rank's place along a mesh axis (or a tuple of them, flattened):
+    the axis' process group (None for an axis of size 1 or no axis), the
+    rank's coordinate on it and the axis' size."""
     group: Optional[object]
     rank: int
     size: int
 
 
-def shard_of(name: str) -> Shard:
-    """The (process group, rank, size) of the mesh axis that logical axis
-    ``name`` maps to; (None, 0, 1) where it maps to none. A rule over more
-    than one mesh axis (the multi-pod batch) has no single group: A12."""
-    axes = _axis_names(rule(name))
-    if not axes:
-        return Shard(None, 0, 1)
-    if len(axes) > 1:
-        raise NotImplementedError(f"rule {name!r} spans mesh axes {axes}: "
-                                  "flattened axes come with ROADMAP A12")
-    m, axis = _MESH, axes[0]
-    size = m.size(m.mesh_dim_names.index(axis))
+def _shard(axes) -> Shard:
+    """The ``Shard`` of mesh axis ``axes`` (a name, a tuple of them or
+    None) of the installed mesh."""
+    m = _MESH
+    names = _axis_names(axes)
+    size = axis_size(m, names) if names else 1
     if size == 1:
         return Shard(None, 0, 1)
-    return Shard(m.get_group(axis), m.get_local_rank(axis), size)
+    group = m.get_group(names[0]) if len(names) == 1 else \
+        getattr(m, _FLAT)[names]
+    return Shard(group, axis_rank(m, names), size)
+
+
+def shard_of(name: str) -> Shard:
+    """The (process group, rank, size) of the mesh axis that logical axis
+    ``name`` maps to, or of its tuple of mesh axes flattened into one;
+    (None, 0, 1) where it maps to none."""
+    return _shard(rule(name))
 
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
-def _axis_size(axis: str) -> int:
-    m = _MESH
-    return m.size(m.mesh_dim_names.index(axis))
+def _label(axis) -> str:
+    return "+".join(_axis_names(axis))
 
 
-def _reduce(x: torch.Tensor, axis: str, op: str) -> torch.Tensor:
+def _reduce(x: torch.Tensor, axis, op: str) -> torch.Tensor:
     """``x`` all-reduced in place over mesh axis ``axis``, counted."""
-    group = _MESH.get_group(axis)
+    group = _shard(axis).group
     t0 = time.perf_counter()
     if x.device.type == "cuda" and dist.get_backend(group) == "gloo":
         host = x.cpu()
@@ -150,8 +221,11 @@ def _reduce(x: torch.Tensor, axis: str, op: str) -> torch.Tensor:
     else:
         dist.all_reduce(x, op=_OPS[op], group=group)
     all_reduce.seconds += time.perf_counter() - t0
+    n = x.numel() * x.element_size()
     all_reduce.calls += 1
-    all_reduce.bytes += x.numel() * x.element_size()
+    all_reduce.bytes += n
+    calls, total = all_reduce.by_axis.get(_label(axis), (0, 0))
+    all_reduce.by_axis[_label(axis)] = (calls + 1, total + n)
     return x
 
 
@@ -186,10 +260,10 @@ def _differentiated(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
 
-def all_reduce(x: torch.Tensor, axis: Optional[str], op: str = "sum"):
+def all_reduce(x: torch.Tensor, axis, op: str = "sum"):
     """All-reduce ``x`` in place over the process group of mesh axis
-    ``axis`` (``op`` "sum" or "max") and return it; the identity on an axis
-    of size 1 or none. On a ``gloo`` group a CUDA tensor is copied to the
+    ``axis``, or of a tuple of them flattened (``op`` "sum" or "max"), and
+    return it; the identity on an axis of size 1 or none. On a ``gloo`` group a CUDA tensor is copied to the
     host, reduced there and copied back: gloo's own CUDA path stages through
     the host the same way, and one explicit copy takes every dtype and op
     whatever the card's gloo build accepts.
@@ -197,7 +271,7 @@ def all_reduce(x: torch.Tensor, axis: Optional[str], op: str = "sum"):
     A SUM differentiates as the all-reduce of a partial product does: its
     backward is the identity. A MAX has no backward (only the decode step's
     log-sum-exp takes one): a tensor that requires grad raises."""
-    if axis is None or _axis_size(axis) == 1:
+    if _shard(axis).size == 1:
         return x
     if _differentiated(x):
         if op != "sum":
@@ -207,34 +281,35 @@ def all_reduce(x: torch.Tensor, axis: Optional[str], op: str = "sum"):
     return _reduce(x, axis, op)
 
 
-def entry(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
+def entry(x: torch.Tensor, axis) -> torch.Tensor:
     """``x`` where a replicated activation enters a block whose work is cut
     over mesh axis ``axis`` (the attention's heads, the FFN's d_ff): the
     identity forward, and in the backward the SUM over the axis of the
     ranks' partial gradients, so that each rank goes on with the whole
     gradient of ``x``. Outside autograd, or on an axis of size 1, ``x``
     itself."""
-    if axis is None or _axis_size(axis) == 1 or not _differentiated(x):
+    if _shard(axis).size == 1 or not _differentiated(x):
         return x
     return _Entry.apply(x, axis)
 
 
 # the all-reduces' count, bytes and host seconds (a staged call's copies
 # included): the forward's, and in training also the backward's (``entry``,
-# ``all_gather``'s reduce-scatter) and those that remat's recompute repeats
+# ``all_gather``'s reduce-scatter) and those that remat's recompute repeats;
+# ``by_axis``: mesh axes ("pod+data" for a flattened pair) -> (count, bytes)
 all_reduce.seconds = 0.0    # type: ignore[attr-defined]
 all_reduce.calls = 0        # type: ignore[attr-defined]
 all_reduce.bytes = 0        # type: ignore[attr-defined]
 all_reduce.host_staged = 0  # type: ignore[attr-defined]
+all_reduce.by_axis = {}     # type: ignore[attr-defined]
 
 
-def _gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-    n = _axis_size(axis)
-    group = _MESH.get_group(axis)
-    staged = x.device.type == "cuda" and dist.get_backend(group) == "gloo"
+def _gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    sh = _shard(axis)
+    staged = x.device.type == "cuda" and dist.get_backend(sh.group) == "gloo"
     src = x.cpu() if staged else x.contiguous()
-    parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=group)
+    parts = [torch.empty_like(src) for _ in range(sh.size)]
+    dist.all_gather(parts, src, group=sh.group)
     return torch.cat(parts, dim=dim).to(x.device)
 
 
@@ -250,16 +325,17 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         whole = _reduce(dy.contiguous().clone(), ctx.axis, "sum")
-        r = _MESH.get_local_rank(ctx.axis)
+        r = _shard(ctx.axis).rank
         return whole.narrow(ctx.dim, r * ctx.width, ctx.width), None, None
 
 
-def all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-    """The ranks' ``x`` of mesh axis ``axis``, concatenated along ``dim`` in
-    rank order (the whole of a tensor a NamedSharding cut along ``dim``);
-    staged through the host as ``all_reduce`` does on ``gloo``. Its
-    backward gives each rank its slice of the ranks' summed gradients."""
-    if _axis_size(axis) == 1:
+def all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` of mesh axis ``axis`` (or a tuple of them,
+    flattened), concatenated along ``dim`` in rank order (the whole of a
+    tensor a NamedSharding cut along ``dim``); staged through the host as
+    ``all_reduce`` does on ``gloo``. Its backward gives each rank its slice
+    of the ranks' summed gradients."""
+    if _shard(axis).size == 1:
         return x
     if _differentiated(x):
         return _Gather.apply(x, axis, dim)

@@ -13,7 +13,12 @@ The KV cache is ``{"slots": ({"k", "v"}, ...), "pos"}``, one (G, B, Sc, K,
 hd) pair a slot; ``prefill`` and ``decode_step`` write into them in place
 and return them. Under sharding rules (dense and vlm only; ``api.LM``
 refuses the rest) each rank runs its block of the layers and the cache
-(``models.layers``); embeddings and logits are whole on every rank.
+(``models.layers``), and, where ``embed`` and ``unembed`` are cut over the
+vocabulary (``launch.shardspecs.local_params``), its block of the
+vocabulary: the embedding is a SUM over the ``vocab`` axis of each rank's
+lookup of its own rows, and ``forward_train`` returns the rank's block of
+the logits, which ``api.LM.loss_terms`` reduces without gathering;
+``prefill`` and ``decode_step`` return whole logits, gathered.
 """
 from __future__ import annotations
 
@@ -134,38 +139,86 @@ def _run_stack(params, x, cfg, mode: str, cache=None, window=None,
     return x, aux
 
 
+def vocab_block(cfg, width: int) -> Optional[int]:
+    """The first vocabulary id of this rank's block where a leaf holds
+    ``width`` of the vocabulary's rows or columns: None where it holds
+    them all (outside rules, or kept whole), the rank's first id where it
+    holds its block over the ``vocab`` axis. Raises for any other width."""
+    V = cfg.vocab_size
+    if width == V:
+        return None
+    sh = SH.shard_of("vocab")
+    if sh.size == 1 or V % sh.size or width != V // sh.size:
+        raise ValueError(f"embed/unembed hold {width} of the vocabulary's "
+                         f"{V} ids where the rules give this rank "
+                         f"{V // sh.size if V % sh.size == 0 else V}: cut "
+                         "the parameters with launch.shardspecs.local_params "
+                         "under the same rules")
+    return sh.rank * width
+
+
+def _embed(params, tokens, cfg):
+    """The embedding rows of ``tokens``; with ``embed`` cut over the
+    vocabulary, each rank looks up the tokens in its rows, zeros the
+    others and the ranks' lookups are summed (whose backward gives each
+    rank the gradient of its own rows)."""
+    table = params["embed"]
+    lo = vocab_block(cfg, table.shape[0])
+    if lo is None:
+        return table[tokens]
+    local = tokens - lo
+    mine = (local >= 0) & (local < table.shape[0])
+    x = table[local.clamp(0, table.shape[0] - 1)] * \
+        mine[..., None].to(table.dtype)
+    return SH.all_reduce(x, SH.rule("vocab"))
+
+
 def _logits(params, x, cfg):
+    """The logits of this rank's columns of ``unembed``: (..., V), or the
+    rank's block (..., V / n) of them where it holds a block."""
     x = L.apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    if vocab_block(cfg, params["unembed"].shape[-1]) is not None:
+        x = SH.entry(x, SH.rule("vocab"))  # the gradient of x sums
     return x @ params["unembed"]
+
+
+def whole_logits(logits, cfg):
+    """Whole logits (..., V) from ``forward_train``'s or ``_logits``' (the
+    rank's block gathered over ``vocab``; whole logits as they are)."""
+    if logits.shape[-1] == cfg.vocab_size:
+        return logits
+    return SH.all_gather(logits, SH.rule("vocab"), -1)
 
 
 def forward_train(params, cfg, batch, *, window=None, remat=True):
     """Full-sequence forward, each group of layers rematerialised in the
     backward where ``remat`` asks. Returns (logits (B, S, V), the MoE FFNs'
-    summed aux loss, 0 without them)."""
-    x = params["embed"][batch["tokens"]]
+    summed aux loss, 0 without them); with ``unembed`` cut over the
+    vocabulary, the rank's block of the logits, (B, S, V / n)."""
+    x = _embed(params, batch["tokens"], cfg)
     x, aux = _run_stack(params, x, cfg, "train", window=window, remat=remat)
     return _logits(params, x, cfg), aux
 
 
 def prefill(params, cfg, batch, cache, *, window=None):
     """Process the prompt and fill the cache in place. Returns (last-token
-    logits, cache)."""
+    logits (B, V), whole on every rank, cache)."""
     tokens = batch["tokens"]
-    x = params["embed"][tokens]
+    x = _embed(params, tokens, cfg)
     x, _ = _run_stack(params, x, cfg, "prefill", cache=cache, window=window)
-    last = _logits(params, x[:, -1:, :], cfg)[:, 0]
+    last = whole_logits(_logits(params, x[:, -1:, :], cfg)[:, 0], cfg)
     pos = torch.tensor(tokens.shape[1], dtype=torch.int32, device=x.device)
     return last, {"slots": cache["slots"], "pos": pos}
 
 
 def decode_step(params, cfg, token, cache, *, window=None):
     """One decode step; ``cache["pos"]`` is a scalar or (B,) per-slot
-    positions. token: (B,) or (B, 1). Returns (logits (B, V), cache), the
-    cache written in place and its positions advanced by one."""
+    positions. token: (B,) or (B, 1). Returns (logits (B, V), whole on
+    every rank, cache), the cache written in place and its positions
+    advanced by one."""
     if token.ndim == 1:
         token = token[:, None]
-    x = params["embed"][token]
+    x = _embed(params, token, cfg)
     x, _ = _run_stack(params, x, cfg, "decode", cache=cache, window=window)
-    logits = _logits(params, x, cfg)[:, 0]
+    logits = whole_logits(_logits(params, x, cfg)[:, 0], cfg)
     return logits, {"slots": cache["slots"], "pos": cache["pos"] + 1}

@@ -389,10 +389,10 @@ def _explicit(path: str) -> bool:
 
 @pytest.mark.parametrize("tag", ["1x4", "2x2"])
 def test_local_params_match_named_sharding(runs, tag):
-    """Every leaf the explicit layers take is the rank's block of the
+    """Every leaf the explicit layers take, and ``embed`` and ``unembed``
+    (the vocabulary's rows and columns), is the rank's block of the
     NamedSharding of ``sanitize_spec(param_spec(...))`` (wk and wv cut
-    mid-head on 1x4); every other leaf, embed and unembed among them,
-    whole."""
+    mid-head on 1x4); every other leaf whole."""
     jx, ranks, _, inp = runs
     paths = [k[len(f"spec/{tag}/"):] for k in jx
              if k.startswith(f"spec/{tag}/")]
@@ -403,7 +403,7 @@ def test_local_params_match_named_sharding(runs, tag):
         assert set(local) == set(paths)
         for path, t in local.items():
             full = inp[f"lm/{path}"]
-            if _explicit(path):
+            if _explicit(path) or path in ("embed", "unembed"):
                 full = full[tuple(slice(int(lo), int(hi)) for lo, hi in
                                   jx[f"spec/{tag}/{path}"][r])]
             np.testing.assert_array_equal(t, full, err_msg=path)
@@ -466,7 +466,9 @@ def test_smoke_mesh_is_jax_smoke_mesh(tmp_path):
 
 def test_refusals():
     """Rules on a family the multi-device layers do not cover raise, naming
-    A12; parameters not cut to the rules raise, naming local_params."""
+    A12; parameters not cut to the rules raise, naming local_params: the
+    attention's, and an ``embed`` or ``unembed`` of a third width (neither
+    the whole vocabulary nor the rank's block of it)."""
     from repro_torch.configs import get_config
     from repro_torch.models import LM
     from repro_torch.models import layers as L
@@ -482,6 +484,18 @@ def test_refusals():
                  L.init_attention(cfg).items()}
         with pytest.raises(ValueError, match="local_params"):
             L.attn_forward(whole, torch.zeros(1, 2, cfg.d_model), cfg)
+        # a vocabulary leaf neither whole nor the rank's block of 4
+        from repro_torch.models import transformer as T
+        V, D = cfg.vocab_size, cfg.d_model
+        for rows in (V // 2, V // 4 + 1):
+            with pytest.raises(ValueError, match="local_params"):
+                T._embed({"embed": torch.zeros(rows, D)},
+                         torch.zeros(1, 2, dtype=torch.long), cfg)
+            with pytest.raises(ValueError, match="local_params"):
+                T._logits({"unembed": torch.zeros(D, rows),
+                           "final_norm": {"w": torch.ones(D)}},
+                          torch.zeros(1, 2, D), cfg)
+        assert T.vocab_block(cfg, V) is None
 
 
 def test_rules_without_process_group_raise():

@@ -4,31 +4,39 @@ and the meshes of ``launch.mesh``, against the JAX package's, on the CPU.
 
 One module-scoped run launches, at once, four ``gloo`` ranks of
 ``python -m repro_torch.launch.step_cases`` (one torch thread each, a file
-rendezvous in the test's temporary directory) and one JAX process with
-four host devices on ``Auto`` axes (jax 0.9's ``make_mesh`` makes
+rendezvous in the test's temporary directory) and ``JAX_PROCS`` JAX
+processes (the train cases split among them, the last also running the
+rest) with four host devices on ``Auto`` axes (jax 0.9's ``make_mesh`` makes
 Explicit axes, which the JAX steps' ``constrain`` refuses), on the same
 seeded weights and batches; the ranks are killed, and the run fails with
 their output, past ``WALL_S``. Then, in fp32:
 
 - ``build_train_step`` on meshes (1, 4), (2, 2) and (4, 1) for the reduced
-  Llama-3.1-8B (the KV plans "gather", "own" and none), on (1, 4) for a
-  reduced StarCoder2 with one KV head of 34 (the "whole" plan, QKV bias)
-  and for the reduced Chameleon (QK-norm): loss, grad norm and lr at both
-  of 2 steps, and every parameter block and AdamW's m and v after them,
-  within 1e-5 max(1, max |ref|) of the JAX ``build_train_step``;
+  Llama-3.1-8B (the KV plans "gather", "own" and none; the vocabulary cut
+  over "model"), on (2, 2, 1) and (2, 1, 2) over ("pod", "data", "model")
+  (the batch over the flattened ("pod", "data")), on (1, 4) for a
+  reduced StarCoder2 with one KV head of 34 (the "whole" plan, QKV bias),
+  for the reduced Chameleon (QK-norm) and for the reduced Llama with a
+  vocabulary of 510 (which 4 does not divide: held whole): loss, grad
+  norm and lr at both of 2 steps, and every parameter block and AdamW's m
+  and v after them, within 1e-5 max(1, max |ref|) of the JAX
+  ``build_train_step``;
 - ``build_prefill_step`` and ``build_serve_step`` under ``kv_seq`` on
-  (1, 4) and under the heads' rule on (1, 4) and (2, 2): tokens equal
-  wherever the reference's top-2 gap exceeds the tolerance, caches within
-  1e-5;
+  (1, 4) and under the heads' rule on (1, 4), (2, 2) and (2, 2, 1):
+  tokens equal wherever the reference's top-2 gap exceeds the tolerance,
+  caches within 1e-5;
 - every leaf of ``BuiltStep.args`` at the full size of Llama-3.1-8B, for
-  the four input shapes on (1, 4) and (2, 2), against the JAX
-  ``NamedSharding.shard_shape`` of the same leaf; ``embed`` and
-  ``unembed`` (and their moments) whole until A12, and a cache's KV-head
-  dim the rank's own heads (the JAX cache keeps every KV head on every
-  rank of "model");
+  the four input shapes on (1, 4), (2, 2) and (2, 1, 2), against the JAX
+  ``NamedSharding.shard_shape`` of the same leaf, but for a cache's
+  KV-head dim: the rank's own heads (the JAX cache keeps every KV head on
+  every rank of "model");
+- ``LM.loss_terms`` with the vocabulary cut, on labels that hold -1 and
+  the first and last id of every rank's block, against the JAX
+  ``LM.loss`` and the port's outside rules;
 - ``split_disagg_mesh`` on (4, 1) for n_prefill 1-3 and on (2, 2) against
   the JAX pools' devices, and an all-reduce in each pool;
-- the gradients of ``all_gather``, ``all_reduce`` and ``entry``;
+- the gradients of ``all_gather``, ``all_reduce`` and ``entry``, over
+  "model" and over the flattened ("pod", "data");
 - ``make_production_mesh``'s refusal on a world of 4.
 
 In the test process alone: ``batch_specs`` and ``cache_specs`` for all
@@ -68,6 +76,7 @@ WALL_S = 150
 SEED = 1
 TOL = 1e-5
 FEED_STEPS = 6
+JAX_PROCS = 3     # the JAX side's processes (its compiles take the time)
 
 JAX_SIDE = r"""
 import dataclasses
@@ -88,12 +97,15 @@ from repro.training.optimizer import AdamWConfig, init_state
 inp = dict(np.load(sys.argv[1]))
 seed = int(sys.argv[3])
 out = {}
-AUTO = (AxisType.Auto,) * 2      # constrain() takes only Auto axes
-MESHES = {"1x4": (1, 4), "2x2": (2, 2), "4x1": (4, 1)}
+MESHES = {"1x4": (1, 4), "2x2": (2, 2), "4x1": (4, 1), "2x2x1": (2, 2, 1),
+          "2x1x2": (2, 1, 2)}
 
 
 def mesh_of(tag):
-    return jax.make_mesh(MESHES[tag], ("data", "model"), axis_types=AUTO)
+    shape = MESHES[tag]
+    axes = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+    # constrain() takes only Auto axes
+    return jax.make_mesh(shape, axes, axis_types=(AxisType.Auto,) * len(shape))
 
 
 def whole_kv(cfg):
@@ -103,7 +115,9 @@ def whole_kv(cfg):
 CONFIGS = {"llama": get_config("llama3.1-8b").reduced(),
            "starcoder2_whole": whole_kv(get_config("starcoder2-15b")
                                         .reduced()),
-           "chameleon": get_config("chameleon-34b").reduced()}
+           "chameleon": get_config("chameleon-34b").reduced(),
+           "llama_v510": dataclasses.replace(get_config("llama3.1-8b")
+                                             .reduced(), vocab_size=510)}
 PARAMS = {k: LM(c).init(jax.random.key(seed)) for k, c in CONFIGS.items()}
 
 
@@ -113,10 +127,11 @@ def paths(tree, is_leaf=None):
                      for p in path): leaf for path, leaf in leaves}
 
 
-train_batch = {k: jnp.asarray(inp["train/" + k]) for k in ("tokens", "labels")}
 opt_cfg = AdamWConfig(state_dtype=jnp.float32)
-for case in sys.argv[4].split(","):
+for case in filter(None, sys.argv[4].split(",")):
     name, tag = case.split("/")
+    pre = "train/v510/" if name == "llama_v510" else "train/"
+    train_batch = {k: jnp.asarray(inp[pre + k]) for k in ("tokens", "labels")}
     mesh = mesh_of(tag)
     built = build_step(CONFIGS[name], mesh, InputShape("train_small", 16, 4,
                                                        "train"),
@@ -132,6 +147,9 @@ for case in sys.argv[4].split(","):
         for k, v in _flatten(tree).items():
             out[f"train/{case}/{part}/{k}"] = v
 
+if sys.argv[5] != "rest":        # the train cases alone
+    np.savez(sys.argv[2], **out)
+    sys.exit(0)
 cfg = CONFIGS["llama"]
 lm = LM(cfg)
 prompt = jnp.asarray(inp["serve/prompt"])
@@ -139,7 +157,8 @@ feed = jnp.asarray(inp["serve/feed"])
 kv_seq = {"heads": None, "d_ff": None}
 for case, tag, overrides, axis in (("kv_seq/1x4", "1x4", kv_seq, "model"),
                                    ("heads/1x4", "1x4", None, None),
-                                   ("heads/2x2", "2x2", None, None)):
+                                   ("heads/2x2", "2x2", None, None),
+                                   ("heads/2x2x1", "2x2x1", None, None)):
     mesh = mesh_of(tag)
     kw = dict(dtype=jnp.float32, rule_overrides=overrides, kv_seq_axis=axis)
     pre = build_step(cfg, mesh, InputShape("prefill_small", 32, 4, "prefill"),
@@ -168,10 +187,12 @@ decode = jax.jit(lm.decode_step)
 for i in range(feed.shape[1]):
     logits, cache = decode(params, feed[:, i], cache)
     out[f"serve/logits/step{i}"] = np.asarray(logits)
+out["loss/ref"] = np.asarray(jax.jit(lm.loss)(params, {
+    k: jnp.asarray(inp["loss/" + k]) for k in ("tokens", "labels")}))
 
 full = get_config("llama3.1-8b")
 flm = LM(full)
-for tag in ("1x4", "2x2"):
+for tag in ("1x4", "2x2", "2x1x2"):
     mesh = mesh_of(tag)
     for name, shape in INPUT_SHAPES.items():
         built = build_step(full, mesh, shape)
@@ -216,6 +237,8 @@ JAX_CFGS = {
     "starcoder2_whole": dataclasses.replace(
         jax_config("starcoder2-15b").reduced(), n_kv_heads=1, head_dim=34),
     "chameleon": jax_config("chameleon-34b").reduced(),
+    "llama_v510": dataclasses.replace(jax_config("llama3.1-8b").reduced(),
+                                      vocab_size=C.VOCAB_UNEVEN),
 }
 
 
@@ -242,11 +265,23 @@ def _inputs(path: Path) -> None:
     labels[3, :3] = -1
     inp["train/tokens"] = tokens[:, :-1].copy()
     inp["train/labels"] = labels
+    # the same batch within the 510 ids of llama_v510 (509 its last id)
+    inp["train/v510/tokens"] = inp["train/tokens"] % C.VOCAB_UNEVEN
+    inp["train/v510/labels"] = np.where(labels >= 0,
+                                        labels % C.VOCAB_UNEVEN, labels)
+    assert C.train_batch("llama_v510") == "train/v510"
     inp["serve/prompt"] = rng.integers(
         0, 512, (C.SERVE_PREFILL.global_batch,
                  C.SERVE_PREFILL.seq_len)).astype(np.int32)
     inp["serve/feed"] = rng.integers(
         0, 512, (C.SERVE_PREFILL.global_batch, FEED_STEPS)).astype(np.int32)
+    # -1, then the first and last id of each of 4 blocks of 128 ids
+    edges = [-1] + [i for r in range(4) for i in (128 * r, 128 * r + 127)]
+    labels = rng.integers(0, 512, (2, 12)).astype(np.int32)
+    labels[0, :len(edges)] = edges
+    labels[1, -len(edges):] = edges[::-1]
+    inp["loss/labels"] = labels
+    inp["loss/tokens"] = rng.integers(0, 512, (2, 12)).astype(np.int32)
     np.savez(path, **inp)
 
 
@@ -263,11 +298,14 @@ def runs(tmp_path_factory):
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "OMP_NUM_THREADS": "1", "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
-    cases = ",".join(case for case, _, _ in C.TRAIN_CASES)
+    cases = [case for case, _, _ in C.TRAIN_CASES]
     procs = []
-    for name, cmd in [("jax", [sys.executable, "-c", JAX_SIDE,
-                               str(tmp / "inputs.npz"), str(tmp / "jax.npz"),
-                               str(SEED), cases])] + [
+    for name, cmd in [(f"jax{j}", [sys.executable, "-c", JAX_SIDE,
+                                   str(tmp / "inputs.npz"),
+                                   str(tmp / f"jax{j}.npz"), str(SEED),
+                                   ",".join(cases[j::JAX_PROCS]),
+                                   "rest" if j == JAX_PROCS - 1 else "-"])
+                      for j in range(JAX_PROCS)] + [
             (f"rank{r}", [sys.executable, "-m",
                           "repro_torch.launch.step_cases",
                           "--rdv", str(tmp / "rdv"), "--rank", str(r),
@@ -298,13 +336,21 @@ def runs(tmp_path_factory):
             f"--- {name} (exit {p.returncode}):\n{_tail(log)}"
             for name, log, p in procs))
     ranks = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(WORLD)]
-    return (dict(np.load(tmp / "jax.npz")), ranks,
-            dict(np.load(tmp / "inputs.npz")))
+    jx = {}
+    for j in range(JAX_PROCS):
+        jx.update(np.load(tmp / f"jax{j}.npz"))
+    return jx, ranks, dict(np.load(tmp / "inputs.npz"))
+
+
+def _shape(tag: str) -> tuple:
+    return tuple(int(n) for n in tag.split("x"))
 
 
 def _coords(rank: int, tag: str):
-    """(data, model) coordinates of a rank on mesh ``tag``."""
-    n_model = int(tag.split("x")[1])
+    """(batch, model) coordinates of a rank on mesh ``tag``: its data
+    coordinate, or its ("pod", "data") one flattened (pod the most
+    significant), and its model coordinate."""
+    n_model = _shape(tag)[-1]
     return rank // n_model, rank % n_model
 
 
@@ -318,9 +364,9 @@ def _block(full: np.ndarray, local: np.ndarray, cfg, path: str, tag: str,
     place it (whole where the port keeps the leaf whole)."""
     if local.shape == full.shape:
         return full
-    n_data, n_model = (int(n) for n in tag.split("x"))
+    n_model = _shape(tag)[-1]
     spec = JSS.sanitize_spec(JSS.param_spec(cfg, path, full.ndim),
-                             full.shape, _Mesh(n_model, n_data))
+                             full.shape, _Mesh(n_model))
     sl = []
     _, m = _coords(rank, tag)
     for d, entry in enumerate(spec):
@@ -328,7 +374,7 @@ def _block(full: np.ndarray, local: np.ndarray, cfg, path: str, tag: str,
             sl.append(slice(None))
         else:
             n = full.shape[d] // local.shape[d]
-            assert entry == "model" and n == int(tag.split("x")[1])
+            assert entry == "model" and n == n_model
             sl.append(slice(m * local.shape[d], (m + 1) * local.shape[d]))
     return full[tuple(sl)]
 
@@ -340,7 +386,12 @@ def test_train_step_matches_jax(runs, case):
     jx, ranks, _ = runs
     name, tag = case.split("/")
     cfg = JAX_CFGS[name]
+    # the vocabulary is cut wherever the model axis divides it
+    vocab_cut = _shape(tag)[-1] > 1 and cfg.vocab_size % _shape(tag)[-1] == 0
     for r, res in enumerate(ranks):
+        got = res[f"train/{case}/params/embed"].shape[0]
+        assert got == (cfg.vocab_size // _shape(tag)[-1] if vocab_cut else
+                       cfg.vocab_size), (r, got)
         for i in range(C.TRAIN_STEPS):
             for k in ("loss", "grad_norm", "lr"):
                 key = f"train/{case}/step{i}/{k}"
@@ -390,8 +441,8 @@ def test_prefill_and_serve_steps_match_jax(runs, case):
     cache (its rows under kv_seq, its KV heads under heads) within 1e-5."""
     jx, ranks, _ = runs
     tag = case.split("/")[1]
-    n_data, n_model = (int(s) for s in tag.split("x"))
-    B = C.SERVE_PREFILL.global_batch // n_data
+    n_model = _shape(tag)[-1]
+    B = C.SERVE_PREFILL.global_batch * n_model // WORLD
     for r, res in enumerate(ranks):
         d, m = _coords(r, tag)
         rows = slice(d * B, (d + 1) * B)
@@ -415,38 +466,31 @@ def test_prefill_and_serve_steps_match_jax(runs, case):
             assert _rel(res[key], full) < TOL, key
 
 
-def _args_exception(path: str) -> bool:
-    return path.split("/")[-1] in ("embed", "unembed")
-
-
-@pytest.mark.parametrize("tag", ["1x4", "2x2"])
+@pytest.mark.parametrize("tag", list(C.ARGS_MESHES))
 @pytest.mark.parametrize("shape", list(INPUT_SHAPES))
 def test_built_args_have_jax_shard_shapes(runs, tag, shape):
     """Every leaf of ``BuiltStep.args`` (full-size Llama-3.1-8B, on the
-    meta device) has the JAX leaf's ``shard_shape``, but: ``embed`` and
-    ``unembed`` (and their m and v) whole, their vocabulary sharding
-    waiting for A12; and the cache's KV-head dim, which the JAX cache
-    keeps whole on every rank of "model" and the port cuts to the KV heads
-    of the rank's query heads (``head_plan``)."""
+    meta device) has the JAX leaf's ``shard_shape``, ``embed`` and
+    ``unembed`` (and their m and v) cut over the vocabulary among them,
+    but the cache's KV-head dim, which the JAX cache keeps whole on every
+    rank of "model" and the port cuts to the KV heads of the rank's query
+    heads (``head_plan``)."""
     jx, ranks, _ = runs
     pre = f"args/{tag}/{shape}/"
     want = {k[len(pre):]: v for k, v in jx.items() if k.startswith(pre)}
     assert want
     full = get_config("llama3.1-8b")
-    n_model = int(tag.split("x")[1])
+    n_model = _shape(tag)[-1]
     for res in ranks:
         got = {k[len(pre):]: v for k, v in res.items() if k.startswith(pre)}
         assert set(got) == set(want)
         for key, g in got.items():
             w = want[key].copy()
-            if _args_exception(key):
-                w = np.asarray([full.vocab_size, full.d_model] if
-                               key.endswith("embed") and
-                               not key.endswith("unembed") else
-                               [full.d_model, full.vocab_size])
-            elif key.startswith("cache/slots/"):
+            if key.startswith("cache/slots/"):
                 w[3] = full.n_kv_heads // n_model
             np.testing.assert_array_equal(g, w, err_msg=key)
+            if key.split("/")[-1] in ("embed", "unembed"):
+                assert full.vocab_size // n_model in g, key
 
 
 @pytest.mark.parametrize("split", ["4x1/1", "4x1/2", "4x1/3", "2x2/1"])
@@ -466,27 +510,49 @@ def test_split_disagg_mesh_matches_jax(runs, split):
         assert float(res[f"split/{split}/sum"][0]) == float(own[:, m].sum())
 
 
-def test_collectives_differentiate(runs):
+@pytest.mark.parametrize("tag", ["grad", "grad/flat"])
+def test_collectives_differentiate(runs, tag):
     """x_r = r + arange (2, 3), w_r = (r + 1)(1 + column): all_gather's
     gradient is the rank's slice of sum_r w_r, all_reduce's w_r (the
-    identity), entry's sum_r w_r."""
+    identity), entry's sum_r w_r; over "model" of (1, 4) and over the
+    flattened ("pod", "data") of (2, 2, 1), whose rank r has the
+    flattened coordinate r, so the gather is in rank order."""
     _, ranks, _ = runs
     wsum = sum(r + 1.0 for r in range(WORLD))
     for r, res in enumerate(ranks):
         cols = np.arange(12.0)[3 * r:3 * r + 3]
-        np.testing.assert_array_equal(res["grad/gather"],
+        np.testing.assert_array_equal(res[f"{tag}/gather"],
                                       np.broadcast_to(wsum * (1 + cols),
                                                       (2, 3)))
-        assert res["grad/gather/y"].shape == (2, 12)
         np.testing.assert_array_equal(
-            res["grad/reduce"], np.broadcast_to((r + 1.0) *
-                                                (1 + np.arange(3.0)), (2, 3)))
+            res[f"{tag}/gather/y"], np.concatenate(
+                [np.arange(6.0).reshape(2, 3) + q for q in range(WORLD)], 1))
         np.testing.assert_array_equal(
-            res["grad/reduce/y"], sum(np.arange(6.0).reshape(2, 3) + q
-                                      for q in range(WORLD)))
+            res[f"{tag}/reduce"], np.broadcast_to(
+                (r + 1.0) * (1 + np.arange(3.0)), (2, 3)))
         np.testing.assert_array_equal(
-            res["grad/entry"], np.broadcast_to(wsum * (1 + np.arange(3.0)),
-                                               (2, 3)))
+            res[f"{tag}/reduce/y"], sum(np.arange(6.0).reshape(2, 3) + q
+                                        for q in range(WORLD)))
+        np.testing.assert_array_equal(
+            res[f"{tag}/entry"], np.broadcast_to(
+                wsum * (1 + np.arange(3.0)), (2, 3)))
+
+
+def test_loss_terms_over_vocab_blocks_match_jax(runs):
+    """The reduced Llama's 512 ids in 4 blocks of 128, the labels -1 and
+    each block's first and last id: every rank's summed NLL over the count
+    is the JAX ``LM.loss`` within 1e-5, and its terms those of the port
+    outside rules on the whole weights."""
+    jx, ranks, inp = runs
+    labels = inp["loss/labels"]
+    assert (labels < 0).any() and {0, 127, 128, 255, 256, 383, 384,
+                                   511} <= set(labels.flat)
+    count = float((labels >= 0).sum())
+    for r, res in enumerate(ranks):
+        assert float(res["loss/count"]) == count
+        loss = float(res["loss/nll"]) / count
+        assert _rel(loss, jx["loss/ref"]) < TOL, (r, loss)
+        assert _rel(res["loss/nll"], res["loss/whole/nll"]) < TOL, r
 
 
 def test_production_mesh_refuses_a_world_of_four(runs):
@@ -613,8 +679,9 @@ class _Mesh:
 
 def test_refusals_name_a12():
     """FSDP, the families the multi-device layers do not cover, a cut of
-    heads without d_ff, a batch over two mesh axes and a MAX all-reduce
-    that would need a backward."""
+    heads without d_ff or of the vocabulary over another axis, and a MAX
+    all-reduce that would need a backward; a rule over mesh axes that no
+    process group flattens (not adjacent in the mesh's order)."""
     from repro_torch.launch.steps import build_step
     shape = dataclasses.replace(INPUT_SHAPES["train_4k"], global_batch=4,
                                 seq_len=16)
@@ -629,14 +696,18 @@ def test_refusals_name_a12():
                            INPUT_SHAPES[kind])
     with pytest.raises(NotImplementedError, match="A12"):
         build_step(llama, _Mesh(), shape, rule_overrides={"d_ff": None})
+    with pytest.raises(NotImplementedError, match="A12"):
+        build_step(llama, _Mesh(), shape, rule_overrides={"vocab": "data"})
 
     class PodMesh(_Mesh):
         mesh_dim_names = ("pod", "data", "model")
 
         def size(self, dim):
             return (2, 2, 1)[dim]
-    with pytest.raises(NotImplementedError, match="A12"):
-        build_step(llama, PodMesh(), shape)
+    for axes in (("data", "pod"), ("pod", "model")):
+        with pytest.raises(ValueError, match="flattens"):
+            with SH.use_rules({"batch": axes}, PodMesh()):
+                pass
     with SH.use_rules(SH.standard_rules(False), _Mesh()):
         x = torch.zeros(3, requires_grad=True) * 1.0
         with pytest.raises(RuntimeError, match="no backward"):
