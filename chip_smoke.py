@@ -221,9 +221,16 @@ its own lines; any failure exits non-zero without the result line:
    a rank over the flattened ("pod", "data"), 8 of the 32 layers (two
    whole replicas share the card), 2 steps held as 7b's against rank 0's
    unsharded step on both rows; the all-reduces over the flattened
-   group. Phase 2 holds B1 at S=32768 (the plain version in blocks of 1024
-   query rows) and B2 over 32768 rows at these shapes. A rank that fails,
-   or phase 7 past 600 s, fails the run.
+   group. 7e, the same two processes: FSDP, ``build_train_step(...,
+   param_mode="fsdp")`` on the (1, 2) mesh, every weight and AdamW's m and
+   v cut over the flattened ("data", "model") (half of each leaf a rank),
+   one layer's weights gathered at a time inside its remat, the same 8
+   layers and two rows, held as 7d against the same unsharded reference
+   (7d's, kept on the host where ``MemAvailable`` holds it); each rank's
+   peak must be below its 7d peak, its all-gathers and all-reduces over
+   "data+model" alone. Phase 2 holds B1 at S=32768 (the plain version in
+   blocks of 1024 query rows) and B2 over 32768 rows at these shapes. A
+   rank that fails, or phase 7 past 600 s, fails the run.
 
 Each serve and each training run starts with the previous one's engine
 freed and the allocator's cache emptied, and prints its peak device
@@ -344,7 +351,12 @@ DIST_TP = {"train_seq": 2048, "batch": 4, "max_len": 1024, "prompt": 1000,
 # vocabulary cut with the layers (a rank's blocks, AdamW moments,
 # gradients and logits ~36 GB); 7c: the pools; 7d: 8 of the 32 layers, as
 # two whole replicas of ~28 GB each (data parallel over the flattened
-# ("pod", "data")) must share the one card
+# ("pod", "data")) must share the one card; 7e: the same 8 layers under
+# FSDP. 7e's collectives are staged through the host on gloo: at 7d's rate
+# (11.18 GB in ~25 s) a step's ~5.6 GB of forward gathers, ~3.5 GB of
+# recompute gathers and ~5.6 GB of backward all-reduces come to ~33 s, so
+# 8 layers keep phase 7 near 290 s of its 600; all 32 (~38 GB a rank,
+# ~200 s of collectives) wait for NCCL
 STEPS_PREFILL_BATCH = 1
 LONG_SEQ = 32768                # prefill_32k's and decode_32k's rows
 STEPS_DECODE_BATCH = 8
@@ -2343,21 +2355,24 @@ def _counters(reset: bool = False) -> dict:
     from repro_torch.models import sharding as SH
     fns = {"flash_attention": flash_attention_cuda,
            "decode_attention": decode_attention_cuda,
-           "all_reduce": SH.all_reduce}
+           "all_reduce": SH.all_reduce, "all_gather": SH.all_gather}
+    collective = ("calls", "bytes", "seconds", "host_staged")
     attrs = {"flash_attention": ("launches", "launches_sm90"),
              "decode_attention": ("launches", "launches_sm90",
                                   "launches_lse"),
-             "all_reduce": ("calls", "bytes", "seconds", "host_staged")}
+             "all_reduce": collective, "all_gather": collective}
     if reset:
         for name, fn in fns.items():
             for a in attrs[name]:
                 setattr(fn, a, 0 if a != "seconds" else 0.0)
         SH.all_reduce.by_axis = {}
+        SH.all_gather.by_axis = {}
     out = {f"{name}.{a}": getattr(fn, a) for name, fn in fns.items()
            for a in attrs[name]}
     # mesh axes ("pod+data" flattened) -> [count, bytes]
-    out["all_reduce.by_axis"] = {k: list(v) for k, v in
-                                 SH.all_reduce.by_axis.items()}
+    for name in ("all_reduce", "all_gather"):
+        out[f"{name}.by_axis"] = {k: list(v) for k, v in
+                                  fns[name].by_axis.items()}
     return out
 
 
@@ -2792,14 +2807,17 @@ def _pieces(*ts):
 def _train_check(rank: int, blocks: dict, params, opt, init: dict,
                  ref) -> dict:
     """The leaf-by-leaf check of the ranks' blocks after a held training
-    run (7b, 7d) against rank 0's unsharded reference: each parameter's
+    run (7b, 7d, 7e) against rank 0's unsharded reference: each parameter's
     change from its initial value, AdamW's m and v. ``init``: this rank's
     parameters before the steps, on the host. ``ref`` (rank 0 only): part
     -> path -> the unsharded leaf after the steps on the host, for the
     parts "params", "m" and "v". The other ranks send their blocks (and
     initial values) to rank 0 (through the host), which cuts each
-    reference leaf to the sender's block (model coordinate = rank on the
-    (1, n) mesh; whole where ``blocks`` lists no cut) and compares on the
+    reference leaf to the sender's block along the dim ``blocks`` cuts
+    (rank 0's block moved by the sender's coordinate along the cut axes,
+    which is its rank: over "model" of the (1, n) mesh in 7b, over the
+    flattened ("data", "model") of the same mesh under FSDP in 7e; whole
+    where ``blocks`` lists no cut) and compares on the
     card, a piece of rows at a time (``_pieces``). Both changes are taken
     from the sender's initial values: the sharded and the unsharded runs
     draw the same weights (``init_params`` keeps a rank's block of each
@@ -2876,17 +2894,22 @@ def _mem_available_gb() -> float:
 
 
 def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
-                   opt_cfg) -> dict:
+                   opt_cfg, param_mode: str = "2d", reference=None,
+                   keep: bool = False) -> tuple:
     """Train ``cfg`` on ``shape`` for STEPS_TRAIN_STEPS steps through
-    ``build_train_step`` on ``mesh`` and hold it against rank 0's run of
-    the same steps on ``ref_mesh`` (its one-rank pool, unsharded, every
-    row of the batch), run first while the other ranks wait with nothing
-    allocated, its parameters and moments kept on the host and the card
-    freed: each step's loss and grad norm within TRAIN_TP_LOSS_TOL and
-    TRAIN_TP_GNORM_TOL of the reference's, then ``_train_check``. Both
-    draw the weights from seed 0 and the batches from ``TokenStream``'s
-    seed 0. Returns the reference's and the run's steps, launches,
-    all-reduces, peaks and checks."""
+    ``build_train_step(..., param_mode=param_mode)`` on ``mesh`` and hold
+    it against rank 0's run of the same steps on ``ref_mesh`` (its
+    one-rank pool, unsharded, every row of the batch), run first while the
+    other ranks wait with nothing allocated, its parameters and moments
+    kept on the host and the card freed: each step's loss and grad norm
+    within TRAIN_TP_LOSS_TOL and TRAIN_TP_GNORM_TOL of the reference's,
+    then ``_train_check``. Both draw the weights from seed 0 and the
+    batches from ``TokenStream``'s seed 0. ``reference`` (rank 0): an
+    earlier call's kept reference of the same ``cfg``, ``shape`` and
+    ``opt_cfg``, used in place of running it again. Returns (the
+    reference's and the run's steps, launches, collectives, peaks and
+    checks; on rank 0 where ``keep``, the reference for a later call, else
+    None)."""
     import torch.distributed as dist
 
     from repro_torch.launch.shardspecs import param_blocks
@@ -2922,7 +2945,11 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
             f"{_mem_available_gb():.1f} GB before the reference")
     torch.cuda.reset_peak_memory_stats()
     ref = None
-    if rank == 0:
+    if rank == 0 and reference is not None:
+        res["ref"], ref = reference
+        res["ref"] = dict(res["ref"], reused=True)
+        log(f"[steps r0] {tag}: the reference reused (kept on the host)")
+    elif rank == 0:
         built = build_train_step(cfg, ref_mesh, shape, opt_cfg=opt_cfg)
         params, opt, _, steps, counts = train(built, "unsharded", False)
         ref = {"params": {k: t.cpu() for k, t in flatten(params).items()},
@@ -2944,7 +2971,8 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
     for t in ref_steps:
         dist.broadcast(t, src=0)
     torch.cuda.reset_peak_memory_stats()
-    built = build_train_step(cfg, mesh, shape, opt_cfg=opt_cfg)
+    built = build_train_step(cfg, mesh, shape, opt_cfg=opt_cfg,
+                             param_mode=param_mode)
     params, opt, init, steps, counts = train(built, "sharded", True)
     checks = []
     for s, want in zip(steps, ref_steps):
@@ -2961,14 +2989,17 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
             f"{c['loss_rel']:.3g} (tol {TRAIN_TP_LOSS_TOL}), grad norm "
             f"{c['grad_norm_rel']:.3g} (tol {TRAIN_TP_GNORM_TOL}) of the "
             f"reference's: {c['ok']}")
-    log(f"[steps r{rank}] {tag}: {n_local} parameters on this rank; B1 "
+    log(f"[steps r{rank}] {tag}: {n_local} parameters on this rank; step "
+        f"walls {[round(s['wall_s'], 2) for s in steps]} s; B1 "
         f"forward {counts['flash_attention.launches']} "
         f"({counts['flash_attention.launches_sm90']} sm90), backward "
         f"{counts['flash_attention_bwd.launches']}; all-reduces "
         f"{counts['all_reduce.calls']} ({counts['all_reduce.bytes']} bytes, "
         f"{counts['all_reduce.seconds']:.2f} host s; [count, bytes] by mesh "
-        f"axes {counts['all_reduce.by_axis']}); peak {res['peak_gb']:.2f} "
-        f"GB")
+        f"axes {counts['all_reduce.by_axis']}); all-gathers "
+        f"{counts['all_gather.calls']} ({counts['all_gather.bytes']} bytes, "
+        f"{counts['all_gather.seconds']:.2f} host s; by mesh axes "
+        f"{counts['all_gather.by_axis']}); peak {res['peak_gb']:.2f} GB")
     # the training's cached blocks back to the card, on every rank
     gc.collect()
     torch.cuda.empty_cache()
@@ -2987,16 +3018,17 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
             f"{leaves['n_failed']} leaves past it; the steps moved "
             f"{leaves['moved_share']:.4f} of the compared parameter values; "
             f"{res['leaf_check_s']:.1f} s")
+    kept = (res["ref"], ref) if keep and rank == 0 else None
     del params, opt, init, built, ref
     gc.collect()
     torch.cuda.empty_cache()
     dist.barrier()
-    return res
+    return res, kept
 
 
 
 def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
-    """One rank of 7b, 7c and 7d on cuda:0 in a gloo world of two. 7b:
+    """One rank of 7b, 7c, 7d and 7e on cuda:0 in a gloo world of two. 7b:
     Llama-3.1-8B at full width and STEPS_TRAIN_LAYERS layers on the (1, 2)
     mesh under ``standard_rules`` (heads, d_ff and the vocabulary cut),
     held against rank 0's unsharded run on its one-rank pool
@@ -3004,8 +3036,9 @@ def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
     ``split_disagg_mesh(mesh, 1)``, rank 0 prefilling in the prefill pool,
     rank 1 decoding in the decode pool. 7d: STEPS_POD_LAYERS layers on the
     (2, 1, 1) mesh over ("pod", "data", "model"), one row of the batch a
-    rank over the flattened ("pod", "data"), held likewise. Writes its
-    results to ``out_dir/steps_rank<rank>.json``."""
+    rank over the flattened ("pod", "data"), held likewise. 7e: the same
+    model and batch under FSDP on the (1, 2) mesh, held against 7d's
+    reference. Writes its results to ``out_dir/steps_rank<rank>.json``."""
     import dataclasses as dc
     import datetime
 
@@ -3038,7 +3071,7 @@ def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
     opt_cfg = AdamWConfig(state_dtype=torch.bfloat16,
                           warmup_steps=TRAIN_TP_WARMUP)
     # 7b: tensor parallel, the vocabulary cut, at full depth
-    res["train_tp"] = _held_training(
+    res["train_tp"], _ = _held_training(
         rank, "7b", dc.replace(full, n_layers=STEPS_TRAIN_LAYERS),
         dc.replace(train_4k, global_batch=1), pools[0], mesh12, opt_cfg)
     # 7c: the disaggregated pools
@@ -3096,17 +3129,31 @@ def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
     dist.barrier()
     # 7d: the multi-pod batch over the flattened ("pod", "data"), a whole
     # replica a rank: 8 of the 32 layers, so that two fit the card
-    res["train_pod"] = _held_training(
-        rank, "7d", dc.replace(full, n_layers=STEPS_POD_LAYERS),
-        dc.replace(train_4k, global_batch=STEPS_POD_BATCH), pools[0],
-        mesh_pod, opt_cfg)
+    pod_cfg = dc.replace(full, n_layers=STEPS_POD_LAYERS)
+    pod_shape = dc.replace(train_4k, global_batch=STEPS_POD_BATCH)
+    res["train_pod"], reference = _held_training(
+        rank, "7d", pod_cfg, pod_shape, pools[0], mesh_pod, opt_cfg,
+        keep=True)
+    # 7e: FSDP on (1, 2), the same model, batch and unsharded reference:
+    # 7d's, kept where the host's MemAvailable holds its leaves again
+    if rank == 0:
+        ref_gb = sum(t.numel() * t.element_size() for part in
+                     reference[1].values() for t in part.values()) / 1e9
+        res["fsdp_reference"] = {"leaves_gb": ref_gb,
+                                 "mem_available_gb": _mem_available_gb()}
+        if res["fsdp_reference"]["mem_available_gb"] < ref_gb:
+            reference = None
+    res["train_fsdp"], _ = _held_training(
+        rank, "7e", pod_cfg, pod_shape, pools[0], mesh12, opt_cfg,
+        param_mode="fsdp", reference=reference)
+    del reference
     res["seconds"] = time.perf_counter() - t_start
     Path(out_dir, f"steps_rank{rank}.json").write_text(json.dumps(res))
     dist.destroy_process_group()
 
 
 def phase_steps_ranks(report: dict) -> dict:
-    """7b, 7c and 7d: two gloo ranks sharing the card (``_steps_rank``), spawned
+    """7b to 7e: two gloo ranks sharing the card (``_steps_rank``), spawned
     with ``torch.multiprocessing``; fails if a rank fails, outlasts what
     is left of STEPS_TIMEOUT_S or finds a result off. Returns the launches
     by path."""
@@ -3145,14 +3192,15 @@ def phase_steps_ranks(report: dict) -> dict:
     secs = time.perf_counter() - t0
     bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
     if bad:
-        raise SystemExit(f"phase 7b/7c/7d: ranks failed or outlasted "
+        raise SystemExit(f"phase 7b-7e: ranks failed or outlasted "
                          f"{limit:.0f} s (exit codes {bad})")
     ranks = [json.loads((out_dir / f"steps_rank{r}.json").read_text())
              for r in range(STEPS_WORLD)]
     report["steps_ranks"] = {"seconds": secs, "ranks": ranks}
     problems = []
     held = {"train_tp": ("7b", STEPS_TRAIN_LAYERS),
-            "train_pod": ("7d", STEPS_POD_LAYERS)}
+            "train_pod": ("7d", STEPS_POD_LAYERS),
+            "train_fsdp": ("7e", STEPS_POD_LAYERS)}
     for r in ranks:
         for run, (tag, _) in held.items():
             if not all(c["ok"] for c in r[run]["checks"]):
@@ -3166,6 +3214,21 @@ def phase_steps_ranks(report: dict) -> dict:
         axes = set(r["train_pod"]["counters"]["all_reduce.by_axis"])
         if axes != {"pod+data"}:
             problems.append(f"rank {r['rank']}: 7d all-reduces over {axes}")
+        # 7e: its gathers and all-reduces over the flattened ("data",
+        # "model") alone; every leaf halved; below 7d's peak
+        fsdp = r["train_fsdp"]
+        for name in ("all_reduce", "all_gather"):
+            axes = set(fsdp["counters"][f"{name}.by_axis"])
+            if axes != {"data+model"}:
+                problems.append(f"rank {r['rank']}: 7e {name} over {axes}")
+        if fsdp["local_parameters"] * STEPS_WORLD != \
+                r["train_pod"]["local_parameters"]:
+            problems.append(f"rank {r['rank']}: 7e holds "
+                            f"{fsdp['local_parameters']} parameters")
+        if not fsdp["peak_gb"] < r["train_pod"]["peak_gb"]:
+            problems.append(f"rank {r['rank']}: 7e peak {fsdp['peak_gb']:.2f}"
+                            f" GB, not below 7d's "
+                            f"{r['train_pod']['peak_gb']:.2f}")
     for run, (tag, _) in held.items():
         leaves = ranks[0][run]["leaves"]
         if leaves["n_failed"]:
@@ -3201,14 +3264,18 @@ def phase_steps_ranks(report: dict) -> dict:
                 bwd != [per_layer] * STEPS_WORLD:
             problems.append(f"{tag} B1 launches forward {fwd}, backward "
                             f"{bwd}")
-    log(f"[steps] 7b/7c/7d in {secs:.1f} s; peak GB by rank: 7b reference "
+    log(f"[steps] 7b-7e in {secs:.1f} s; peak GB by rank: 7b reference "
         f"{ranks[0]['train_tp']['ref']['peak_gb']:.2f}, tensor-parallel "
         f"{[round(r['train_tp']['peak_gb'], 2) for r in ranks]}; pools "
         f"{[round(r['pool_run']['peak_gb'], 2) for r in ranks]}; 7d "
         f"reference {ranks[0]['train_pod']['ref']['peak_gb']:.2f}, "
-        f"data-parallel {[round(r['train_pod']['peak_gb'], 2) for r in ranks]}")
+        f"data-parallel {[round(r['train_pod']['peak_gb'], 2) for r in ranks]}"
+        f"; 7e FSDP {[round(r['train_fsdp']['peak_gb'], 2) for r in ranks]}"
+        f" (reference reused: "
+        f"{ranks[0]['train_fsdp']['ref'].get('reused', False)}, "
+        f"{ranks[0]['fsdp_reference']})")
     if problems:
-        raise SystemExit(f"phase 7b/7c/7d: {problems}")
+        raise SystemExit(f"phase 7b-7e: {problems}")
 
     def total(run, name):
         return sum(r[run]["counters"][f"{name}.launches"] for r in ranks)
@@ -3220,19 +3287,23 @@ def phase_steps_ranks(report: dict) -> dict:
                 "flash_attention": total("train_pod", "flash_attention"),
                 "flash_attention_bwd": total("train_pod",
                                              "flash_attention_bwd")},
+            "steps-train-fsdp": {
+                "flash_attention": total("train_fsdp", "flash_attention"),
+                "flash_attention_bwd": total("train_fsdp",
+                                             "flash_attention_bwd")},
             "steps-pools": {
                 "flash_attention": total("pool_run", "flash_attention"),
                 "decode_attention": total("pool_run", "decode_attention")}}
 
 
 def phase_steps(report: dict) -> dict:
-    """Phase 7: 7a, then 7b, 7c and 7d; fails past STEPS_TIMEOUT_S."""
+    """Phase 7: 7a, then 7b to 7e; fails past STEPS_TIMEOUT_S."""
     t0 = time.perf_counter()
     by_path = phase_steps_serve(report)
     by_path.update(phase_steps_ranks(report))
     secs = time.perf_counter() - t0
     log(f"[steps] phase 7 in {secs:.1f} s (7a {report['steps_serve']['seconds']:.1f}, "
-        f"7b, 7c and 7d {report['steps_ranks']['seconds']:.1f})")
+        f"7b-7e {report['steps_ranks']['seconds']:.1f})")
     if secs > STEPS_TIMEOUT_S:
         raise SystemExit(f"phase 7 took {secs:.0f} s, past "
                          f"{STEPS_TIMEOUT_S}")

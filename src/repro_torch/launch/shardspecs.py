@@ -15,7 +15,10 @@ with it). Under rules whose ``vocab`` names "model", ``embed`` and
 ``(None, "model")``): a rank holds its block of the vocabulary's rows or
 columns, which ``models.transformer`` looks up and multiplies. A spec
 entry may name a tuple of mesh axes, flattened (the multi-pod batch over
-("pod", "data")). The FSDP specs come with ROADMAP A12.
+("pod", "data")). ``param_specs_fsdp`` is a copy of the JAX function: under
+rules with ``fsdp_gather`` (the FSDP train step) every leaf is cut over the
+flattened ``sharding.fsdp_axes`` on the dim ``sharding.fsdp_dim`` picks,
+and ``param_blocks`` lists every leaf so cut.
 """
 from __future__ import annotations
 
@@ -92,6 +95,23 @@ def param_specs(cfg, params, mesh=None):
     return unflatten({k: one(k, t) for k, t in flatten(params).items()})
 
 
+def fsdp_spec(shape, mesh, axes=SH.FSDP_AXES) -> Spec:
+    """ZeRO-3 storage sharding of a leaf of ``shape``: cut over the
+    flattened ``axes`` ("pod" in front where the mesh has it) on its
+    largest dim that their size divides, else kept whole
+    (``sharding.fsdp_dim``)."""
+    axes = SH.fsdp_axes(mesh, axes)
+    d = SH.fsdp_dim(shape, SH.axis_size(mesh, axes))
+    return tuple(axes if i == d else None for i in range(len(shape)))
+
+
+def param_specs_fsdp(params, mesh, axes=SH.FSDP_AXES):
+    """The ``fsdp_spec`` tree matching a parameter tree (its leaves' shapes
+    are all it reads)."""
+    return unflatten({k: fsdp_spec(t.shape, mesh, axes)
+                      for k, t in flatten(params).items()})
+
+
 def block(spec: Spec, shape, mesh) -> Tuple[Tuple[int, int], ...]:
     """(start, length) along each dim of this rank's block of a tensor of
     ``shape`` placed by ``spec``, in rank order along each axis (along a
@@ -112,12 +132,13 @@ def cut(t, blk):
     return narrow(t, blk).contiguous()
 
 
-def leaf_block(cfg, path: str, shape, mesh):
+def leaf_block(cfg, path: str, shape, mesh, fsdp: bool = False):
     """(this rank's block of leaf ``path``, (start, length) a dim; the mesh
     axes it is cut over): the leaf cut along each dim its sanitised spec
-    shards, in rank order along the axis, as ``NamedSharding(mesh, spec)``
-    places it."""
-    spec = sanitize_spec(param_spec(cfg, path, len(shape)), shape, mesh)
+    shards (its ``fsdp_spec`` where ``fsdp``), in rank order
+    along the axis, as ``NamedSharding(mesh, spec)`` places it."""
+    spec = fsdp_spec(shape, mesh) if fsdp else \
+        sanitize_spec(param_spec(cfg, path, len(shape)), shape, mesh)
     blk = block(spec, shape, mesh)
     axes = tuple(e for e, (_, n), full in zip(spec, blk, shape)
                  if n != full)
@@ -137,11 +158,20 @@ def explicit(path: str) -> bool:
 
 def cuts(rules: dict) -> tuple:
     """(whether the rank holds its blocks of the explicit layers' leaves,
-    of ``embed`` and ``unembed``) under ``rules``: the layers' blocks where
-    heads and d_ff map to "model", none where both map to nothing; the
-    vocabulary's where vocab maps to "model". Raises for another cut,
-    which the parameter specs do not place."""
+    of ``embed`` and ``unembed``, of every leaf by its FSDP spec) under
+    ``rules``: the layers' blocks where heads and d_ff map to "model", none
+    where both map to nothing; the vocabulary's where vocab maps to
+    "model"; every leaf's under ``fsdp_gather``, which takes heads, d_ff
+    and vocab over nothing. Raises for another cut, which the parameter
+    specs do not place."""
     heads, d_ff, vocab = (rules.get(k) for k in ("heads", "d_ff", "vocab"))
+    if rules.get("fsdp_gather"):
+        if (heads, d_ff, vocab) != (None, None, None):
+            raise ValueError(f"fsdp_gather with heads over {heads!r}, d_ff "
+                             f"over {d_ff!r} and vocab over {vocab!r}: the "
+                             "FSDP step cuts every weight over the "
+                             "flattened mesh and no layer by its width")
+        return False, False, True
     if (heads, d_ff) not in ((None, None), ("model", "model")):
         raise NotImplementedError(f"heads over {heads!r} and d_ff over "
                                   f"{d_ff!r}: other cuts of the parameters "
@@ -149,15 +179,16 @@ def cuts(rules: dict) -> tuple:
     if vocab not in (None, "model"):
         raise NotImplementedError(f"vocab over {vocab!r}: other cuts of the "
                                   "parameters come with ROADMAP A12")
-    return heads is not None, vocab is not None
+    return heads is not None, vocab is not None, False
 
 
 def param_blocks(cfg, mesh, rules: Optional[dict] = None) -> dict:
     """leaf path -> ``leaf_block`` of it, for every leaf of ``cfg`` that the
     rank holds cut under ``rules`` (``cuts``) and the mesh cuts; the leaves
     not listed stay whole (norms; a vocabulary the axis does not divide,
-    as ``sanitize_spec`` says). ``rules``: by default the ones installed
-    by ``models.sharding.use_rules``, else ``standard_rules`` of the mesh.
+    as ``sanitize_spec`` says; under FSDP a leaf no dim of which the
+    flattened axes divide). ``rules``: by default the ones installed by
+    ``models.sharding.use_rules``, else ``standard_rules`` of the mesh.
     The layers cut their work by the same rules and check the leaves'
     widths against them."""
     if cfg.family not in SH.SHARDED_FAMILIES:
@@ -167,11 +198,12 @@ def param_blocks(cfg, mesh, rules: Optional[dict] = None) -> dict:
     if rules is None:
         rules = SH.installed() if SH.active() else \
             SH.standard_rules("pod" in mesh.mesh_dim_names)
-    layers, vocab = cuts(rules)
+    layers, vocab, fsdp = cuts(rules)
     out = {}
     for key, (shape, _) in family_module(cfg).param_specs(cfg).items():
-        if (layers and explicit(key)) or (vocab and key in VOCAB_LEAVES):
-            blk, axes = leaf_block(cfg, key, shape, mesh)
+        if fsdp or (layers and explicit(key)) or \
+                (vocab and key in VOCAB_LEAVES):
+            blk, axes = leaf_block(cfg, key, shape, mesh, fsdp)
             if axes:
                 out[key] = (blk, axes)
     return out

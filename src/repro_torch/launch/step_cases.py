@@ -29,7 +29,8 @@ What each rank writes (fp32 unless said), by case:
   ``serve/<case>/cache/<slot>/{k,v}`` after the steps, and
   ``serve/<case>/kv_heads`` (the rank's KV heads);
 - ``args/<mesh>/<shape>/<part>/<path>``: the shape of each leaf of
-  ``BuiltStep.args`` for the full-size Llama-3.1-8B;
+  ``BuiltStep.args`` for the full-size Llama-3.1-8B (``<shape>`` "fsdp":
+  train_4k's FSDP step);
 - ``split/<mesh>/<n>/{pre,dec}``: ``split_disagg_mesh``'s pools' ranks
   (data x model), and ``split/<mesh>/<n>/sum`` the SUM of the ranks over
   the rank's own pool's data axis;
@@ -60,7 +61,7 @@ from repro_torch.configs import INPUT_SHAPES, InputShape, get_config
 from repro_torch.launch import shardspecs as SS
 from repro_torch.launch.mesh import (batch_axes_for, make_mesh,
                                      make_production_mesh, split_disagg_mesh)
-from repro_torch.launch.steps import build_step, materialize
+from repro_torch.launch.steps import build_step, materialize, train_batch_axes
 from repro_torch.models import LM
 from repro_torch.models import layers as L
 from repro_torch.models import sharding as SH
@@ -89,6 +90,8 @@ CONFIGS = {
     "chameleon": lambda: get_config("chameleon-34b").reduced(),
     "llama_v510": lambda: dataclasses.replace(
         get_config("llama3.1-8b").reduced(), vocab_size=VOCAB_UNEVEN),
+    "starcoder2_whole4": lambda: dataclasses.replace(
+        CONFIGS["starcoder2_whole"](), n_layers=4),
 }
 # a vocabulary that 4 does not divide: embed and unembed stay whole on (1, 4)
 VOCAB_UNEVEN = 510
@@ -96,15 +99,31 @@ VOCAB_UNEVEN = 510
 # "gather" plan, over 2 "own", over 1 none, its vocabulary cut over
 # "model"; on (2, 2, 1) and (2, 1, 2) its batch over ("pod", "data");
 # starcoder2_whole "whole" with QKV bias; chameleon the QK-norm's weights,
-# used in part on each rank; llama_v510 a vocabulary held whole
+# used in part on each rank; llama_v510 a vocabulary held whole. A case
+# ending in "/fsdp" runs ``param_mode="fsdp"`` (every leaf cut over the
+# flattened mesh, the batch over every axis): llama_v510's embed and
+# unembed cut over d_model; starcoder2_whole's bk and bv (2, 34) kept
+# whole, so the data-parallel sum applies to them; at 4 layers
+# (starcoder2_whole4) cut on their layer dim
 TRAIN_CASES = (("llama/1x4", "llama", "1x4"), ("llama/2x2", "llama", "2x2"),
                ("llama/4x1", "llama", "4x1"),
                ("llama/2x2x1", "llama", "2x2x1"),
                ("llama/2x1x2", "llama", "2x1x2"),
                ("llama_v510/1x4", "llama_v510", "1x4"),
                ("starcoder2_whole/1x4", "starcoder2_whole", "1x4"),
-               ("chameleon/1x4", "chameleon", "1x4"))
+               ("chameleon/1x4", "chameleon", "1x4"),
+               ("llama/2x2/fsdp", "llama", "2x2"),
+               ("llama/2x1x2/fsdp", "llama", "2x1x2"),
+               ("llama_v510/1x4/fsdp", "llama_v510", "1x4"),
+               ("starcoder2_whole/1x4/fsdp", "starcoder2_whole", "1x4"),
+               ("starcoder2_whole4/2x2/fsdp", "starcoder2_whole4", "2x2"),
+               ("chameleon/2x2/fsdp", "chameleon", "2x2"))
 TRAIN_SHAPE = InputShape("train_small", 16, 4, "train")
+
+
+def param_mode(case: str) -> str:
+    """The ``param_mode`` of train case ``case``."""
+    return "fsdp" if case.endswith("/fsdp") else "2d"
 
 
 def train_batch(name: str) -> str:
@@ -143,12 +162,12 @@ def _weights(inp, name: str, cfg) -> dict:
 def train_case(inp, case: str, name: str, mesh, out: Dict[str, np.ndarray]):
     cfg = CONFIGS[name]()
     built = build_step(cfg, mesh, TRAIN_SHAPE, dtype=torch.float32,
-                       opt_cfg=train_opt())
+                       opt_cfg=train_opt(), param_mode=param_mode(case))
     params = SS.local_params(_weights(inp, name, cfg), cfg, mesh, built.rules)
     for key, t in flatten(built.args[0]).items():
         assert flatten(params)[key].shape == t.shape, key
     opt = materialize(built.args[1], "cpu")
-    baxes = batch_axes_for(TRAIN_SHAPE.global_batch, mesh)
+    baxes = train_batch_axes(TRAIN_SHAPE, mesh, built.rules)
     batch = SS.local_batch({k: torch.from_numpy(inp[f"{train_batch(name)}/"
                                                     f"{k}"])
                             for k in ("tokens", "labels")}, baxes, mesh)
@@ -190,8 +209,10 @@ def serve_case(inp, case: str, mesh, overrides, kv_seq,
 
 def args_shapes(mesh, tag: str, out: Dict[str, np.ndarray]) -> None:
     cfg = get_config("llama3.1-8b")
-    for name, shape in INPUT_SHAPES.items():
-        built = build_step(cfg, mesh, shape)
+    for name, shape, mode in [(n, s, "2d") for n, s in INPUT_SHAPES.items()] \
+            + [("fsdp", INPUT_SHAPES["train_4k"], "fsdp")]:
+        kw = {"param_mode": mode} if shape.kind == "train" else {}
+        built = build_step(cfg, mesh, shape, **kw)
         for part, tree in zip(("params", "opt", "batch", "cache")
                               if shape.kind == "train" else
                               ("params", "batch", "cache"), built.args):

@@ -24,6 +24,16 @@ the global one restricted to the rank's block, the gradient norm is the
 global norm, and the clip and AdamW run on those. The prefill and serve
 steps take the argmax of whole logits, gathered over the vocabulary's
 blocks by ``transformer.prefill`` and ``decode_step``.
+
+``build_train_step(..., param_mode="fsdp")`` is the JAX FSDP step (ZeRO-3):
+no tensor parallelism, the batch's rows over every mesh axis flattened
+(``sharding.fsdp_axes``), and each rank holds its block of every leaf and
+of AdamW's m and v as ``shardspecs.param_specs_fsdp`` places them (a leaf
+no dim of which the ranks divide whole). The model gathers a layer
+group's weights inside its remat (``sharding.maybe_gather_params``), and
+the gather's backward sums each gathered leaf's gradient over the same
+ranks and keeps the rank's block, so the data-parallel sum runs only on the
+leaves kept whole; the norm sums each block's squares over the ranks.
 """
 from __future__ import annotations
 
@@ -121,22 +131,40 @@ def _meta_cache(lm: LM, rules, mesh, rows: int, max_len: int, dtype, window):
                              device="meta")
 
 
+def train_batch_axes(shape: InputShape, mesh, rules) -> tuple:
+    """The mesh axes a train step's batch rows are cut over, flattened:
+    under FSDP the rules' batch axes (every axis of the mesh), else
+    ``batch_axes_for``."""
+    if rules.get("fsdp_gather"):
+        return SH.axis_names(rules["batch"])
+    return batch_axes_for(shape.global_batch, mesh)
+
+
 def build_train_step(cfg: ModelConfig, mesh, shape: InputShape,
                      dtype=torch.bfloat16,
                      opt_cfg: Optional[AdamWConfig] = None,
                      rule_overrides=None, remat=True,
                      param_mode: str = "2d") -> BuiltStep:
-    if param_mode == "fsdp":
-        raise NotImplementedError("param_mode='fsdp' (ZeRO-3: every weight "
-                                  "cut over the flattened mesh, gathered a "
-                                  "layer at a time) comes with ROADMAP A12")
     lm = LM(cfg)
     opt_cfg = opt_cfg or AdamWConfig(state_dtype=torch.bfloat16)
+    if param_mode == "fsdp":
+        # ZeRO-3: no tensor parallelism; the batch over every mesh axis;
+        # each layer's weights gathered inside its remat (fsdp_gather)
+        fs = {"heads": None, "kv_heads": None, "d_ff": None, "experts": None,
+              "vocab": None, "lru": None, "fsdp_gather": True,
+              "batch": SH.fsdp_axes(mesh)}
+        rule_overrides = {**fs, **(rule_overrides or {})}
     rules = _rules_for(cfg, mesh, rule_overrides)
     blocks = SS.param_blocks(cfg, mesh, rules)
-    baxes = batch_axes_for(shape.global_batch, mesh)
+    baxes = train_batch_axes(shape, mesh, rules)
+    if shape.global_batch % SH.axis_size(mesh, baxes):
+        raise ValueError(f"a global batch of {shape.global_batch} does not "
+                         f"split over the batch axes {baxes}")
     bax = baxes or None          # a tuple of two axes is flattened
     window = effective_window(cfg, shape)
+    # the leaves whose gradient the gather's backward already summed over
+    # the batch's ranks (FSDP's; the same group as the batch's)
+    summed = set(blocks) if rules.get("fsdp_gather") else set()
 
     abstract_params = _meta_params(cfg, blocks, dtype)
 
@@ -170,8 +198,9 @@ def build_train_step(cfg: ModelConfig, mesh, shape: InputShape,
             for p in leaves:
                 p.requires_grad_(False)
             with torch.no_grad():
-                for g in grads.values():
-                    SH.all_reduce(g, bax)            # data parallel
+                for key, g in grads.items():         # data parallel
+                    if key not in summed:
+                        SH.all_reduce(g, bax)
                 for key in partial:                  # a rank's heads' share
                     SH.all_reduce(grads[key], plan_axis)
                 gnorm = _global_norm(grads, blocks)

@@ -29,17 +29,17 @@ import torch.distributed as dist
 from repro_torch.analysis.flops import step_model_flops
 from repro_torch.configs.base import INPUT_SHAPES, get_config
 from repro_torch.launch import shardspecs as SS
-from repro_torch.launch.mesh import add_mesh_args, batch_axes_for, launcher_mesh
+from repro_torch.launch.mesh import add_mesh_args, launcher_mesh
 from repro_torch.launch.serve import SEED, cut_shape, rank_device
 from repro_torch.launch.steps import (build_train_step, init_params,
-                                      materialize)
+                                      materialize, train_batch_axes)
 from repro_torch.training.data import TokenStream
 
 
 def local_batches(cfg, built, shape, seed: int, device):
     """This rank's rows of ``TokenStream``'s global batches, one a step."""
     data = TokenStream(cfg, seed=seed)
-    baxes = batch_axes_for(shape.global_batch, built.mesh)
+    baxes = train_batch_axes(shape, built.mesh, built.rules)
     while True:
         batch = {k: torch.from_numpy(v) for k, v in
                  data.batch(shape.global_batch, shape.seq_len).items()}

@@ -81,9 +81,10 @@ def init_from_specs(specs: Dict[str, tuple], generator: torch.Generator,
     layer at a time, so the fp32 draw never holds more than one layer.
 
     ``blocks`` maps a leaf to the block of it to keep, (start, length)
-    along each dim (a stacked leaf's layer dim whole): every leaf is drawn
-    whole, so the generator runs as it does without ``blocks`` and the
-    blocks of the ranks make the weights that one device would draw."""
+    along each dim (FSDP may cut a stacked leaf's layer dim): every leaf
+    is drawn whole, so the generator runs as it does without ``blocks`` and
+    the blocks of the ranks make the weights that one device would
+    draw."""
     flat = {}
     for key, (shape, init) in specs.items():
         dt = leaf_dtype(init, dtype)
@@ -95,13 +96,17 @@ def init_from_specs(specs: Dict[str, tuple], generator: torch.Generator,
             flat[key] = torch.zeros(kept, dtype=dt, device=device)
         else:
             t = torch.empty(kept, dtype=dt, device=device)
-            stacked = key.split("/")[0] in STACKED
-            for part in (t if stacked else [t]):
-                whole = _draw(init, shape[1:] if stacked else shape,
-                              generator, device)
-                if blk:
-                    whole = narrow(whole, blk[1:] if stacked else blk)
-                part.copy_(whole)
+            if key.split("/")[0] not in STACKED:
+                whole = _draw(init, shape, generator, device)
+                t.copy_(narrow(whole, blk) if blk else whole)
+                flat[key] = t
+                continue
+            # every layer drawn, the block's layers kept
+            lo = blk[0][0] if blk else 0
+            for g in range(shape[0]):
+                whole = _draw(init, shape[1:], generator, device)
+                if lo <= g < lo + t.shape[0]:
+                    t[g - lo].copy_(narrow(whole, blk[1:]) if blk else whole)
             flat[key] = t
     return unflatten(flat)
 

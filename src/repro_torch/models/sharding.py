@@ -35,16 +35,23 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.models.params import flatten, rebuild
+
 MeshAxes = Union[None, bool, str, Tuple[str, ...]]
 
 # logical axis -> mesh axes, and flags. Installed by the launcher.
 _RULES: Optional[Dict[str, MeshAxes]] = None
 _MESH = None
-# rules whose value is a flag, not a mesh axis
+# rules whose value is a flag, not a mesh axis: ``tp_bf16_ar`` (the
+# tensor-parallel all-reduces in bf16) and ``fsdp_gather`` (ZeRO-3: every
+# weight held cut over ``fsdp_axes``, gathered a layer at a time by
+# ``maybe_gather_params``)
 FLAGS = ("tp_bf16_ar", "fsdp_gather")
 # the families whose layers run under rules (``models.layers``); the others
 # raise there until ROADMAP A12
 SHARDED_FAMILIES = ("dense", "vlm")
+# the mesh axes FSDP cuts the weights over, flattened (``fsdp_axes``)
+FSDP_AXES = ("data", "model")
 
 
 def standard_rules(multi_pod: bool) -> Dict[str, MeshAxes]:
@@ -65,7 +72,9 @@ def standard_rules(multi_pod: bool) -> Dict[str, MeshAxes]:
     }
 
 
-def _axis_names(value) -> Tuple[str, ...]:
+def axis_names(value) -> Tuple[str, ...]:
+    """The mesh axes a rule's value names: () for None, a name as a
+    one-tuple, a tuple as it is."""
     if value is None:
         return ()
     return value if isinstance(value, tuple) else (value,)
@@ -75,7 +84,7 @@ def axis_size(m, axes) -> int:
     """The size of mesh axis ``axes`` of mesh ``m``, or of the axes of a
     tuple flattened into one (the product of their sizes)."""
     n = 1
-    for a in _axis_names(axes):
+    for a in axis_names(axes):
         n *= m.size(m.mesh_dim_names.index(a))
     return n
 
@@ -84,7 +93,7 @@ def axis_rank(m, axes) -> int:
     """This rank's coordinate along ``axes`` of mesh ``m``: along a tuple,
     its coordinates flattened with the first axis the most significant."""
     r = 0
-    for a in _axis_names(axes):
+    for a in axis_names(axes):
         r = r * m.size(m.mesh_dim_names.index(a)) + m.get_local_rank(a)
     return r
 
@@ -124,25 +133,42 @@ def flatten_axes(m, backend: str) -> None:
     setattr(m, _FLAT, groups)
 
 
+def fsdp_axes(m, axes: Tuple[str, ...] = FSDP_AXES) -> Tuple[str, ...]:
+    """The mesh axes FSDP cuts every weight over, flattened into one:
+    ``axes``, with "pod" in front where mesh ``m`` has it (as
+    ``repro.launch.shardspecs.param_specs_fsdp`` takes them)."""
+    return (("pod",) if "pod" in m.mesh_dim_names else ()) + tuple(axes)
+
+
+def fsdp_dim(shape, n: int) -> Optional[int]:
+    """The dim FSDP cuts a leaf of ``shape`` on over ``n`` ranks: the first,
+    in a stable sort by descending size, that ``n`` divides; None where
+    none does (the leaf is kept whole)."""
+    for d in sorted(range(len(shape)), key=lambda d: -shape[d]):
+        if shape[d] % n == 0:
+            return d
+    return None
+
+
 @contextlib.contextmanager
 def use_rules(rules: Dict[str, MeshAxes], mesh=None):
     """Install ``rules`` and the ``DeviceMesh`` whose axes they name. Raises
     ``ValueError`` if a rule names an axis that ``mesh`` lacks (or there is
-    no mesh): no layer may shard over an axis with no process group."""
+    no mesh): no layer may shard over an axis with no process group. The
+    ``fsdp_gather`` flag names the mesh's ``fsdp_axes``."""
     global _RULES, _MESH
-    if rules.get("fsdp_gather"):
-        raise NotImplementedError("fsdp_gather (ZeRO-3's per-layer gather) "
-                                  "comes with ROADMAP A12")
     names = tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
-    for key, value in rules.items():
-        if key in FLAGS:
-            continue
-        missing = [a for a in _axis_names(value) if a not in names]
+    named = {k: v for k, v in rules.items() if k not in FLAGS}
+    if rules.get("fsdp_gather"):
+        named["fsdp_gather"] = fsdp_axes(mesh) if mesh is not None \
+            else FSDP_AXES
+    for key, value in named.items():
+        missing = [a for a in axis_names(value) if a not in names]
         if missing:
             raise ValueError(f"rule {key!r} names mesh axes {missing}, but "
                              f"the mesh has {list(names) or 'none'}: a "
                              "sharded axis needs a process group")
-        axes = _axis_names(value)
+        axes = axis_names(value)
         if len(axes) > 1 and axes not in getattr(mesh, _FLAT, {}):
             raise ValueError(f"rule {key!r} names mesh axes {axes}, which "
                              "are not a run of the mesh's adjacent axes "
@@ -186,7 +212,7 @@ def _shard(axes) -> Shard:
     """The ``Shard`` of mesh axis ``axes`` (a name, a tuple of them or
     None) of the installed mesh."""
     m = _MESH
-    names = _axis_names(axes)
+    names = axis_names(axes)
     size = axis_size(m, names) if names else 1
     if size == 1:
         return Shard(None, 0, 1)
@@ -206,7 +232,7 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 def _label(axis) -> str:
-    return "+".join(_axis_names(axis))
+    return "+".join(axis_names(axis))
 
 
 def _reduce(x: torch.Tensor, axis, op: str) -> torch.Tensor:
@@ -220,12 +246,8 @@ def _reduce(x: torch.Tensor, axis, op: str) -> torch.Tensor:
         all_reduce.host_staged += 1
     else:
         dist.all_reduce(x, op=_OPS[op], group=group)
-    all_reduce.seconds += time.perf_counter() - t0
-    n = x.numel() * x.element_size()
-    all_reduce.calls += 1
-    all_reduce.bytes += n
-    calls, total = all_reduce.by_axis.get(_label(axis), (0, 0))
-    all_reduce.by_axis[_label(axis)] = (calls + 1, total + n)
+    _count(all_reduce, axis, x.numel() * x.element_size(),
+           time.perf_counter() - t0)
     return x
 
 
@@ -293,24 +315,28 @@ def entry(x: torch.Tensor, axis) -> torch.Tensor:
     return _Entry.apply(x, axis)
 
 
-# the all-reduces' count, bytes and host seconds (a staged call's copies
-# included): the forward's, and in training also the backward's (``entry``,
-# ``all_gather``'s reduce-scatter) and those that remat's recompute repeats;
-# ``by_axis``: mesh axes ("pod+data" for a flattened pair) -> (count, bytes)
-all_reduce.seconds = 0.0    # type: ignore[attr-defined]
-all_reduce.calls = 0        # type: ignore[attr-defined]
-all_reduce.bytes = 0        # type: ignore[attr-defined]
-all_reduce.host_staged = 0  # type: ignore[attr-defined]
-all_reduce.by_axis = {}     # type: ignore[attr-defined]
+def _count(fn, axis, n: int, seconds: float) -> None:
+    fn.seconds += seconds
+    fn.calls += 1
+    fn.bytes += n
+    calls, total = fn.by_axis.get(_label(axis), (0, 0))
+    fn.by_axis[_label(axis)] = (calls + 1, total + n)
 
 
 def _gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """``x`` of every rank of mesh axis ``axis``, concatenated along
+    ``dim``, counted (the gathered output's bytes)."""
     sh = _shard(axis)
+    t0 = time.perf_counter()
     staged = x.device.type == "cuda" and dist.get_backend(sh.group) == "gloo"
     src = x.cpu() if staged else x.contiguous()
     parts = [torch.empty_like(src) for _ in range(sh.size)]
     dist.all_gather(parts, src, group=sh.group)
-    return torch.cat(parts, dim=dim).to(x.device)
+    out = torch.cat(parts, dim=dim).to(x.device)
+    all_gather.host_staged += staged
+    _count(all_gather, axis, out.numel() * out.element_size(),
+           time.perf_counter() - t0)
+    return out
 
 
 class _Gather(torch.autograd.Function):
@@ -326,7 +352,9 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, dy):
         whole = _reduce(dy.contiguous().clone(), ctx.axis, "sum")
         r = _shard(ctx.axis).rank
-        return whole.narrow(ctx.dim, r * ctx.width, ctx.width), None, None
+        # a copy, so that the whole gradient is freed at once
+        return whole.narrow(ctx.dim, r * ctx.width, ctx.width).clone(), \
+            None, None
 
 
 def all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
@@ -340,3 +368,51 @@ def all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
     if _differentiated(x):
         return _Gather.apply(x, axis, dim)
     return _gather(x, axis, dim)
+
+
+# the all-reduces' and the all-gathers' count, bytes (an all-gather's: its
+# gathered output) and host seconds (a staged call's copies included): the
+# forward's, and in training also the backward's (``entry``, and
+# ``all_gather``'s reduce-scatter, counted as the all-reduce it is) and
+# those that remat's recompute repeats; ``host_staged``: the calls staged
+# through the host; ``by_axis``: mesh axes ("pod+data" for a flattened
+# pair) -> (count, bytes)
+for _fn in (all_reduce, all_gather):
+    _fn.seconds = 0.0    # type: ignore[attr-defined]
+    _fn.calls = 0        # type: ignore[attr-defined]
+    _fn.bytes = 0        # type: ignore[attr-defined]
+    _fn.host_staged = 0  # type: ignore[attr-defined]
+    _fn.by_axis = {}     # type: ignore[attr-defined]
+del _fn
+
+
+def maybe_gather_params(tree, whole: Dict[str, tuple]):
+    """ZeRO-3 / FSDP, after ``repro.models.sharding.maybe_gather_params``:
+    under the ``fsdp_gather`` rule, every leaf of ``tree`` that the rank
+    holds a block of (its shape not ``whole[path]``, the path as
+    ``params.flatten`` names it) gathered whole over ``fsdp_axes`` along
+    the one dim where the two differ; ``all_gather``'s backward gives the
+    rank its block of the ranks' summed gradient (a reduce-scatter). A
+    caller that gathers one layer's leaves inside the layer's remat keeps
+    only that layer's weights whole. Outside ``fsdp_gather``, ``tree`` as
+    it is. Raises where a leaf is no block of its whole shape."""
+    if not rule("fsdp_gather"):
+        return tree
+    axes = fsdp_axes(_MESH)
+    n = axis_size(_MESH, axes)
+    out = []
+    for key, t in flatten(tree).items():
+        want = tuple(whole[key])
+        diff = [d for d, (a, b) in enumerate(zip(t.shape, want)) if a != b]
+        if not diff:
+            out.append(t)
+            continue
+        if len(diff) > 1 or t.ndim != len(want) or \
+                t.shape[diff[0]] * n != want[diff[0]]:
+            raise ValueError(f"{key} is {tuple(t.shape)}, no block over the "
+                             f"{n} ranks of {axes} of its whole shape "
+                             f"{want}: cut the parameters with "
+                             "launch.shardspecs.local_params under the same "
+                             "rules")
+        out.append(all_gather(t, axes, diff[0]))
+    return rebuild(tree, out)

@@ -18,7 +18,11 @@ vocabulary (``launch.shardspecs.local_params``), its block of the
 vocabulary: the embedding is a SUM over the ``vocab`` axis of each rank's
 lookup of its own rows, and ``forward_train`` returns the rank's block of
 the logits, which ``api.LM.loss_terms`` reduces without gathering;
-``prefill`` and ``decode_step`` return whole logits, gathered.
+``prefill`` and ``decode_step`` return whole logits, gathered. Under FSDP
+(the ``fsdp_gather`` rule) each rank holds its block of every leaf and
+gathers a group's weights whole inside the group's remat
+(``sharding.maybe_gather_params``), and ``embed``, ``unembed`` and
+``final_norm`` in ``forward_train``.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import sharding as SH
 from repro_torch.models.moe_layer import init_moe, moe_forward
-from repro_torch.models.params import layer_of, prefixed, unbind_layers
+from repro_torch.models.params import (flatten, layer_of, prefixed,
+                                       unbind_layers)
 
 
 def _slot_kinds(cfg):
@@ -97,9 +102,20 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _layer_shapes(cfg) -> Dict[str, tuple]:
+    """The whole shape of one layer's slice of each stacked leaf, keyed as
+    ``params.flatten`` names a group's ``slots`` (``0/attn/wq``)."""
+    return {k[len("slots/"):]: shape[1:] for k, (shape, _) in
+            param_specs(cfg).items() if k.startswith("slots/")}
+
+
 def _group(slots, x, aux, cfg, mode: str, cache, g: int, window):
-    """Group g's layers (slot i of ``slots``, its parameters). Returns
-    (x, aux plus their MoE FFNs' aux loss)."""
+    """Group g's layers (slot i of ``slots``, its parameters), their
+    weights gathered whole first under FSDP (inside the group's remat, so
+    its recompute gathers them again and no group's whole weights are kept
+    for the backward). Returns (x, aux plus their MoE FFNs' aux loss)."""
+    if SH.rule("fsdp_gather"):
+        slots = SH.maybe_gather_params(slots, _layer_shapes(cfg))
     for i, kind in enumerate(_slot_kinds(cfg)):
         p = slots[i]
         h = L.apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
@@ -132,8 +148,15 @@ def _run_stack(params, x, cfg, mode: str, cache=None, window=None,
     is rematerialised where ``remat`` asks. Returns (x, the summed aux loss
     of the MoE FFNs)."""
     aux = torch.zeros((), device=x.device)
-    slots = unbind_layers(params["slots"])
-    for g in range(_n_groups(cfg)):
+    G = _n_groups(cfg)
+    slots = params["slots"]
+    if SH.rule("fsdp_gather"):
+        # a leaf cut on its layer dim holds whole layers: gathered whole
+        # here, since ``layer_of`` indexes the global layer
+        slots = SH.maybe_gather_params(slots, {
+            k: (G, *t.shape[1:]) for k, t in flatten(slots).items()})
+    slots = unbind_layers(slots)
+    for g in range(G):
         args = (layer_of(slots, g), x, aux, cfg, mode, cache, g, window)
         x, aux = L.checkpointed(_group, *args) if remat else _group(*args)
     return x, aux
@@ -194,7 +217,13 @@ def forward_train(params, cfg, batch, *, window=None, remat=True):
     """Full-sequence forward, each group of layers rematerialised in the
     backward where ``remat`` asks. Returns (logits (B, S, V), the MoE FFNs'
     summed aux loss, 0 without them); with ``unembed`` cut over the
-    vocabulary, the rank's block of the logits, (B, S, V / n)."""
+    vocabulary, the rank's block of the logits, (B, S, V / n). Under FSDP
+    ``embed``, ``unembed`` and ``final_norm`` are gathered whole first."""
+    if SH.rule("fsdp_gather"):
+        top = {k: v for k, v in params.items() if k != "slots"}
+        params = {**params, **SH.maybe_gather_params(top, {
+            k: shape for k, (shape, _) in param_specs(cfg).items()
+            if not k.startswith("slots/")})}
     x = _embed(params, batch["tokens"], cfg)
     x, aux = _run_stack(params, x, cfg, "train", window=window, remat=remat)
     return _logits(params, x, cfg), aux

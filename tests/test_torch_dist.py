@@ -508,7 +508,8 @@ def test_rules_without_process_group_raise():
     with SH.use_rules({"heads": None, "tp_bf16_ar": True}):
         assert SH.active() and SH.shard_of("heads").size == 1
     assert not SH.active()
-    with pytest.raises(NotImplementedError, match="A12"):
+    # fsdp_gather gathers over the mesh's flattened ("data", "model")
+    with pytest.raises(ValueError, match="process group"):
         with SH.use_rules({"fsdp_gather": True}):
             pass
 

@@ -20,7 +20,11 @@ their output, past ``WALL_S``. Then, in fp32:
   vocabulary of 510 (which 4 does not divide: held whole): loss, grad
   norm and lr at both of 2 steps, and every parameter block and AdamW's m
   and v after them, within 1e-5 max(1, max |ref|) of the JAX
-  ``build_train_step``;
+  ``build_train_step``; likewise ``param_mode="fsdp"`` (ZeRO-3) for the
+  reduced Llama on (2, 2) and (2, 1, 2), the 510-id Llama on (1, 4)
+  (``embed``/``unembed`` cut over d_model), the StarCoder2 variant on
+  (1, 4) (bk, bv kept whole) and at 4 layers on (2, 2) (bk, bv cut on the
+  layer dim) and Chameleon on (2, 2);
 - ``build_prefill_step`` and ``build_serve_step`` under ``kv_seq`` on
   (1, 4) and under the heads' rule on (1, 4), (2, 2) and (2, 2, 1):
   tokens equal wherever the reference's top-2 gap exceeds the tolerance,
@@ -29,7 +33,7 @@ their output, past ``WALL_S``. Then, in fp32:
   the four input shapes on (1, 4), (2, 2) and (2, 1, 2), against the JAX
   ``NamedSharding.shard_shape`` of the same leaf, but for a cache's
   KV-head dim: the rank's own heads (the JAX cache keeps every KV head on
-  every rank of "model");
+  every rank of "model"); and of train_4k's FSDP step;
 - ``LM.loss_terms`` with the vocabulary cut, on labels that hold -1 and
   the first and last id of every rank's block, against the JAX
   ``LM.loss`` and the port's outside rules;
@@ -40,9 +44,11 @@ their output, past ``WALL_S``. Then, in fp32:
 - ``make_production_mesh``'s refusal on a world of 4.
 
 In the test process alone: ``batch_specs`` and ``cache_specs`` for all
-five families against the JAX functions, ``effective_window`` for every
-``ARCH_IDS`` x ``INPUT_SHAPES`` pair, the analytic FLOPs, and the
-refusals that name A12.
+five families against the JAX functions, ``param_specs_fsdp`` for every
+dense and vlm config, FSDP's ``init_params`` against one draw cut to each
+rank's blocks, ``effective_window`` for every ``ARCH_IDS`` x
+``INPUT_SHAPES`` pair, the analytic FLOPs, and the refusals that name
+A12.
 """
 import dataclasses
 import os
@@ -76,7 +82,7 @@ WALL_S = 150
 SEED = 1
 TOL = 1e-5
 FEED_STEPS = 6
-JAX_PROCS = 3     # the JAX side's processes (its compiles take the time)
+JAX_PROCS = 5     # the JAX side's processes (its compiles take the time)
 
 JAX_SIDE = r"""
 import dataclasses
@@ -95,7 +101,6 @@ from repro.training.checkpoint import _flatten
 from repro.training.optimizer import AdamWConfig, init_state
 
 inp = dict(np.load(sys.argv[1]))
-seed = int(sys.argv[3])
 out = {}
 MESHES = {"1x4": (1, 4), "2x2": (2, 2), "4x1": (4, 1), "2x2x1": (2, 2, 1),
           "2x1x2": (2, 1, 2)}
@@ -118,7 +123,8 @@ CONFIGS = {"llama": get_config("llama3.1-8b").reduced(),
            "chameleon": get_config("chameleon-34b").reduced(),
            "llama_v510": dataclasses.replace(get_config("llama3.1-8b")
                                              .reduced(), vocab_size=510)}
-PARAMS = {k: LM(c).init(jax.random.key(seed)) for k, c in CONFIGS.items()}
+CONFIGS["starcoder2_whole4"] = dataclasses.replace(
+    CONFIGS["starcoder2_whole"], n_layers=4)
 
 
 def paths(tree, is_leaf=None):
@@ -127,15 +133,28 @@ def paths(tree, is_leaf=None):
                      for p in path): leaf for path, leaf in leaves}
 
 
+# config name's weights from the inputs (the test process's
+# LM.init(key(SEED))) in LM.init's pytree: drawing them again here would
+# compile the init anew in every process
+def weights(name):
+    like = LM(CONFIGS[name]).init_abstract(jnp.float32)
+    return jax.tree.unflatten(jax.tree.structure(like), [
+        jnp.asarray(inp[f"w/{name}/{k}"]) for k in paths(like)])
+
+
+PARAMS = {k: weights(k) for k in CONFIGS}
+
+
 opt_cfg = AdamWConfig(state_dtype=jnp.float32)
-for case in filter(None, sys.argv[4].split(",")):
-    name, tag = case.split("/")
+for case in filter(None, sys.argv[3].split(",")):
+    name, tag, *mode = case.split("/")
     pre = "train/v510/" if name == "llama_v510" else "train/"
     train_batch = {k: jnp.asarray(inp[pre + k]) for k in ("tokens", "labels")}
     mesh = mesh_of(tag)
     built = build_step(CONFIGS[name], mesh, InputShape("train_small", 16, 4,
                                                        "train"),
-                       dtype=jnp.float32, opt_cfg=opt_cfg)
+                       dtype=jnp.float32, opt_cfg=opt_cfg,
+                       param_mode=mode[0] if mode else "2d")
     params = jax.tree.map(jnp.array, PARAMS[name])
     opt = init_state(opt_cfg, params)
     with mesh:
@@ -147,7 +166,7 @@ for case in filter(None, sys.argv[4].split(",")):
         for k, v in _flatten(tree).items():
             out[f"train/{case}/{part}/{k}"] = v
 
-if sys.argv[5] != "rest":        # the train cases alone
+if sys.argv[4] != "rest":        # the train cases alone
     np.savez(sys.argv[2], **out)
     sys.exit(0)
 cfg = CONFIGS["llama"]
@@ -194,10 +213,16 @@ full = get_config("llama3.1-8b")
 flm = LM(full)
 for tag in ("1x4", "2x2", "2x1x2"):
     mesh = mesh_of(tag)
-    for name, shape in INPUT_SHAPES.items():
-        built = build_step(full, mesh, shape)
-        baxes = batch_axes_for(shape.global_batch, mesh)
-        p_specs = SS.param_specs(full, built.args[0], mesh)
+    for name, shape in [*INPUT_SHAPES.items(),
+                        ("fsdp", INPUT_SHAPES["train_4k"])]:
+        if name == "fsdp":
+            built = build_step(full, mesh, shape, param_mode="fsdp")
+            baxes = built.rules["batch"]
+            p_specs = SS.param_specs_fsdp(built.args[0], mesh)
+        else:
+            built = build_step(full, mesh, shape)
+            baxes = batch_axes_for(shape.global_batch, mesh)
+            p_specs = SS.param_specs(full, built.args[0], mesh)
         parts = {"params": (built.args[0], p_specs)}
         if shape.kind == "train":
             parts["opt"] = (built.args[1], {"m": p_specs, "v": p_specs,
@@ -239,6 +264,9 @@ JAX_CFGS = {
     "chameleon": jax_config("chameleon-34b").reduced(),
     "llama_v510": dataclasses.replace(jax_config("llama3.1-8b").reduced(),
                                       vocab_size=C.VOCAB_UNEVEN),
+    "starcoder2_whole4": dataclasses.replace(
+        jax_config("starcoder2-15b").reduced(), n_kv_heads=1, head_dim=34,
+        n_layers=4),
 }
 
 
@@ -302,7 +330,7 @@ def runs(tmp_path_factory):
     procs = []
     for name, cmd in [(f"jax{j}", [sys.executable, "-c", JAX_SIDE,
                                    str(tmp / "inputs.npz"),
-                                   str(tmp / f"jax{j}.npz"), str(SEED),
+                                   str(tmp / f"jax{j}.npz"),
                                    ",".join(cases[j::JAX_PROCS]),
                                    "rest" if j == JAX_PROCS - 1 else "-"])
                       for j in range(JAX_PROCS)] + [
@@ -358,10 +386,40 @@ def _rel(a, b) -> float:
     return float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
 
 
+def _fsdp_block(full: np.ndarray, tag: str, rank: int) -> np.ndarray:
+    """The rank's block of ``full`` as the JAX ``param_specs_fsdp`` places
+    it on mesh ``tag``: over every mesh axis flattened, where rank r's
+    coordinate is r (the meshes order the ranks row-major)."""
+    spec = JSS.param_specs_fsdp({"x": full}, _Mesh.of(_shape(tag)))["x"]
+    sl = [slice(None)] * full.ndim
+    for d, entry in enumerate(spec):
+        if entry is not None:
+            assert tuple(entry) == C.mesh_axes(_shape(tag)), entry
+            n = full.shape[d] // WORLD
+            sl[d] = slice(rank * n, (rank + 1) * n)
+    return full[tuple(sl)]
+
+
+# the FSDP cases' leaves that show the cut's three kinds, on every rank:
+# embed and unembed over d_model where 4 does not divide the vocabulary;
+# bk and bv (G, 34) whole at G = 2, cut on the layer dim at G = 4
+FSDP_SHAPES = {
+    "llama_v510/1x4/fsdp": {"embed": (C.VOCAB_UNEVEN, 64),
+                            "unembed": (64, C.VOCAB_UNEVEN)},
+    "starcoder2_whole/1x4/fsdp": {"slots/0/attn/bk": (2, 34),
+                                  "slots/0/attn/bv": (2, 34)},
+    "starcoder2_whole4/2x2/fsdp": {"slots/0/attn/bk": (1, 34),
+                                   "slots/0/attn/bv": (1, 34)},
+}
+
+
 def _block(full: np.ndarray, local: np.ndarray, cfg, path: str, tag: str,
-           rank: int) -> np.ndarray:
+           rank: int, fsdp: bool = False) -> np.ndarray:
     """The rank's block of ``full`` as ``param_spec`` + ``sanitize_spec``
-    place it (whole where the port keeps the leaf whole)."""
+    place it (whole where the port keeps the leaf whole), or where
+    ``fsdp`` as ``param_specs_fsdp`` does."""
+    if fsdp:
+        return _fsdp_block(full, tag, rank)
     if local.shape == full.shape:
         return full
     n_model = _shape(tag)[-1]
@@ -382,16 +440,22 @@ def _block(full: np.ndarray, local: np.ndarray, cfg, path: str, tag: str,
 @pytest.mark.parametrize("case", [c for c, _, _ in C.TRAIN_CASES])
 def test_train_step_matches_jax(runs, case):
     """Loss, grad norm and lr at each of 2 steps, then every parameter
-    block and AdamW's m and v, within 1e-5 max(1, max |ref|)."""
+    block and AdamW's m and v, within 1e-5 max(1, max |ref|); the FSDP
+    cases against the JAX ``param_mode="fsdp"`` step, each block as its
+    ``param_specs_fsdp`` places it."""
     jx, ranks, _ = runs
-    name, tag = case.split("/")
+    name, tag = case.split("/")[:2]
     cfg = JAX_CFGS[name]
+    fsdp = C.param_mode(case) == "fsdp"
     # the vocabulary is cut wherever the model axis divides it
     vocab_cut = _shape(tag)[-1] > 1 and cfg.vocab_size % _shape(tag)[-1] == 0
     for r, res in enumerate(ranks):
         got = res[f"train/{case}/params/embed"].shape[0]
-        assert got == (cfg.vocab_size // _shape(tag)[-1] if vocab_cut else
-                       cfg.vocab_size), (r, got)
+        if not fsdp:
+            assert got == (cfg.vocab_size // _shape(tag)[-1] if vocab_cut
+                           else cfg.vocab_size), (r, got)
+        for path, want in FSDP_SHAPES.get(case, {}).items():
+            assert res[f"train/{case}/params/{path}"].shape == want, path
         for i in range(C.TRAIN_STEPS):
             for k in ("loss", "grad_norm", "lr"):
                 key = f"train/{case}/step{i}/{k}"
@@ -404,13 +468,15 @@ def test_train_step_matches_jax(runs, case):
                 set(paths)
             for path in paths:
                 local = res[pre + path]
-                want = _block(jx[pre + path], local, cfg, path, tag, r)
+                want = _block(jx[pre + path], local, cfg, path, tag, r,
+                              fsdp)
                 n_blocks += want.shape != jx[pre + path].shape
                 assert local.shape == want.shape, (r, part, path)
                 assert _rel(local, want) < TOL, (r, part, path,
                                                  _rel(local, want))
-        # on a model axis of 2 or 4 the explicit layers' leaves are blocks
-        assert (n_blocks > 0) == (not tag.endswith("x1")), n_blocks
+        # on a model axis of 2 or 4 the explicit layers' leaves are blocks;
+        # under FSDP every leaf that the flattened axes divide
+        assert (n_blocks > 0) == (fsdp or not tag.endswith("x1")), n_blocks
 
 
 def test_train_cases_reach_each_kv_plan():
@@ -491,6 +557,31 @@ def test_built_args_have_jax_shard_shapes(runs, tag, shape):
             np.testing.assert_array_equal(g, w, err_msg=key)
             if key.split("/")[-1] in ("embed", "unembed"):
                 assert full.vocab_size // n_model in g, key
+
+
+@pytest.mark.parametrize("tag", list(C.ARGS_MESHES))
+def test_fsdp_args_have_jax_shard_shapes(runs, tag):
+    """``BuiltStep.args`` of train_4k's FSDP step (full-size Llama-3.1-8B):
+    every parameter leaf, AdamW's m and v and the batch's rows have the
+    JAX FSDP step's ``shard_shape``; at this size every weight is cut,
+    none kept whole."""
+    jx, ranks, _ = runs
+    pre = f"args/{tag}/fsdp/"
+    want = {k[len(pre):]: v for k, v in jx.items() if k.startswith(pre)}
+    assert {k.split("/")[0] for k in want} == {"params", "opt", "batch"}
+    full = get_config("llama3.1-8b")
+    whole = {k: shape for k, (shape, _) in
+             LM(full).mod.param_specs(full).items()}
+    for res in ranks:
+        got = {k[len(pre):]: v for k, v in res.items() if k.startswith(pre)}
+        assert set(got) == set(want)
+        for key, g in got.items():
+            np.testing.assert_array_equal(g, want[key], err_msg=key)
+        for key, shape in whole.items():
+            assert np.prod(got[f"params/{key}"]) * WORLD == np.prod(shape), \
+                key
+        assert got["batch/tokens"][0] * WORLD == \
+            INPUT_SHAPES["train_4k"].global_batch
 
 
 @pytest.mark.parametrize("split", ["4x1/1", "4x1/2", "4x1/3", "2x2/1"])
@@ -660,12 +751,35 @@ def test_step_flops_match_jax(arch):
 
 class _Mesh:
     """A stand-in for a (data, n) DeviceMesh, for what comes before any
-    collective."""
+    collective; by ``axis_names`` and ``shape`` also for a JAX mesh.
+    ``_Mesh.of(shape)`` is one of any shape over ``step_cases.mesh_axes``."""
     mesh_dim_names = ("data", "model")
 
     def __init__(self, n: int = WORLD, data: int = 1):
         self.sizes = (data, n)
         self.shape = {"data": data, "model": n}    # as the JAX mesh's
+        # the runs of adjacent axes, as ``sharding.flatten_axes`` lists them
+        names = self.mesh_dim_names
+        self._flat_groups = {names[lo:hi]: None for lo in range(len(names))
+                             for hi in range(lo + 2, len(names) + 1)}
+
+    @classmethod
+    def of(cls, shape, rank: int = 0):
+        """A mesh of ``shape`` as rank ``rank`` (row-major) sees it."""
+        class Shaped(cls):
+            mesh_dim_names = C.mesh_axes(shape)
+
+            def get_local_rank(self, axis):
+                return int(np.unravel_index(rank, shape)[
+                    self.mesh_dim_names.index(axis)])
+        m = Shaped()
+        m.sizes = tuple(shape)
+        m.shape = dict(zip(m.mesh_dim_names, shape))
+        return m
+
+    @property
+    def axis_names(self):
+        return self.mesh_dim_names
 
     def size(self, dim):
         return self.sizes[dim]
@@ -677,23 +791,89 @@ class _Mesh:
         return 0
 
 
+FSDP_ARCHS = [a for a in list(ARCH_IDS) + ["llama31_8b"]
+              if get_config(a).family in SH.SHARDED_FAMILIES]
+FSDP_MESHES = ((2, 2), (1, 4), (1, 8), (2, 1, 2))
+
+
+@pytest.mark.parametrize("arch", FSDP_ARCHS + ["step cases"])
+def test_param_specs_fsdp_match_jax(arch):
+    """The port's ``param_specs_fsdp`` against the JAX function leaf by
+    leaf, on (2, 2), (1, 4), (1, 8) and (2, 1, 2) ("pod" in front): each
+    dense and vlm config full and reduced, or ``step_cases``' configs."""
+    if arch == "step cases":
+        pairs = [(JAX_CFGS[n], make()) for n, make in C.CONFIGS.items()]
+    else:
+        pairs = [(jax_config(arch), get_config(arch)),
+                 (jax_config(arch).reduced(), get_config(arch).reduced())]
+    n = 0
+    for jcfg, tcfg in pairs:
+        jparams = JaxLM(jcfg).init_abstract()
+        tparams = LM(tcfg).init(torch.Generator(), device="meta")
+        for shape in FSDP_MESHES:
+            mesh = _Mesh.of(shape)
+            jspecs = JSS.param_specs_fsdp(jparams, mesh)
+            for path, js, ts in _spec_pairs(
+                    jspecs, SS.param_specs_fsdp(tparams, mesh)):
+                assert tuple(map(_norm, js)) == tuple(map(_norm, ts)), \
+                    (tcfg.name, shape, path)
+                n += 1
+    assert n > 40
+
+
+@pytest.mark.parametrize("case", ["starcoder2_whole4/2x2", "llama_v510/1x4",
+                                  "llama/2x1x2"])
+def test_fsdp_init_params_keep_blocks_of_one_draw(case):
+    """Under FSDP each rank's ``init_params`` are its blocks of the weights
+    that one device draws from the same seed (``LM.init`` cut by
+    ``local_params``): a leaf cut on its layer dim (starcoder2_whole4's bk
+    and bv) keeps the rank's layers, embed and unembed over d_model, and
+    on (2, 1, 2) the flattened ("pod", "data", "model")."""
+    from repro_torch.launch.steps import build_step, init_params
+    from repro_torch.models.params import flatten
+    name, tag = case.split("/")
+    cfg = C.CONFIGS[name]()
+    shape = dataclasses.replace(C.TRAIN_SHAPE, global_batch=4)
+    whole = LM(cfg).init(torch.Generator().manual_seed(3), device="cpu")
+    n_cut = 0
+    for r in range(WORLD):
+        mesh = _Mesh.of(_shape(tag), r)
+        built = build_step(cfg, mesh, shape, dtype=torch.float32,
+                           param_mode="fsdp")
+        got = flatten(init_params(cfg, built, torch.Generator().manual_seed(
+            3), "cpu"))
+        want = flatten(SS.local_params(whole, cfg, mesh, built.rules))
+        assert set(got) == set(want)
+        for key, t in want.items():
+            assert torch.equal(got[key], t), (r, key)
+            n_cut += t.shape != flatten(whole)[key].shape
+    assert n_cut > 0
+
+
 def test_refusals_name_a12():
-    """FSDP, the families the multi-device layers do not cover, a cut of
-    heads without d_ff or of the vocabulary over another axis, and a MAX
-    all-reduce that would need a backward; a rule over mesh axes that no
-    process group flattens (not adjacent in the mesh's order)."""
+    """The families the multi-device layers do not cover (FSDP's train step
+    among them), a cut of heads without d_ff or of the vocabulary over
+    another axis, and a MAX all-reduce that would need a backward; a rule
+    over mesh axes that no process group flattens (not adjacent in the
+    mesh's order). FSDP itself builds: ``param_mode="fsdp"`` for the dense
+    family, and ``use_rules`` installs ``fsdp_gather``."""
     from repro_torch.launch.steps import build_step
     shape = dataclasses.replace(INPUT_SHAPES["train_4k"], global_batch=4,
                                 seq_len=16)
     llama = get_config("llama3.1-8b").reduced()
-    with pytest.raises(NotImplementedError, match="A12"):
-        build_step(llama, _Mesh(), shape, param_mode="fsdp")
+    built = build_step(llama, _Mesh(), shape, param_mode="fsdp")
+    assert built.rules["fsdp_gather"] and \
+        built.rules["batch"] == ("data", "model")
+    assert built.args[2]["tokens"].shape == (1, 16)
     for arch in ("recurrentgemma-2b", "xlstm-350m", "whisper-large-v3",
                  "phi3.5-moe-42b-a6.6b"):
         for kind in ("train_4k", "prefill_32k", "decode_32k"):
             with pytest.raises(NotImplementedError, match="A12"):
                 build_step(get_config(arch).reduced(), _Mesh(),
                            INPUT_SHAPES[kind])
+        with pytest.raises(NotImplementedError, match="A12"):
+            build_step(get_config(arch).reduced(), _Mesh(), shape,
+                       param_mode="fsdp")
     with pytest.raises(NotImplementedError, match="A12"):
         build_step(llama, _Mesh(), shape, rule_overrides={"d_ff": None})
     with pytest.raises(NotImplementedError, match="A12"):
@@ -712,9 +892,8 @@ def test_refusals_name_a12():
         x = torch.zeros(3, requires_grad=True) * 1.0
         with pytest.raises(RuntimeError, match="no backward"):
             SH.all_reduce(x, "model", "max")
-        with pytest.raises(NotImplementedError, match="A12"):
-            with SH.use_rules({"fsdp_gather": True}):
-                pass
+        with SH.use_rules({"fsdp_gather": True}, _Mesh()):
+            assert SH.rule("fsdp_gather") and SH.mesh() is not None
 
 
 def test_launch_serve_production_path_on_cpu(monkeypatch, capsys):
