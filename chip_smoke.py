@@ -199,7 +199,7 @@ its own lines; any failure exits non-zero without the result line:
    first step's tokens equal to ``LM.decode_step``'s on the same cache,
    B1's 32 and B2's 512 launches all on the sm90 kernels. 7b, two
    ``gloo`` ranks sharing the card: ``build_train_step`` under
-   ``standard_rules`` on mesh (1, 2), all 32 layers, the heads, d_ff and
+   ``standard_rules`` on mesh (1, 2), 16 of the 32 layers, the heads, d_ff and
    the vocabulary cut (``embed``/``unembed`` a rank's 64128 ids; the
    loss's log-sum-exp over the two blocks), B=1, S=4096, remat, 2 steps,
    after rank 0 ran the same steps unsharded on its one-rank pool (and
@@ -228,9 +228,33 @@ its own lines; any failure exits non-zero without the result line:
    layers and two rows, held as 7d against the same unsharded reference
    (7d's, kept on the host where ``MemAvailable`` holds it); each rank's
    peak must be below its 7d peak, its all-gathers and all-reduces over
-   "data+model" alone. Phase 2 holds B1 at S=32768 (the plain version in
-   blocks of 1024 query rows) and B2 over 32768 rows at these shapes. A
-   rank that fails, or phase 7 past 600 s, fails the run.
+   "data+model" alone. 7f, the same two processes: Phi-3.5-MoE at its
+   published widths (16 experts of d_ff 6400, top-2, capacity factor
+   1.25, groups of 512; 32 query heads over 8 KV heads), bf16, seeded,
+   under ``standard_rules`` on the (1, 2) mesh, each rank its
+   ``local_params`` (8 experts, 8 of the router's 16 columns, 16/4 heads,
+   16032 of the vocabulary's ids): 7f-train, ``build_train_step`` at 4 of
+   its 32 layers, train_4k's sequence at B=1 (8 groups of 512 at capacity
+   80), 2 steps held as 7b against rank 0's unsharded run, with the
+   reference's MoE routing imposed; 7f-serve, ``build_prefill_step`` and
+   ``build_serve_step`` at 16 of its 32 layers, 6b's B=4 prompts of 1000
+   tokens into a 1024-row cache and 16 dropless serve steps fed the
+   tokens of rank 0's unsharded ``LM.prefill`` and ``LM.decode_step``
+   (run first, its logits and routing kept on the host), run once as it
+   is (timed) and once with the reference's routing imposed. Every
+   choice a run's own gates make otherwise than the reference's must
+   have been within ROUTE_GAP_TOL of a tie in the reference's gates (as
+   the serve runs, at each pass's first MoE layer); the tokens must
+   equal the reference's argmax wherever its top-2 gap exceeds DIST_TOL
+   of max |logit| (as it runs, save rows whose own token routed
+   otherwise); both must drop choices by capacity in training and in the
+   prefill (each ``moe_layer.route`` call's ``fits``), run B1 (16
+   in the prefill; forward 2 and backward 1 a layer a training step) and
+   B2 (16 a serve step) on the sm90 kernels alone and keep their
+   collectives over "model". Phase 2 holds B1 at S=32768 (the plain
+   version in blocks of 1024 query rows) and B2 over 32768 rows at these
+   shapes, and at 7f's 16/4 heads in its 6b cases. A rank that fails, or
+   phase 7 past 600 s, fails the run.
 
 Each serve and each training run starts with the previous one's engine
 freed and the allocator's cache emptied, and prints its peak device
@@ -269,6 +293,7 @@ device kernel or the wrong ones (``profile_check``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -347,9 +372,10 @@ DIST_TP = {"train_seq": 2048, "batch": 4, "max_len": 1024, "prompt": 1000,
            "steps": 16}
 # phase 7: the steps of launch/steps.py at Llama-3.1-8B's full width. 7a:
 # prefill_32k's 32 sequences cut to 1, decode_32k's 128 to 8 (their 34.4 GB
-# of KV cache beside 16.06 GB of weights); 7b: all 32 layers, the
-# vocabulary cut with the layers (a rank's blocks, AdamW moments,
-# gradients and logits ~36 GB); 7c: the pools; 7d: 8 of the 32 layers, as
+# of KV cache beside 16.06 GB of weights); 7b: 16 of the 32 layers, the
+# vocabulary cut with the layers (all 32, ~36 GB a rank of blocks, AdamW
+# moments, gradients and logits, took ~170 s of the script's 1200 with
+# its leaf check: cut to make room for 7f); 7c: the pools; 7d: 8 of the 32 layers, as
 # two whole replicas of ~28 GB each (data parallel over the flattened
 # ("pod", "data")) must share the one card; 7e: the same 8 layers under
 # FSDP. 7e's collectives are staged through the host on gloo: at 7d's rate
@@ -362,13 +388,25 @@ LONG_SEQ = 32768                # prefill_32k's and decode_32k's rows
 STEPS_DECODE_BATCH = 8
 STEPS_DECODE_POS = 32752        # the 16 steps write the cache's last rows
 STEPS_DECODE_STEPS = 16
-STEPS_TRAIN_LAYERS = 32
+STEPS_TRAIN_LAYERS = 16
 STEPS_TRAIN_STEPS = 2
 STEPS_POD_LAYERS = 8
 STEPS_POD_BATCH = 2
 STEPS_POOL_SEQ = 4096
 STEPS_WORLD = 2
 STEPS_TIMEOUT_S = 600
+# 7f: Phi-3.5-MoE at its published widths on the same (1, 2) mesh, its 16
+# experts over "model" (8 a rank) with the heads, d_ff and the vocabulary.
+# Training at 4 of its 32 layers: 5.46e9 parameters, ~43.7 GB of bf16
+# parameters, gradients and moments unsharded (the reference), ~21.9 GB a
+# rank (8 layers would need ~84 GB for the two ranks); train_4k's sequence
+# at B=1 makes 8 groups of 512 at capacity 80, so choices are dropped.
+# Serving at 16 of 32 layers: 21.1e9 parameters, 42.1 GB whole (the
+# reference), ~21.1 GB a rank; 6b's prompts, cache and steps (DIST_TP).
+# The host-staged all-reduces come to ~1.3 GB a training step and ~2 GB a
+# prefill: at 7b's ~0.4 GB/s, 7f should take 60-120 s of phase 7's 600
+STEPS_MOE_TRAIN_LAYERS = 4
+STEPS_MOE_SERVE_LAYERS = 16
 # 7b against the unsharded step (bf16; the sharded layers all-reduce fp32
 # partial products and cast once): the loss and the grad norm relative to
 # the reference's; after the steps, each parameter leaf's change from its
@@ -383,6 +421,14 @@ TRAIN_TP_LOSS_TOL = 5e-3
 TRAIN_TP_GNORM_TOL = 5e-2
 TRAIN_TP_DELTA_TOL = 0.5
 TRAIN_TP_MOMENT_TOL = 0.1
+# 7f: where a sharded run's own gates choose another expert than the
+# reference did, the reference's gate gap there (the margin its argmax won
+# by, in logits) must be at most this. The seeded router's logits have a
+# spread of about 0.02 sqrt(4096) = 1.28 over the 16 experts, and the gap
+# between a token's two largest of them is 0.54 on average: a routing
+# taken from wrong gates differs at gaps of that size, while the runs'
+# rounding can only cross a near tie
+ROUTE_GAP_TOL = 0.25
 
 
 def log(msg: str) -> None:
@@ -2893,6 +2939,155 @@ def _mem_available_gb() -> float:
     return float("nan")
 
 
+@contextlib.contextmanager
+def _routes(calls: list, impose: list | None = None):
+    """While the context lasts, each ``moe_layer.route`` call appends to
+    ``calls``, on the device: the experts its own gates choose
+    (``expert``, (N, g, k)), their gate gaps (``gap``, ``_gate_gaps``),
+    whether each choice it routes fits its expert's capacity (``fits``)
+    and the choices it dropped (``dropped``). ``impose``, another
+    run's ``expert`` call by call: each call routes those in place of its
+    own (``route``'s ``chosen``), so that the two runs take the same
+    choices; ``expert`` stays what its own gates chose."""
+    from repro_torch.models import moe_layer
+    route = moe_layer.route
+    queue = list(impose or [])
+
+    def wrapped(gates, k, C, *args, **kw):
+        own = route(gates, k, C, *args, **kw)
+        r = own if impose is None else route(
+            gates, k, C, *args, chosen=queue.pop(0).to(gates.device), **kw)
+        # detached: a gap kept with the gates' graph would keep each
+        # layer's activations, remat's recompute's too, alive
+        calls.append({"expert": own.expert,
+                      "gap": _gate_gaps(gates.detach(), k),
+                      "fits": r.fits, "dropped": (~r.fits).sum()})
+        return r
+    moe_layer.route = wrapped
+    try:
+        yield
+    finally:
+        moe_layer.route = route
+
+
+def _gate_gaps(gates, k: int):
+    """(N, g, k): for each token's round-j choice, the least margin by
+    which its argmax won rounds 0..j, in logits (log-gates): a choice
+    differs from another run's only where a perturbation crossed one of
+    these margins, since an earlier round that went the other way changes
+    every later one."""
+    top = gates.topk(k + 1, dim=-1).values.clamp_min(1e-30).log()
+    return torch.cummin(top[..., :-1] - top[..., 1:], dim=-1).values
+
+
+def _host_routes(calls: list) -> dict:
+    """``_routes``' record on the host: each call's ``expert``, ``gap``
+    and ``fits``, and the choices dropped in all."""
+    return {"expert": [c["expert"].cpu() for c in calls],
+            "gap": [c["gap"].float().cpu() for c in calls],
+            "fits": [c["fits"].cpu() for c in calls],
+            "dropped": int(sum(int(c["dropped"]) for c in calls))}
+
+
+def _routes_from_rank0(routes: dict, rank: int) -> dict:
+    """Rank 0's ``_host_routes`` record (its lists) on every rank."""
+    return {name: [t.to(torch.bool) if name == "fits" else t for t in
+                   _list_from_rank0(routes.get(name, []), rank, dtype)]
+            for name, dtype in (("expert", torch.long),
+                                ("gap", torch.float32),
+                                ("fits", torch.long))}
+
+
+def _list_from_rank0(ts: list, rank: int, dtype) -> list:
+    """Rank 0's list of tensors (of ``dtype``, on the host) on every
+    rank."""
+    import torch.distributed as dist
+    n = torch.tensor([len(ts)])
+    dist.broadcast(n, src=0)
+    shapes = torch.tensor([list(t.shape) for t in ts] if rank == 0 else
+                          [[0, 0, 0]] * int(n), dtype=torch.long)
+    dist.broadcast(shapes, src=0)
+    sizes = shapes.prod(1).tolist()
+    flat = torch.cat([t.reshape(-1).to(dtype) for t in ts]) if rank == 0 \
+        else torch.empty(sum(sizes), dtype=dtype)
+    dist.broadcast(flat, src=0)
+    return [t.view(*shp) for t, shp in zip(flat.split(sizes),
+                                           shapes.tolist())]
+
+
+def _route_check(ref: dict, run: dict, passes: int,
+                 first_call_only: bool) -> dict:
+    """A run's MoE choices (``run``, as ``_host_routes`` keeps them, call
+    by call, ``passes`` passes of equally many calls over one token grid
+    each: a training step with remat's recompute, a prefill, a serve step)
+    against the reference's (``ref``). Where a choice's expert differs,
+    the reference's gate gap (``_gate_gaps``) says how near a tie it was;
+    the largest gap among the held choices must be at most ROUTE_GAP_TOL.
+    ``first_call_only`` (a run that routes for itself): only each pass's
+    first call is held, the first MoE layer, where none of the run's
+    choices has yet gone another way, so that nothing but the runs'
+    rounding parts their gates; at a later layer a token's inputs differ
+    once it, a token it attends to or one sharing its group's capacity
+    went another way. Else (the reference's routing imposed) every
+    differing choice is held. Returns the counts, the largest gap held,
+    by call of the pass the largest gap of a token's first differing
+    choice and the choices of the same expert whose fit differs (a
+    capacity slot taken or freed by a choice that went another way), and
+    the unchanged choices' median gap and how many of them lie within the
+    largest held one."""
+    expert, ref_expert, ref_gap = run["expert"], ref["expert"], ref["gap"]
+    per = len(expert) // passes
+    if per * passes != len(expert) or len(expert) != len(ref_expert):
+        raise ValueError(f"{len(expert)} calls for {len(ref_expert)} of "
+                         f"the reference's in {passes} passes")
+    n = n_diff = 0
+    held, same = [], []
+    by_call, fit_by_call = [0.0] * per, [0] * per
+    for p in range(passes):
+        seen = None
+        for c in range(per):
+            i = p * per + c
+            diff = expert[i] != ref_expert[i]                    # (N, g, k)
+            tok = diff.any(-1)
+            first = tok if seen is None else tok & ~seen
+            seen = tok if seen is None else seen | tok
+            j = diff.int().argmax(-1, keepdim=True)       # first round off
+            gap_first = ref_gap[i].gather(-1, j)[..., 0][first]
+            if gap_first.numel():
+                by_call[c] = max(by_call[c], float(gap_first.max()))
+            fit_by_call[c] += int(((run["fits"][i] != ref["fits"][i])
+                                   & ~diff).sum())
+            if c == 0 or not first_call_only:
+                held.append(ref_gap[i][diff])
+            same.append(ref_gap[i][~diff])
+            n += diff.numel()
+            n_diff += int(diff.sum())
+    held_t, same_t = torch.cat(held), torch.cat(same)
+    top = float(held_t.max()) if held_t.numel() else 0.0
+    return {"choices": n, "differ": n_diff, "held_differ": held_t.numel(),
+            "held": "first call a pass" if first_call_only else "all",
+            "max_gap": top, "tol": ROUTE_GAP_TOL,
+            "max_first_gap_by_call": by_call,
+            "fit_differ_by_call": fit_by_call,
+            "same_median_gap": float(same_t.median()),
+            "same_within_max_gap": int((same_t <= top).sum()),
+            "ok": top <= ROUTE_GAP_TOL}
+
+
+def _route_log(check: dict) -> str:
+    return (f"{check['differ']} of {check['choices']} MoE choices differ "
+            f"from the reference's; the largest reference gate gap of the "
+            f"{check['held_differ']} held ({check['held']}) "
+            f"{check['max_gap']:.4g} logits (tol {check['tol']}), of the "
+            f"others the median {check['same_median_gap']:.4g}, "
+            f"{check['same_within_max_gap']} within that largest: "
+            f"{check['ok']}; by call of the pass, a token's first differing "
+            f"choice's largest gap "
+            f"{[round(g, 4) for g in check['max_first_gap_by_call']]} and "
+            f"the choices of the same expert whose fit differs "
+            f"{check['fit_differ_by_call']}")
+
+
 def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
                    opt_cfg, param_mode: str = "2d", reference=None,
                    keep: bool = False) -> tuple:
@@ -2904,7 +3099,14 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
     kept on the host and the card freed: each step's loss and grad norm
     within TRAIN_TP_LOSS_TOL and TRAIN_TP_GNORM_TOL of the reference's,
     then ``_train_check``. Both draw the weights from seed 0 and the
-    batches from ``TokenStream``'s seed 0. ``reference`` (rank 0): an
+    batches from ``TokenStream``'s seed 0. A model with MoE FFNs runs
+    the reference's routing, broadcast from rank 0 (``_routes``: in bf16
+    a choice near a gate tie can go the other way in one run and not the
+    other, after which the runs part, as the prompts' tokens are fed in
+    the serves), and every choice its own gates would have routed
+    otherwise must have been within ROUTE_GAP_TOL of a tie in the
+    reference (``_route_check``); the choices dropped by capacity are
+    counted (forward and remat's recompute). ``reference`` (rank 0): an
     earlier call's kept reference of the same ``cfg``, ``shape`` and
     ``opt_cfg``, used in place of running it again. Returns (the
     reference's and the run's steps, launches, collectives, peaks and
@@ -2940,6 +3142,10 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
         return params, opt, init, steps, _step_counters()
 
     res = {}
+    routes: list = []           # the reference's MoE routing, call by call
+    moe = bool(cfg.n_experts)
+    if moe and reference is not None:
+        raise ValueError(f"{tag}: a kept reference holds no MoE routing")
     if rank == 0:
         log(f"[steps r0] {tag}: host MemAvailable "
             f"{_mem_available_gb():.1f} GB before the reference")
@@ -2951,7 +3157,9 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
         log(f"[steps r0] {tag}: the reference reused (kept on the host)")
     elif rank == 0:
         built = build_train_step(cfg, ref_mesh, shape, opt_cfg=opt_cfg)
-        params, opt, _, steps, counts = train(built, "unsharded", False)
+        with _routes(routes):
+            params, opt, _, steps, counts = train(built, "unsharded", False)
+        routes = _host_routes(routes)
         ref = {"params": {k: t.cpu() for k, t in flatten(params).items()},
                "m": {k: t.cpu() for k, t in flatten(opt["m"]).items()},
                "v": {k: t.cpu() for k, t in flatten(opt["v"]).items()}}
@@ -2973,8 +3181,26 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
     torch.cuda.reset_peak_memory_stats()
     built = build_train_step(cfg, mesh, shape, opt_cfg=opt_cfg,
                              param_mode=param_mode)
-    params, opt, init, steps, counts = train(built, "sharded", True)
+    # a model with MoE FFNs runs the reference's routing (a choice near a
+    # gate tie may go the other way in bf16, and the runs then part, as
+    # fed tokens keep a serve's runs together); the choices its own
+    # argmax would have taken otherwise are held to the reference's gaps
+    calls: list = []
+    if moe:
+        routes = _routes_from_rank0(routes if rank == 0 else {}, rank)
+    with _routes(calls, routes["expert"]) if moe else \
+            contextlib.nullcontext():
+        params, opt, init, steps, counts = train(built, "sharded", True)
     checks = []
+    if moe:
+        run = _host_routes(calls)
+        counts["moe.dropped"] = run["dropped"]
+        res["routes"] = _route_check(routes, run, STEPS_TRAIN_STEPS,
+                                     first_call_only=False)
+        checks.append({"routes": True, "ok": res["routes"]["ok"]})
+        log(f"[steps r{rank}] {tag}, the reference's routing imposed, its "
+            f"own gates (forward and remat's recompute, {STEPS_TRAIN_STEPS} "
+            f"steps): {_route_log(res['routes'])}")
     for s, want in zip(steps, ref_steps):
         loss_err = abs(s["loss"] - float(want[0])) / abs(float(want[0]))
         gn_err = abs(s["grad_norm"] - float(want[1])) / abs(float(want[1]))
@@ -2984,7 +3210,7 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
     n_local = sum(t.numel() for t in flatten(params).values())
     res.update(steps=steps, counters=counts, checks=checks,
                local_parameters=n_local, peak_gb=_peak_gb())
-    for i, c in enumerate(checks):
+    for i, c in enumerate(c for c in checks if "routes" not in c):
         log(f"[steps r{rank}] {tag} step {i} against unsharded: loss "
             f"{c['loss_rel']:.3g} (tol {TRAIN_TP_LOSS_TOL}), grad norm "
             f"{c['grad_norm_rel']:.3g} (tol {TRAIN_TP_GNORM_TOL}) of the "
@@ -2999,7 +3225,9 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
         f"axes {counts['all_reduce.by_axis']}); all-gathers "
         f"{counts['all_gather.calls']} ({counts['all_gather.bytes']} bytes, "
         f"{counts['all_gather.seconds']:.2f} host s; by mesh axes "
-        f"{counts['all_gather.by_axis']}); peak {res['peak_gb']:.2f} GB")
+        f"{counts['all_gather.by_axis']}); "
+        + (f"MoE choices dropped by capacity {counts['moe.dropped']}; "
+           if moe else "") + f"peak {res['peak_gb']:.2f} GB")
     # the training's cached blocks back to the card, on every rank
     gc.collect()
     torch.cuda.empty_cache()
@@ -3027,6 +3255,194 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
 
 
 
+def _tokens_check(tokens, ref, rerouted=None) -> dict:
+    """Tokens (n, B) against the argmax of the reference's logits (n, B,
+    V), wherever a row's top-2 gap exceeds DIST_TOL of its step's max
+    |logit| (6b's test, ``_logits_check``, on tokens alone). ``rerouted``
+    (n, B): rows whose own token took another MoE choice than the
+    reference's at some layer (held by ``_route_check``), whose logits are
+    another function's and so are not held; the largest top-2 gap (of max
+    |logit|) among the rows that differ is reported."""
+    r = ref.float()
+    top = r.abs().flatten(1).amax(1)[:, None]
+    t2 = r.topk(2, dim=-1).values
+    gap = (t2[..., 0] - t2[..., 1]) / top
+    clear = gap > DIST_TOL
+    if rerouted is None:
+        rerouted = torch.zeros_like(clear)
+    held = clear & ~rerouted
+    agree = tokens.long() == r.argmax(-1)
+    return {"agree": float(agree.float().mean()),
+            "clear_rows": int(clear.sum()),
+            "rerouted_rows": int(rerouted.sum()),
+            "held_rows": int(held.sum()),
+            "differ_on_clear": int((~agree & clear).sum()),
+            "differ_on_held": int((~agree & held).sum()),
+            "max_gap_differ": float(gap[~agree].max()) if (~agree).any()
+            else 0.0,
+            "ok": bool(agree[held].all())}
+
+
+def _rows_rerouted(ref_expert: list, expert: list,
+                   rows: list) -> torch.Tensor:
+    """(passes, B): whether the token each output row reads (``rows[p]``,
+    its index in pass p's token grid flattened) took another MoE choice
+    than the reference's in any call of its pass (``_route_check``'s
+    passes of equally many calls)."""
+    per = len(expert) // len(rows)
+    out = torch.zeros((len(rows), len(rows[0])), dtype=torch.bool)
+    for p, idx in enumerate(rows):
+        for i in range(p * per, (p + 1) * per):
+            d = (expert[i] != ref_expert[i]).any(-1).reshape(-1)
+            out[p] |= d[torch.as_tensor(idx)]
+    return out
+
+
+def _moe_serve(rank: int, cfg, mesh) -> dict:
+    """7f-serve: ``build_prefill_step`` and ``build_serve_step`` of ``cfg``
+    under ``standard_rules`` on ``mesh``, each rank its blocks drawn by
+    ``init_params`` (its experts, router columns, heads and vocabulary
+    ids), 6b's B=4 prompts of 1000 tokens into a 1024-row cache, then
+    DIST_TP's dropless serve steps fed the reference's tokens. Rank 0 first
+    runs the same tokens unsharded through ``LM.prefill`` and
+    ``LM.decode_step`` (``_greedy``, the weights of the same seed), keeps
+    its logits and its MoE routing on the host and frees the card. The
+    sharded steps run twice. As they are (timed and counted): each
+    choice of a pass's (the prefill's, a serve step's) first MoE layer
+    that differs from the reference's must have been within ROUTE_GAP_TOL
+    of a tie there (``_route_check``), and each token must equal the
+    reference's argmax wherever its top-2 gap is clear, save the rows
+    whose own token routed otherwise (``_tokens_check``). Then with the
+    reference's routing imposed (``_routes``): every choice its own gates
+    would have made otherwise held likewise, and every clear row's token
+    equal. The prefill must drop choices by capacity."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.steps import build_step, init_params, materialize
+    from repro_torch.models import LM
+    from repro_torch.models.params import flatten
+    tp = DIST_TP
+    lm = LM(cfg)
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (tp["batch"], tp["prompt"])), device="cuda")
+    ref = torch.zeros((tp["steps"] + 1, tp["batch"], cfg.vocab_size))
+    fed = torch.zeros((tp["batch"], tp["steps"]), dtype=torch.long)
+    ref_routes: dict = {}
+    res = {}
+    torch.cuda.reset_peak_memory_stats()
+    if rank == 0:
+        t0 = time.perf_counter()
+        params = lm.init(torch.Generator(device="cuda").manual_seed(0),
+                         dtype=torch.bfloat16, device="cuda")
+        calls: list = []
+        with _routes(calls):
+            ref, fed = _greedy(lm, params, tokens, tp["max_len"],
+                               tp["steps"])
+        ref_routes = _host_routes(calls)
+        res["ref"] = {"seconds": time.perf_counter() - t0,
+                      "peak_gb": _peak_gb()}
+        del params, calls
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[steps r0] 7f-serve: unsharded reference at {cfg.n_layers} "
+            f"layers in {res['ref']['seconds']:.1f} s, peak "
+            f"{res['ref']['peak_gb']:.2f} GB; host MemAvailable "
+            f"{_mem_available_gb():.1f} GB with its logits")
+    ref, fed = _from_rank0(ref, rank), _from_rank0(fed.cpu(), rank)
+    ref_routes = _routes_from_rank0(ref_routes, rank)
+    passes = 1 + tp["steps"]                # the prefill, each serve step
+    # the token each output row reads: the prompt's last, the step's
+    rows = [[b * tp["prompt"] + tp["prompt"] - 1
+             for b in range(tp["batch"])]] + \
+        [list(range(tp["batch"]))] * tp["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    pre = build_step(cfg, mesh, InputShape("prefill_moe", tp["prompt"],
+                                           tp["batch"], "prefill"))
+    dec = build_step(cfg, mesh, InputShape("decode_moe", tp["max_len"],
+                                           tp["batch"], "decode"))
+    params = init_params(cfg, pre, torch.Generator(device="cuda")
+                         .manual_seed(0), "cuda")
+    n_local = sum(t.numel() for t in flatten(params).values())
+
+    def serve():
+        cache = materialize(dec.args[2], "cuda")
+        _step_counters(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, cache = pre.fn(params, {"tokens": tokens}, cache)
+        out = [tok.cpu()]
+        walls = [time.perf_counter() - t0]
+        pc = _step_counters()
+        _step_counters(reset=True)
+        for i in range(tp["steps"]):
+            t0 = time.perf_counter()
+            tok, cache = dec.fn(params, fed[:, i].to("cuda", torch.int32),
+                                cache)
+            out.append(tok.cpu())                 # synchronises
+            walls.append(time.perf_counter() - t0)
+        return torch.stack(out), walls, pc, _step_counters(), \
+            tuple(cache["slots"][0]["k"].shape)
+
+    calls = []
+    with _routes(calls):
+        out, walls, pc, dc, cache_shape = serve()
+    per = len(calls) // passes
+    pc["moe.dropped"] = _host_routes(calls[:per])["dropped"]
+    dc["moe.dropped"] = _host_routes(calls[per:])["dropped"]
+    run = _host_routes(calls)
+    routes_free = _route_check(ref_routes, run, passes, first_call_only=True)
+    free = _tokens_check(out, ref, _rows_rerouted(
+        ref_routes["expert"], run["expert"], rows))
+    calls = []
+    with _routes(calls, ref_routes["expert"]):
+        out = serve()[0]
+    routes_imposed = _route_check(ref_routes, _host_routes(calls), passes,
+                                  first_call_only=False)
+    check = _tokens_check(out, ref)
+    del calls
+    res.update(walls_s=walls, prefill_counters=pc, serve_counters=dc,
+               free=free, routes_free=routes_free, check=check,
+               routes_imposed=routes_imposed, local_parameters=n_local,
+               peak_gb=_peak_gb(), cache_shape=cache_shape)
+    log(f"[steps r{rank}] 7f-serve at {cfg.n_layers} layers: {n_local} "
+        f"parameters on this rank; prefill B={tp['batch']} x {tp['prompt']} "
+        f"{walls[0]:.2f} s (B1 {pc['flash_attention.launches']}, "
+        f"{pc['flash_attention.launches_sm90']} sm90; MoE choices dropped "
+        f"by capacity {pc['moe.dropped']}; all-reduces "
+        f"{pc['all_reduce.calls']}, {pc['all_reduce.bytes']} bytes, "
+        f"{pc['all_reduce.seconds']:.2f} host s, by mesh axes "
+        f"{pc['all_reduce.by_axis']}; all-gathers {pc['all_gather.calls']}, "
+        f"{pc['all_gather.bytes']} bytes, {pc['all_gather.seconds']:.2f} "
+        f"host s, by mesh axes {pc['all_gather.by_axis']}); "
+        f"{tp['steps']} serve steps median "
+        f"{np.median(walls[1:]) * 1e3:.1f} ms (B2 "
+        f"{dc['decode_attention.launches']}, "
+        f"{dc['decode_attention.launches_sm90']} sm90; dropped "
+        f"{dc['moe.dropped']}; all-reduces {dc['all_reduce.calls']}, "
+        f"{dc['all_reduce.bytes']} bytes, {dc['all_reduce.seconds']:.2f} "
+        f"host s; all-gathers {dc['all_gather.calls']}, "
+        f"{dc['all_gather.bytes']} bytes, {dc['all_gather.seconds']:.2f} "
+        f"host s); cache of a slot {cache_shape}; peak "
+        f"{res['peak_gb']:.2f} GB")
+    log(f"[steps r{rank}] 7f-serve as it runs (timed): "
+        f"{_route_log(routes_free)}; tokens equal the reference's argmax on "
+        f"{free['agree']:.3f} of the rows; of the {free['clear_rows']} whose "
+        f"top-2 gap exceeds {DIST_TOL} max |logit|, {free['rerouted_rows']} "
+        f"of all rows routed their own token otherwise, "
+        f"{free['differ_on_held']} differ of the {free['held_rows']} held "
+        f"({free['differ_on_clear']} of all clear; the largest top-2 gap "
+        f"of a row that differs {free['max_gap_differ']:.4g} max |logit|): "
+        f"{free['ok']}")
+    log(f"[steps r{rank}] 7f-serve with the reference's routing imposed, "
+        f"its own gates: {_route_log(routes_imposed)}; tokens equal on "
+        f"{check['agree']:.3f} of the rows, {check['differ_on_clear']} "
+        f"differ of the {check['clear_rows']} clear: {check['ok']}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
     """One rank of 7b, 7c, 7d and 7e on cuda:0 in a gloo world of two. 7b:
     Llama-3.1-8B at full width and STEPS_TRAIN_LAYERS layers on the (1, 2)
@@ -3038,7 +3454,11 @@ def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
     (2, 1, 1) mesh over ("pod", "data", "model"), one row of the batch a
     rank over the flattened ("pod", "data"), held likewise. 7e: the same
     model and batch under FSDP on the (1, 2) mesh, held against 7d's
-    reference. Writes its results to ``out_dir/steps_rank<rank>.json``."""
+    reference. 7f: Phi-3.5-MoE at its published widths on the (1, 2)
+    mesh, its experts over "model": STEPS_MOE_TRAIN_LAYERS layers trained
+    and held against rank 0's unsharded run, then STEPS_MOE_SERVE_LAYERS
+    layers prefilled and served (``_moe_serve``). Writes its results to
+    ``out_dir/steps_rank<rank>.json``."""
     import dataclasses as dc
     import datetime
 
@@ -3070,7 +3490,7 @@ def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
     train_4k = INPUT_SHAPES["train_4k"]
     opt_cfg = AdamWConfig(state_dtype=torch.bfloat16,
                           warmup_steps=TRAIN_TP_WARMUP)
-    # 7b: tensor parallel, the vocabulary cut, at full depth
+    # 7b: tensor parallel, the vocabulary cut, at half depth
     res["train_tp"], _ = _held_training(
         rank, "7b", dc.replace(full, n_layers=STEPS_TRAIN_LAYERS),
         dc.replace(train_4k, global_batch=1), pools[0], mesh12, opt_cfg)
@@ -3147,13 +3567,26 @@ def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
         rank, "7e", pod_cfg, pod_shape, pools[0], mesh12, opt_cfg,
         param_mode="fsdp", reference=reference)
     del reference
+    gc.collect()
+    # 7f: Phi-3.5-MoE at its published widths, its experts over "model":
+    # training at STEPS_MOE_TRAIN_LAYERS layers, serving at
+    # STEPS_MOE_SERVE_LAYERS
+    phi = get_config(PHI)
+    t0 = time.perf_counter()
+    res["train_moe"], _ = _held_training(
+        rank, "7f-train", dc.replace(phi, n_layers=STEPS_MOE_TRAIN_LAYERS),
+        dc.replace(train_4k, global_batch=1), pools[0], mesh12, opt_cfg)
+    res["serve_moe"] = _moe_serve(
+        rank, dc.replace(phi, n_layers=STEPS_MOE_SERVE_LAYERS), mesh12)
+    res["moe_seconds"] = time.perf_counter() - t0
+    dist.barrier()
     res["seconds"] = time.perf_counter() - t_start
     Path(out_dir, f"steps_rank{rank}.json").write_text(json.dumps(res))
     dist.destroy_process_group()
 
 
 def phase_steps_ranks(report: dict) -> dict:
-    """7b to 7e: two gloo ranks sharing the card (``_steps_rank``), spawned
+    """7b to 7f: two gloo ranks sharing the card (``_steps_rank``), spawned
     with ``torch.multiprocessing``; fails if a rank fails, outlasts what
     is left of STEPS_TIMEOUT_S or finds a result off. Returns the launches
     by path."""
@@ -3192,7 +3625,7 @@ def phase_steps_ranks(report: dict) -> dict:
     secs = time.perf_counter() - t0
     bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
     if bad:
-        raise SystemExit(f"phase 7b-7e: ranks failed or outlasted "
+        raise SystemExit(f"phase 7b-7f: ranks failed or outlasted "
                          f"{limit:.0f} s (exit codes {bad})")
     ranks = [json.loads((out_dir / f"steps_rank{r}.json").read_text())
              for r in range(STEPS_WORLD)]
@@ -3200,12 +3633,13 @@ def phase_steps_ranks(report: dict) -> dict:
     problems = []
     held = {"train_tp": ("7b", STEPS_TRAIN_LAYERS),
             "train_pod": ("7d", STEPS_POD_LAYERS),
-            "train_fsdp": ("7e", STEPS_POD_LAYERS)}
+            "train_fsdp": ("7e", STEPS_POD_LAYERS),
+            "train_moe": ("7f-train", STEPS_MOE_TRAIN_LAYERS)}
     for r in ranks:
         for run, (tag, _) in held.items():
             if not all(c["ok"] for c in r[run]["checks"]):
-                problems.append(f"rank {r['rank']}: {tag} loss or grad norm "
-                                "off")
+                problems.append(f"rank {r['rank']}: {tag} loss, grad norm or "
+                                f"routes off: {r[run]['checks']}")
         if not r["pool_run"]["first_tokens_equal_reference"]:
             problems.append(f"rank {r['rank']}: 7c tokens off")
         if r["pools"] != [[[0]], [[1]]]:
@@ -3229,6 +3663,36 @@ def phase_steps_ranks(report: dict) -> dict:
             problems.append(f"rank {r['rank']}: 7e peak {fsdp['peak_gb']:.2f}"
                             f" GB, not below 7d's "
                             f"{r['train_pod']['peak_gb']:.2f}")
+        # 7f: its collectives over "model" alone; choices dropped by
+        # capacity in training and in the prefill; tokens held; B1 16 in
+        # the prefill and B2 16 a serve step, all on the sm90 kernels
+        serve = r["serve_moe"]
+        for run, c in (("train", r["train_moe"]["counters"]),
+                       ("prefill", serve["prefill_counters"]),
+                       ("serve", serve["serve_counters"])):
+            for name in ("all_reduce", "all_gather"):
+                axes = set(c[f"{name}.by_axis"])
+                if axes != {"model"}:
+                    problems.append(f"rank {r['rank']}: 7f {run} {name} "
+                                    f"over {axes}")
+            if run != "serve" and not c["moe.dropped"] > 0:
+                problems.append(f"rank {r['rank']}: 7f {run} dropped no "
+                                "choice")
+        for what in ("free", "routes_free", "check", "routes_imposed"):
+            if not serve[what]["ok"]:
+                problems.append(f"rank {r['rank']}: 7f-serve {what} off: "
+                                f"{serve[what]}")
+        pc, dc = serve["prefill_counters"], serve["serve_counters"]
+        n_serve = STEPS_MOE_SERVE_LAYERS * DIST_TP["steps"]
+        for what, n, n_sm90, expected in (
+                ("prefill B1", pc["flash_attention.launches"],
+                 pc["flash_attention.launches_sm90"], STEPS_MOE_SERVE_LAYERS),
+                ("serve B2", dc["decode_attention.launches"],
+                 dc["decode_attention.launches_sm90"], n_serve),
+                ("serve B1", dc["flash_attention.launches"], 0, 0)):
+            if not n == n_sm90 == expected:
+                problems.append(f"rank {r['rank']}: 7f {what} launches {n} "
+                                f"({n_sm90} sm90), {expected} expected")
     for run, (tag, _) in held.items():
         leaves = ranks[0][run]["leaves"]
         if leaves["n_failed"]:
@@ -3264,7 +3728,7 @@ def phase_steps_ranks(report: dict) -> dict:
                 bwd != [per_layer] * STEPS_WORLD:
             problems.append(f"{tag} B1 launches forward {fwd}, backward "
                             f"{bwd}")
-    log(f"[steps] 7b-7e in {secs:.1f} s; peak GB by rank: 7b reference "
+    log(f"[steps] 7b-7f in {secs:.1f} s; peak GB by rank: 7b reference "
         f"{ranks[0]['train_tp']['ref']['peak_gb']:.2f}, tensor-parallel "
         f"{[round(r['train_tp']['peak_gb'], 2) for r in ranks]}; pools "
         f"{[round(r['pool_run']['peak_gb'], 2) for r in ranks]}; 7d "
@@ -3273,9 +3737,14 @@ def phase_steps_ranks(report: dict) -> dict:
         f"; 7e FSDP {[round(r['train_fsdp']['peak_gb'], 2) for r in ranks]}"
         f" (reference reused: "
         f"{ranks[0]['train_fsdp']['ref'].get('reused', False)}, "
-        f"{ranks[0]['fsdp_reference']})")
+        f"{ranks[0]['fsdp_reference']}); 7f-train reference "
+        f"{ranks[0]['train_moe']['ref']['peak_gb']:.2f}, sharded "
+        f"{[round(r['train_moe']['peak_gb'], 2) for r in ranks]}; 7f-serve "
+        f"reference {ranks[0]['serve_moe']['ref']['peak_gb']:.2f}, sharded "
+        f"{[round(r['serve_moe']['peak_gb'], 2) for r in ranks]}; 7f in "
+        f"{[round(r['moe_seconds'], 1) for r in ranks]} s")
     if problems:
-        raise SystemExit(f"phase 7b-7e: {problems}")
+        raise SystemExit(f"phase 7b-7f: {problems}")
 
     def total(run, name):
         return sum(r[run]["counters"][f"{name}.launches"] for r in ranks)
@@ -3293,17 +3762,27 @@ def phase_steps_ranks(report: dict) -> dict:
                                              "flash_attention_bwd")},
             "steps-pools": {
                 "flash_attention": total("pool_run", "flash_attention"),
-                "decode_attention": total("pool_run", "decode_attention")}}
+                "decode_attention": total("pool_run", "decode_attention")},
+            "steps-moe": {
+                "flash_attention": total("train_moe", "flash_attention") +
+                sum(r["serve_moe"]["prefill_counters"][
+                    "flash_attention.launches"] for r in ranks),
+                "flash_attention_bwd": total("train_moe",
+                                             "flash_attention_bwd"),
+                "decode_attention": sum(r["serve_moe"]["serve_counters"][
+                    "decode_attention.launches"] for r in ranks)}}
 
 
 def phase_steps(report: dict) -> dict:
-    """Phase 7: 7a, then 7b to 7e; fails past STEPS_TIMEOUT_S."""
+    """Phase 7: 7a, then 7b to 7f; fails past STEPS_TIMEOUT_S."""
     t0 = time.perf_counter()
     by_path = phase_steps_serve(report)
     by_path.update(phase_steps_ranks(report))
     secs = time.perf_counter() - t0
     log(f"[steps] phase 7 in {secs:.1f} s (7a {report['steps_serve']['seconds']:.1f}, "
-        f"7b-7e {report['steps_ranks']['seconds']:.1f})")
+        f"7b-7f {report['steps_ranks']['seconds']:.1f}, of which 7f "
+        f"{max(r['moe_seconds'] for r in report['steps_ranks']['ranks']):.1f}"
+        ")")
     if secs > STEPS_TIMEOUT_S:
         raise SystemExit(f"phase 7 took {secs:.0f} s, past "
                          f"{STEPS_TIMEOUT_S}")
@@ -3386,6 +3865,8 @@ def main() -> int:
     t0 = time.perf_counter()
     by_path.update(phase_steps(report))
     secs["7 steps"] = time.perf_counter() - t0
+    secs["7f moe, in 7"] = max(r["moe_seconds"] for r in
+                               report["steps_ranks"]["ranks"])
     log(f"[time] seconds by phase: "
         f"{ {k: round(v, 1) for k, v in secs.items()} }")
     report["phase_s"] = secs
@@ -3448,6 +3929,16 @@ def main() -> int:
          "source": "src/repro_torch/csrc/decode_attention_sm90.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
          "case": "decode_attention_32k", "path": "steps-serve"},
+        # phase 7f: Phi-3.5-MoE's rank of 16 query heads over 4 KV heads,
+        # 6b's head shape (its phase 2 cases)
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:84",
+         "case": "flash_attention_tp", "path": "steps-moe"},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention_sm90.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
+         "case": "decode_attention_tp", "path": "steps-moe"},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:54"},

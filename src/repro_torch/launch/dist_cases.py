@@ -12,8 +12,11 @@ rules. The inputs (all made from a seed by the caller):
 
 - ``dd/q``, ``dd/kc``, ``dd/vc``, ``dd/kn``, ``dd/vn``, ``dd/pos``: one
   decode step's q, caches, new k and v and the positions to run;
-- ``x``: activations (B, S, d_model) of the reduced configs;
+- ``x``: activations (B, S, d_model) of the reduced configs; ``x_moe``
+  the MoE FFN's, two groups of its 64 tokens;
 - ``layer/<arch>/<name>``: one attention block's and one FFN's weights;
+  ``layer/<moe arch>/moe/<name>`` one MoE FFN's (``shared/...`` its
+  shared expert's);
 - ``lm/<path>``: the reduced Llama-3.1-8B's parameters, flattened as
   ``repro.training.checkpoint._flatten`` names them; ``lm/tokens`` (B, S)
   the prompt and ``lm/steps`` (B, n) the tokens fed to the decode steps.
@@ -25,6 +28,10 @@ What each rank writes (its own block, in fp32), by case:
 - ``tp/<arch>/<dtype>/{mlp,attn}``: ``mlp_forward`` and ``attn_forward``
   under ``tp_bf16_ar`` on the (1, 4) mesh, the parameters cut by
   ``shardspecs.local_leaf``;
+- ``tp/<moe arch>/<dtype>/{moe,aux}``: ``moe_forward`` of ``x_moe`` and its
+  aux loss under ``tp_bf16_ar`` on the (1, 4) mesh, each rank one of the
+  reduced config's 4 experts and router columns (and its block of the
+  shared expert's d_ff), cut as a layer stack of one;
 - ``lm/<case>/{prefill,step<i>,train}``: the reduced model's logits through
   ``LM.prefill`` and ``decode_step`` (and ``forward_train`` under tensor
   parallelism, its vocabulary block gathered), ``lm/<case>/cache/<slot>/
@@ -50,12 +57,15 @@ from repro_torch.launch.mesh import batch_axes_for, make_mesh
 from repro_torch.launch.shardspecs import local_leaf, local_params
 from repro_torch.models import LM
 from repro_torch.models import layers as L
+from repro_torch.models import moe_layer
 from repro_torch.models import sharding as SH
 from repro_torch.models.params import flatten
 from repro_torch.models.transformer import whole_logits
 
 MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
 ARCHS = {"llama": "llama3.1-8b", "starcoder2": "starcoder2-15b"}
+MOE_ARCHS = {"phi": "phi3.5-moe-42b-a6.6b",
+             "maverick": "llama4-maverick-400b-a17b"}
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 KV_SEQ_MAX_LEN = 32
 BATCHES = (1, 2, 3, 4, 6, 8)
@@ -124,6 +134,28 @@ def tp_layers(inp, mesh, out: Dict[str, np.ndarray]) -> None:
                                                         cfg))
 
 
+def tp_moe(inp, mesh, out: Dict[str, np.ndarray]) -> None:
+    with SH.use_rules(rules_tp(), mesh):
+        for arch, arch_id in MOE_ARCHS.items():
+            cfg = get_config(arch_id).reduced()
+            pre = f"layer/{arch}/moe/"
+            for dname, dtype in DTYPES.items():
+                # each leaf as the one layer of a stack, as its spec
+                # places the experts and the router's columns
+                p = {k[len(pre):]: local_leaf(
+                    cfg, f"slots/0/ffn/{k[len(pre):]}",
+                    torch.tensor(v)[None], mesh)[0].to(dtype)
+                    for k, v in inp.items() if k.startswith(pre)}
+                shared = {k.split("/")[1]: p.pop(k) for k in list(p)
+                          if k.startswith("shared/")}
+                if shared:
+                    p["shared"] = shared
+                y, aux = moe_layer.moe_forward(
+                    p, torch.tensor(inp["x_moe"]).to(dtype), cfg)
+                out[f"tp/{arch}/{dname}/moe"] = _np(y)
+                out[f"tp/{arch}/{dname}/aux"] = _np(aux)
+
+
 def lm_case(inp, mesh, rules, tp: bool, dtype, tag: str,
             out: Dict[str, np.ndarray]) -> None:
     """Prefill + decode steps of the reduced Llama-3.1-8B under ``rules``
@@ -180,6 +212,7 @@ def main() -> None:
                 out[f"batch_axes/{tag}/{bs}"] = np.asarray(
                     ",".join(batch_axes_for(bs, mesh)))
         tp_layers(inp, meshes["1x4"], out)
+        tp_moe(inp, meshes["1x4"], out)
         for dname, dtype in DTYPES.items():
             lm_case(inp, meshes["1x4"], rules_kv_seq(), False, dtype,
                     f"lm/kv_seq/{dname}", out)

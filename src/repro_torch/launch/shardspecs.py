@@ -38,9 +38,11 @@ _REPLICATED_LEAVES = {
     "conv_b", "b_r", "b_i", "pos", "count",
 }
 # the leaves the explicit layers take cut (attention's by heads, the FFN's
-# by d_ff): the blocks that ``local_params`` keeps
+# by d_ff, an MoE FFN's experts and router columns by experts, its shared
+# expert by d_ff): the blocks that ``local_params`` keeps
 EXPLICIT_LEAVES = {"attn": ("wq", "wk", "wv", "bq", "bk", "bv", "wo"),
-                   "ffn": ("wi", "wg", "wo")}
+                   "ffn": ("wi", "wg", "wo", "router"),
+                   "shared": ("wi", "wg", "wo")}
 # the leaves cut over the vocabulary, kept cut where the rules' vocab is
 VOCAB_LEAVES = ("embed", "unembed")
 
@@ -156,26 +158,29 @@ def explicit(path: str) -> bool:
     return len(parts) >= 2 and parts[-1] in EXPLICIT_LEAVES.get(parts[-2], ())
 
 
-def cuts(rules: dict) -> tuple:
+def cuts(rules: dict, experts: bool = False) -> tuple:
     """(whether the rank holds its blocks of the explicit layers' leaves,
     of ``embed`` and ``unembed``, of every leaf by its FSDP spec) under
-    ``rules``: the layers' blocks where heads and d_ff map to "model", none
-    where both map to nothing; the vocabulary's where vocab maps to
-    "model"; every leaf's under ``fsdp_gather``, which takes heads, d_ff
-    and vocab over nothing. Raises for another cut, which the parameter
-    specs do not place."""
+    ``rules``: the layers' blocks where heads and d_ff map to "model" (and
+    where ``experts``, a model with MoE FFNs, the experts too), none where
+    they all map to nothing; the vocabulary's where vocab maps to "model";
+    every leaf's under ``fsdp_gather``, which takes heads, d_ff, vocab
+    (and the experts) over nothing. Raises for another cut, which the
+    parameter specs do not place."""
     heads, d_ff, vocab = (rules.get(k) for k in ("heads", "d_ff", "vocab"))
+    layer = (heads, d_ff, rules.get("experts")) if experts else (heads, d_ff)
     if rules.get("fsdp_gather"):
-        if (heads, d_ff, vocab) != (None, None, None):
+        if set(layer) | {vocab} != {None}:
             raise ValueError(f"fsdp_gather with heads over {heads!r}, d_ff "
-                             f"over {d_ff!r} and vocab over {vocab!r}: the "
+                             f"over {d_ff!r}, vocab over {vocab!r} (and the "
+                             f"experts over {rules.get('experts')!r}): the "
                              "FSDP step cuts every weight over the "
                              "flattened mesh and no layer by its width")
         return False, False, True
-    if (heads, d_ff) not in ((None, None), ("model", "model")):
-        raise NotImplementedError(f"heads over {heads!r} and d_ff over "
-                                  f"{d_ff!r}: other cuts of the parameters "
-                                  "come with ROADMAP A12")
+    if set(layer) not in ({None}, {"model"}):
+        what = "heads, d_ff and experts" if experts else "heads and d_ff"
+        raise NotImplementedError(f"{what} over {layer}: other cuts of the "
+                                  "parameters come with ROADMAP A12")
     if vocab not in (None, "model"):
         raise NotImplementedError(f"vocab over {vocab!r}: other cuts of the "
                                   "parameters come with ROADMAP A12")
@@ -198,7 +203,7 @@ def param_blocks(cfg, mesh, rules: Optional[dict] = None) -> dict:
     if rules is None:
         rules = SH.installed() if SH.active() else \
             SH.standard_rules("pod" in mesh.mesh_dim_names)
-    layers, vocab, fsdp = cuts(rules)
+    layers, vocab, fsdp = cuts(rules, cfg.n_experts > 0)
     out = {}
     for key, (shape, _) in family_module(cfg).param_specs(cfg).items():
         if fsdp or (layers and explicit(key)) or \

@@ -15,7 +15,9 @@ from a seed by the caller):
   flattened as ``repro.training.checkpoint._flatten`` names them;
 - ``train/tokens``, ``train/labels``: the global training batch, some
   labels masked; ``train/v510/{tokens,labels}`` the same within the
-  vocabulary of ``llama_v510``;
+  vocabulary of ``llama_v510``; ``train/moe/{tokens,labels}`` the MoE
+  configs' batch of ``MOE_TRAIN_SHAPE``, whose rows hold whole groups on
+  every rank;
 - ``loss/tokens``, ``loss/labels``: a batch whose labels hold -1 and the
   first and last id of every rank's vocabulary block on (1, 4);
 - ``serve/prompt`` (B, S) and ``serve/feed`` (B, n): the prefill's prompt
@@ -30,7 +32,8 @@ What each rank writes (fp32 unless said), by case:
   ``serve/<case>/kv_heads`` (the rank's KV heads);
 - ``args/<mesh>/<shape>/<part>/<path>``: the shape of each leaf of
   ``BuiltStep.args`` for the full-size Llama-3.1-8B (``<shape>`` "fsdp":
-  train_4k's FSDP step);
+  train_4k's FSDP step); ``args/phi/<mesh>/...`` the same for the
+  full-size Phi-3.5-MoE;
 - ``split/<mesh>/<n>/{pre,dec}``: ``split_disagg_mesh``'s pools' ranks
   (data x model), and ``split/<mesh>/<n>/sum`` the SUM of the ranks over
   the rank's own pool's data axis;
@@ -92,6 +95,9 @@ CONFIGS = {
         get_config("llama3.1-8b").reduced(), vocab_size=VOCAB_UNEVEN),
     "starcoder2_whole4": lambda: dataclasses.replace(
         CONFIGS["starcoder2_whole"](), n_layers=4),
+    "phi": lambda: get_config("phi3.5-moe-42b-a6.6b").reduced(),
+    "maverick": lambda: get_config("llama4-maverick-400b-a17b").reduced(),
+    "phi6": lambda: dataclasses.replace(CONFIGS["phi"](), n_experts=6),
 }
 # a vocabulary that 4 does not divide: embed and unembed stay whole on (1, 4)
 VOCAB_UNEVEN = 510
@@ -104,7 +110,13 @@ VOCAB_UNEVEN = 510
 # flattened mesh, the batch over every axis): llama_v510's embed and
 # unembed cut over d_model; starcoder2_whole's bk and bv (2, 34) kept
 # whole, so the data-parallel sum applies to them; at 4 layers
-# (starcoder2_whole4) cut on their layer dim
+# (starcoder2_whole4) cut on their layer dim. The MoE configs: the reduced
+# Phi-3.5-MoE (4 experts, top-2, groups of 64 at capacity 40), its experts
+# and router columns over "model" (two a rank on 2x2, one on 1x4), its
+# batch over "data", over ("pod", "data") on 2x1x2 and under FSDP; the
+# reduced Llama-4-Maverick (top-1 at capacity 20, a shared expert cut over
+# d_ff, a dense slot of d_ff_dense 16384); phi6, 6 experts, which 4 does
+# not divide, so its experts and router stay whole
 TRAIN_CASES = (("llama/1x4", "llama", "1x4"), ("llama/2x2", "llama", "2x2"),
                ("llama/4x1", "llama", "4x1"),
                ("llama/2x2x1", "llama", "2x2x1"),
@@ -117,8 +129,20 @@ TRAIN_CASES = (("llama/1x4", "llama", "1x4"), ("llama/2x2", "llama", "2x2"),
                ("llama_v510/1x4/fsdp", "llama_v510", "1x4"),
                ("starcoder2_whole/1x4/fsdp", "starcoder2_whole", "1x4"),
                ("starcoder2_whole4/2x2/fsdp", "starcoder2_whole4", "2x2"),
-               ("chameleon/2x2/fsdp", "chameleon", "2x2"))
+               ("chameleon/2x2/fsdp", "chameleon", "2x2"),
+               ("phi/1x4", "phi", "1x4"), ("phi/2x2", "phi", "2x2"),
+               ("phi/2x1x2", "phi", "2x1x2"),
+               ("phi/2x2/fsdp", "phi", "2x2"),
+               ("phi/1x4/fsdp", "phi", "1x4"),
+               ("maverick/1x4", "maverick", "1x4"),
+               ("maverick/2x2/fsdp", "maverick", "2x2"),
+               ("phi6/1x4", "phi6", "1x4"))
 TRAIN_SHAPE = InputShape("train_small", 16, 4, "train")
+# the MoE configs' batch: 4 rows of 64 tokens, so that a rank's rows hold
+# whole groups of 64 however the batch is cut over 4 ranks (16 tokens a
+# row would split them, which ``moe_layer.check_groups`` refuses)
+MOE_TRAIN_SHAPE = InputShape("train_moe", 64, 4, "train")
+MOE_CONFIGS = ("phi", "maverick", "phi6")
 
 
 def param_mode(case: str) -> str:
@@ -128,7 +152,14 @@ def param_mode(case: str) -> str:
 
 def train_batch(name: str) -> str:
     """The inputs' prefix of config ``name``'s training batch."""
+    if name in MOE_CONFIGS:
+        return "train/moe"
     return "train/v510" if name == "llama_v510" else "train"
+
+
+def train_shape(name: str) -> InputShape:
+    """The training shape of config ``name``."""
+    return MOE_TRAIN_SHAPE if name in MOE_CONFIGS else TRAIN_SHAPE
 
 TRAIN_STEPS = 2
 # the serve cases: the prefill fills 32 rows, then the serve steps write
@@ -137,11 +168,18 @@ SERVE_PREFILL = InputShape("prefill_small", 32, 4, "prefill")
 SERVE_DECODE = InputShape("decode_small", 32, 4, "decode")
 SERVE_POS = 22
 KV_SEQ = {"heads": None, "d_ff": None}     # weights whole, rows over "model"
-SERVE_CASES = (("kv_seq/1x4", "1x4", KV_SEQ, "model"),
-               ("heads/1x4", "1x4", None, None),
-               ("heads/2x2", "2x2", None, None),
-               ("heads/2x2x1", "2x2x1", None, None))
+# (case, config, mesh, rule overrides, kv_seq axis): the MoE cases under the
+# heads' and the experts' rules; phi on 2x2 prefills whole groups of 64 a
+# rank, and its dropless decode steps split a group of the 4 rows' tokens
+SERVE_CASES = (("kv_seq/1x4", "llama", "1x4", KV_SEQ, "model"),
+               ("heads/1x4", "llama", "1x4", None, None),
+               ("heads/2x2", "llama", "2x2", None, None),
+               ("heads/2x2x1", "llama", "2x2x1", None, None),
+               ("phi/2x2", "phi", "2x2", None, None),
+               ("maverick/1x4", "maverick", "1x4", None, None))
 ARGS_MESHES = ("1x4", "2x2", "2x1x2")
+# the full-size configs of ``args_shapes``, and their keys' prefixes
+ARGS_ARCHS = (("", "llama3.1-8b"), ("phi/", "phi3.5-moe-42b-a6.6b"))
 
 
 def train_opt() -> AdamWConfig:
@@ -161,13 +199,14 @@ def _weights(inp, name: str, cfg) -> dict:
 
 def train_case(inp, case: str, name: str, mesh, out: Dict[str, np.ndarray]):
     cfg = CONFIGS[name]()
-    built = build_step(cfg, mesh, TRAIN_SHAPE, dtype=torch.float32,
+    shape = train_shape(name)
+    built = build_step(cfg, mesh, shape, dtype=torch.float32,
                        opt_cfg=train_opt(), param_mode=param_mode(case))
     params = SS.local_params(_weights(inp, name, cfg), cfg, mesh, built.rules)
     for key, t in flatten(built.args[0]).items():
         assert flatten(params)[key].shape == t.shape, key
     opt = materialize(built.args[1], "cpu")
-    baxes = train_batch_axes(TRAIN_SHAPE, mesh, built.rules)
+    baxes = train_batch_axes(shape, mesh, built.rules)
     batch = SS.local_batch({k: torch.from_numpy(inp[f"{train_batch(name)}/"
                                                     f"{k}"])
                             for k in ("tokens", "labels")}, baxes, mesh)
@@ -180,14 +219,14 @@ def train_case(inp, case: str, name: str, mesh, out: Dict[str, np.ndarray]):
             out[f"train/{case}/{part}/{key}"] = _np(t)
 
 
-def serve_case(inp, case: str, mesh, overrides, kv_seq,
+def serve_case(inp, case: str, name: str, mesh, overrides, kv_seq,
                out: Dict[str, np.ndarray]) -> None:
-    cfg = CONFIGS["llama"]()
+    cfg = CONFIGS[name]()
     kw = dict(dtype=torch.float32, rule_overrides=overrides,
               kv_seq_axis=kv_seq)
     pre = build_step(cfg, mesh, SERVE_PREFILL, **kw)
     dec = build_step(cfg, mesh, SERVE_DECODE, **kw)
-    params = SS.local_params(_weights(inp, "llama", cfg), cfg, mesh,
+    params = SS.local_params(_weights(inp, name, cfg), cfg, mesh,
                              pre.rules)
     baxes = batch_axes_for(SERVE_PREFILL.global_batch, mesh)
     rows = SS.local_batch({"prompt": torch.from_numpy(inp["serve/prompt"]),
@@ -201,25 +240,28 @@ def serve_case(inp, case: str, mesh, overrides, kv_seq,
         tokens, cache = dec.fn(params, rows["feed"][:, i].contiguous(), cache)
         out[f"serve/{case}/step{i}"] = tokens.numpy()
     for i, slot in enumerate(cache["slots"]):
-        for name in ("k", "v"):
-            out[f"serve/{case}/cache/{i}/{name}"] = _np(slot[name])
+        for kv in ("k", "v"):
+            out[f"serve/{case}/cache/{i}/{kv}"] = _np(slot[kv])
     with SH.use_rules(dec.rules, mesh):
         out[f"serve/{case}/kv_heads"] = np.asarray(L.head_plan(cfg).kv_heads)
 
 
 def args_shapes(mesh, tag: str, out: Dict[str, np.ndarray]) -> None:
-    cfg = get_config("llama3.1-8b")
-    for name, shape, mode in [(n, s, "2d") for n, s in INPUT_SHAPES.items()] \
-            + [("fsdp", INPUT_SHAPES["train_4k"], "fsdp")]:
-        kw = {"param_mode": mode} if shape.kind == "train" else {}
-        built = build_step(cfg, mesh, shape, **kw)
-        for part, tree in zip(("params", "opt", "batch", "cache")
-                              if shape.kind == "train" else
-                              ("params", "batch", "cache"), built.args):
-            if part == "batch" and shape.kind == "decode":
-                tree = {"token": tree}
-            for key, t in flatten(tree).items():
-                out[f"args/{tag}/{name}/{part}/{key}"] = np.asarray(t.shape)
+    for pre, arch in ARGS_ARCHS:
+        cfg = get_config(arch)
+        for name, shape, mode in [(n, s, "2d") for n, s in
+                                  INPUT_SHAPES.items()] + \
+                [("fsdp", INPUT_SHAPES["train_4k"], "fsdp")]:
+            kw = {"param_mode": mode} if shape.kind == "train" else {}
+            built = build_step(cfg, mesh, shape, **kw)
+            for part, tree in zip(("params", "opt", "batch", "cache")
+                                  if shape.kind == "train" else
+                                  ("params", "batch", "cache"), built.args):
+                if part == "batch" and shape.kind == "decode":
+                    tree = {"token": tree}
+                for key, t in flatten(tree).items():
+                    out[f"args/{pre}{tag}/{name}/{part}/{key}"] = \
+                        np.asarray(t.shape)
 
 
 def splits(meshes, out: Dict[str, np.ndarray]) -> None:
@@ -291,8 +333,8 @@ def main() -> None:
                              device="cpu") for tag, shape in MESHES.items()}
     for case, name, tag in TRAIN_CASES:
         train_case(inp, case, name, meshes[tag], out)
-    for case, tag, overrides, kv_seq in SERVE_CASES:
-        serve_case(inp, case, meshes[tag], overrides, kv_seq, out)
+    for case, name, tag, overrides, kv_seq in SERVE_CASES:
+        serve_case(inp, case, name, meshes[tag], overrides, kv_seq, out)
     for tag in ARGS_MESHES:
         args_shapes(meshes[tag], tag, out)
     splits(meshes, out)

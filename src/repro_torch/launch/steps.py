@@ -19,9 +19,16 @@ steps donate them.
 
 The train step computes what the JAX one computes over the global batch:
 the loss is the masked mean over every rank's rows (its log-sum-exp taken
-over the vocabulary's blocks, ``LM.loss_terms``), each leaf's gradient is
-the global one restricted to the rank's block, the gradient norm is the
-global norm, and the clip and AdamW run on those. The prefill and serve
+over the vocabulary's blocks, ``LM.loss_terms``) plus the MoE FFNs' aux
+loss averaged over the batch's ranks (each rank's the mean over its own
+groups, so the average is the mean over the global batch's groups), each
+leaf's gradient is the global one restricted to the rank's block, the
+gradient norm is the global norm, and the clip and AdamW run on those.
+Each step's rules name in ``batch`` the mesh axes its rows are cut over
+(none where ``batch_axes_for`` leaves the batch whole), which the MoE FFN
+reads to tell whether the rank's rows hold whole groups of the global
+token stream (``moe_layer.check_groups``, which the train and prefill
+builders also call). The prefill and serve
 steps take the argmax of whole logits, gathered over the vocabulary's
 blocks by ``transformer.prefill`` and ``decode_step``.
 
@@ -49,6 +56,7 @@ from repro_torch.models import LM
 from repro_torch.models import layers as L
 from repro_torch.models import sharding as SH
 from repro_torch.models.api import MOE_AUX_WEIGHT, family_module
+from repro_torch.models.moe_layer import check_groups
 from repro_torch.models.params import (flatten, init_from_specs, leaf_dtype,
                                        map_leaves, rebuild, unflatten)
 from repro_torch.training.optimizer import (AdamWConfig, apply_updates,
@@ -82,6 +90,19 @@ def _rules_for(cfg: ModelConfig, mesh, overrides=None):
 
 def _local_rows(global_batch: int, baxes, mesh) -> int:
     return SS.block((baxes or None,), (global_batch,), mesh)[0][1]
+
+
+def _rows_over(rules: dict, baxes, cfg: ModelConfig, mesh, shape: InputShape,
+               dropless: bool) -> int:
+    """The rank's rows of ``shape``'s batch, cut over ``baxes``, which
+    ``rules`` then name as the batch's axes; raises where a capacity-routed
+    MoE step's rows would split a group of the global token stream."""
+    rules["batch"] = baxes or None
+    rows = _local_rows(shape.global_batch, baxes, mesh)
+    if cfg.n_experts:
+        check_groups(cfg, rows * shape.seq_len, SH.axis_size(mesh, baxes),
+                     dropless)
+    return rows
 
 
 def _meta_params(cfg: ModelConfig, blocks: dict, dtype) -> dict:
@@ -160,7 +181,9 @@ def build_train_step(cfg: ModelConfig, mesh, shape: InputShape,
     if shape.global_batch % SH.axis_size(mesh, baxes):
         raise ValueError(f"a global batch of {shape.global_batch} does not "
                          f"split over the batch axes {baxes}")
+    rows = _rows_over(rules, baxes, cfg, mesh, shape, dropless=False)
     bax = baxes or None          # a tuple of two axes is flattened
+    n_batch = SH.axis_size(mesh, baxes)
     window = effective_window(cfg, shape)
     # the leaves whose gradient the gather's backward already summed over
     # the batch's ranks (FSDP's; the same group as the batch's)
@@ -174,8 +197,7 @@ def build_train_step(cfg: ModelConfig, mesh, shape: InputShape,
                     "v": map_leaves(moment, abstract_params),
                     "count": torch.empty((), dtype=torch.int32,
                                          device="meta")}
-    abstract_batch = _meta_batch(cfg, _local_rows(shape.global_batch, baxes,
-                                                  mesh), shape.seq_len, dtype)
+    abstract_batch = _meta_batch(cfg, rows, shape.seq_len, dtype)
     with SH.use_rules(rules, mesh):
         plan_axis = L.head_plan(cfg).axis
         in_part = L.partial_leaves(cfg)
@@ -193,6 +215,11 @@ def build_train_step(cfg: ModelConfig, mesh, shape: InputShape,
             nll = SH.all_reduce(nll, bax)
             with torch.no_grad():
                 count = SH.all_reduce(count, bax)
+            # the aux loss's mean over the batch's ranks (a SUM whose
+            # backward is the identity, so each rank's aux gradient is
+            # 1 / n_batch of it, which the data-parallel sum adds up)
+            if cfg.n_experts and n_batch > 1:
+                aux = SH.all_reduce(aux * 1.0, bax) / n_batch
             loss = nll / count.clamp(min=1.0) + MOE_AUX_WEIGHT * aux
             grads = dict(zip(flat, torch.autograd.grad(loss, leaves)))
             for p in leaves:
@@ -243,7 +270,7 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: InputShape,
     rules = _rules_for(cfg, mesh, rule_overrides)
     blocks = SS.param_blocks(cfg, mesh, rules)
     baxes = batch_axes_for(shape.global_batch, mesh)
-    rows = _local_rows(shape.global_batch, baxes, mesh)
+    rows = _rows_over(rules, baxes, cfg, mesh, shape, dropless=False)
     window = effective_window(cfg, shape)
 
     abstract_params = _meta_params(cfg, blocks, dtype)
@@ -272,7 +299,7 @@ def build_serve_step(cfg: ModelConfig, mesh, shape: InputShape,
     rules = _rules_for(cfg, mesh, rule_overrides)
     blocks = SS.param_blocks(cfg, mesh, rules)
     baxes = batch_axes_for(shape.global_batch, mesh)
-    rows = _local_rows(shape.global_batch, baxes, mesh)
+    rows = _rows_over(rules, baxes, cfg, mesh, shape, dropless=True)
     window = effective_window(cfg, shape)
 
     abstract_params = _meta_params(cfg, blocks, dtype)

@@ -491,14 +491,16 @@ def _ffn_width(cfg) -> int:
     return cfg.d_ff_dense or cfg.d_ff
 
 
-def mlp_forward(p, x, cfg):
+def mlp_forward(p, x, cfg, d_ff: Optional[int] = None):
     """SwiGLU FFN, or GeLU where there is no gate (the tanh form, which
-    ``jax.nn.gelu`` computes by default). With ``d_ff`` sharded:
-    ``tp_mlp_forward`` under ``tp_bf16_ar``, else the fp32 partial product
-    all-reduced in fp32 and cast once."""
+    ``jax.nn.gelu`` computes by default), of width ``d_ff`` (by default
+    the dense layers' ``d_ff_dense or d_ff``; an MoE FFN's shared expert
+    is ``d_ff`` wide). With ``d_ff`` sharded: ``tp_mlp_forward`` under
+    ``tp_bf16_ar``, else the fp32 partial product all-reduced in fp32 and
+    cast once."""
     if not SH.active():
         return _ffn_hidden(p, x) @ p["wo"]
-    width = _ffn_width(cfg)
+    width = d_ff or _ffn_width(cfg)
     sh = SH.shard_of("d_ff")
     sharded = sh.size > 1 and width % sh.size == 0
     _check_width(p, "wi", width // sh.size if sharded else width)

@@ -47,9 +47,10 @@ _MESH = None
 # weight held cut over ``fsdp_axes``, gathered a layer at a time by
 # ``maybe_gather_params``)
 FLAGS = ("tp_bf16_ar", "fsdp_gather")
-# the families whose layers run under rules (``models.layers``); the others
-# raise there until ROADMAP A12
-SHARDED_FAMILIES = ("dense", "vlm")
+# the families whose layers run under rules (``models.layers``, and the
+# MoE FFN's experts in ``models.moe_layer``); the others raise there until
+# ROADMAP A12
+SHARDED_FAMILIES = ("dense", "vlm", "moe")
 # the mesh axes FSDP cuts the weights over, flattened (``fsdp_axes``)
 FSDP_AXES = ("data", "model")
 

@@ -11,11 +11,12 @@ dim G under ``slots[i]`` (the JAX package stacks them with ``vmap`` to
 ``scan`` over them); here a written-out loop walks group g, then slot i.
 The KV cache is ``{"slots": ({"k", "v"}, ...), "pos"}``, one (G, B, Sc, K,
 hd) pair a slot; ``prefill`` and ``decode_step`` write into them in place
-and return them. Under sharding rules (dense and vlm only; ``api.LM``
-refuses the rest) each rank runs its block of the layers and the cache
-(``models.layers``), and, where ``embed`` and ``unembed`` are cut over the
-vocabulary (``launch.shardspecs.local_params``), its block of the
-vocabulary: the embedding is a SUM over the ``vocab`` axis of each rank's
+and return them. Under sharding rules (``api.LM`` refuses the families
+other than these three) each rank runs its block of the layers and the
+cache (``models.layers``; an MoE FFN's experts, ``moe_layer``), and, where
+``embed`` and ``unembed`` are cut over the vocabulary
+(``launch.shardspecs.local_params``), its block of the vocabulary: the
+embedding is a SUM over the ``vocab`` axis of each rank's
 lookup of its own rows, and ``forward_train`` returns the rank's block of
 the logits, which ``api.LM.loss_terms`` reduces without gathering;
 ``prefill`` and ``decode_step`` return whole logits, gathered. Under FSDP

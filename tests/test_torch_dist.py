@@ -17,6 +17,8 @@ are killed, and the run fails with their output, past ``WALL_S``. Then:
   JAX functions under the same rules: fp32 within 1e-5 max(1, max |ref|),
   bf16 within two bf16 steps of max |ref| (gloo and XLA sum the ranks'
   bf16 partials in their own orders, so no case asks for equal bits);
+  ``moe_forward`` of the reduced Phi-3.5-MoE and Llama-4-Maverick there
+  likewise, its experts over "model";
 - the reduced Llama-3.1-8B through ``LM.prefill`` and 6 ``decode_step``s
   (positions 13-18 cross the rank boundary at 16) under ``kv_seq`` and,
   with ``forward_train``, under ``tp_bf16_ar``, against the JAX model run
@@ -46,7 +48,7 @@ from repro.training.checkpoint import _flatten  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref,
 )
-from repro_torch.launch.dist_cases import BATCHES  # noqa: E402
+from repro_torch.launch.dist_cases import BATCHES, MOE_ARCHS  # noqa: E402
 from repro_torch.launch.shardspecs import EXPLICIT_LEAVES  # noqa: E402
 from repro_torch.models import sharding as SH  # noqa: E402
 
@@ -57,6 +59,7 @@ DD_B, DD_SC, DD_HQ, DD_K, DD_HD = 2, 64, 8, 2, 16
 # positions 0, 5, Sc/n - 1, Sc/n of both meshes (n = 4, 2), 41, Sc - 1
 DD_POS = (0, 5, 15, 16, 31, 32, 41, 63)
 LM_B, LM_PROMPT, LM_STEPS, LM_SEED = 2, 13, 6, 1
+MOE_S = 64             # two rows of 64 tokens: two groups of the reduced 64
 FP32_TOL, DD_TOL, LM_BF16_TOL = 1e-5, 2e-5, 3e-2
 
 JAX_SIDE = r"""
@@ -69,7 +72,7 @@ from repro.configs import get_config
 from repro.kernels.decode_attention.ref import decode_attention_ref
 from repro.launch.mesh import batch_axes_for
 from repro.launch.shardspecs import param_spec, sanitize_spec
-from repro.models import LM, layers as L
+from repro.models import LM, layers as L, moe_layer
 from repro.models.sharding import standard_rules, use_rules
 from repro.training.checkpoint import _flatten
 
@@ -133,6 +136,25 @@ for arch, arch_id in (("llama", "llama3.1-8b"),
                 jax.jit(mlp)(blocks["ffn"], x), np.float32)
             out[f"tp/{arch}/{dname}/attn"] = np.asarray(
                 jax.jit(attn)(blocks["attn"], x), np.float32)
+for arch, arch_id in (("phi", "phi3.5-moe-42b-a6.6b"),
+                      ("maverick", "llama4-maverick-400b-a17b")):
+    cfg = get_config(arch_id).reduced()
+    pre = f"layer/{arch}/moe/"
+    for dname, dt in (("fp32", jnp.float32), ("bf16", jnp.bfloat16)):
+        p = {k[len(pre):]: jnp.asarray(v, dt) for k, v in inp.items()
+             if k.startswith(pre)}
+        shared = {k.split("/")[1]: p.pop(k) for k in list(p)
+                  if k.startswith("shared/")}
+        if shared:
+            p["shared"] = shared
+
+        def moe(p, x):
+            with use_rules(trules, mesh):
+                return moe_layer.moe_forward(p, x, cfg)
+        with mesh:
+            y, aux = jax.jit(moe)(p, jnp.asarray(inp["x_moe"], dt))
+        out[f"tp/{arch}/{dname}/moe"] = np.asarray(y, np.float32)
+        out[f"tp/{arch}/{dname}/aux"] = np.asarray(aux, np.float32)
 
 cfg = get_config("llama3.1-8b").reduced()
 lm = LM(cfg)
@@ -215,6 +237,19 @@ def _inputs(path: Path) -> None:
                                     (LM_B, LM_PROMPT)).astype(np.int32)
     inp["lm/steps"] = rng.integers(0, cfg.vocab_size,
                                    (LM_B, LM_STEPS)).astype(np.int32)
+    for arch in ("phi", "maverick"):
+        cfg = jax_config(MOE_ARCHS[arch]).reduced()
+        D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+        moe = {"router": normal(D, E, scale=D ** -0.5),
+               "wi": normal(E, D, F, scale=D ** -0.5),
+               "wg": normal(E, D, F, scale=D ** -0.5),
+               "wo": normal(E, F, D, scale=F ** -0.5)}
+        if cfg.shared_expert:
+            moe.update({"shared/wi": normal(D, F, scale=D ** -0.5),
+                        "shared/wg": normal(D, F, scale=D ** -0.5),
+                        "shared/wo": normal(F, D, scale=F ** -0.5)})
+        inp.update({f"layer/{arch}/moe/{k}": v for k, v in moe.items()})
+    inp["x_moe"] = normal(2, MOE_S, cfg.d_model)
     inp["batches"] = np.asarray(BATCHES)
     np.savez(path, **inp)
 
@@ -322,6 +357,26 @@ def test_tp_layer_matches_jax(runs, layer, arch, dtype):
             assert _rel(out, ref) < FP32_TOL
         else:
             assert np.abs(out - ref).max() <= 2 * _bf16_step(ref)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("arch", ["phi", "maverick"])
+def test_tp_moe_matches_jax(runs, arch, dtype):
+    """``moe_forward`` under ``tp_bf16_ar`` on (1, 4), one expert a rank:
+    each rank's partial output (its expert's choices; maverick adds its
+    shared expert's d_ff block) formed and all-reduced in x's dtype. The
+    output as the mlp's (a rank's share missing, or counted twice, is off
+    by a whole expert's product), the aux loss within 1e-5."""
+    jx, ranks, _, _ = runs
+    ref = jx[f"tp/{arch}/{dtype}/moe"]
+    for res in ranks:
+        out = res[f"tp/{arch}/{dtype}/moe"]
+        if dtype == "fp32":
+            assert _rel(out, ref) < FP32_TOL
+        else:
+            assert np.abs(out - ref).max() <= 2 * _bf16_step(ref)
+        assert _rel(res[f"tp/{arch}/{dtype}/aux"],
+                    jx[f"tp/{arch}/{dtype}/aux"]) < FP32_TOL
 
 
 def _check_logits(out, ref, dtype: str, what: str) -> None:
@@ -474,8 +529,7 @@ def test_refusals():
     from repro_torch.models import layers as L
     rules = {**SH.standard_rules(False), "tp_bf16_ar": True}
     with SH.use_rules(rules, _Mesh()):
-        for arch in ("recurrentgemma-2b", "xlstm-350m", "whisper-large-v3",
-                     "phi3.5-moe-42b-a6.6b"):
+        for arch in ("recurrentgemma-2b", "xlstm-350m", "whisper-large-v3"):
             with pytest.raises(NotImplementedError, match="A12"):
                 LM(get_config(arch).reduced()).init_cache(2, 32,
                                                           device="cpu")

@@ -5,11 +5,13 @@ and the meshes of ``launch.mesh``, against the JAX package's, on the CPU.
 One module-scoped run launches, at once, four ``gloo`` ranks of
 ``python -m repro_torch.launch.step_cases`` (one torch thread each, a file
 rendezvous in the test's temporary directory) and ``JAX_PROCS`` JAX
-processes (the train cases split among them, the last also running the
+processes (the train cases split among all but the last, which runs the
 rest) with four host devices on ``Auto`` axes (jax 0.9's ``make_mesh`` makes
-Explicit axes, which the JAX steps' ``constrain`` refuses), on the same
-seeded weights and batches; the ranks are killed, and the run fails with
-their output, past ``WALL_S``. Then, in fp32:
+Explicit axes, which the JAX steps' ``constrain`` refuses; each step
+compiled once, ahead of its calls, and LLVM's optimisation of their CPU
+code off, to keep the compiles short), on the same seeded weights and
+batches; the ranks are killed, and the run fails with their output, past
+``WALL_S``. Then, in fp32:
 
 - ``build_train_step`` on meshes (1, 4), (2, 2) and (4, 1) for the reduced
   Llama-3.1-8B (the KV plans "gather", "own" and none; the vocabulary cut
@@ -24,16 +26,24 @@ their output, past ``WALL_S``. Then, in fp32:
   reduced Llama on (2, 2) and (2, 1, 2), the 510-id Llama on (1, 4)
   (``embed``/``unembed`` cut over d_model), the StarCoder2 variant on
   (1, 4) (bk, bv kept whole) and at 4 layers on (2, 2) (bk, bv cut on the
-  layer dim) and Chameleon on (2, 2);
+  layer dim) and Chameleon on (2, 2); the moe family on a batch of 4 rows
+  of 64 tokens (whole groups of 64 on every rank; the aux loss in the
+  loss): the reduced Phi-3.5-MoE, its experts and router columns over
+  "model", on (1, 4), (2, 2), (2, 1, 2) and under FSDP on (2, 2) and
+  (1, 4), the reduced Llama-4-Maverick (top-1, a shared expert, a dense
+  slot of d_ff 16384) on (1, 4) and under FSDP on (2, 2), and a 6-expert
+  Phi on (1, 4), its experts and router kept whole;
 - ``build_prefill_step`` and ``build_serve_step`` under ``kv_seq`` on
-  (1, 4) and under the heads' rule on (1, 4), (2, 2) and (2, 2, 1):
-  tokens equal wherever the reference's top-2 gap exceeds the tolerance,
-  caches within 1e-5;
-- every leaf of ``BuiltStep.args`` at the full size of Llama-3.1-8B, for
-  the four input shapes on (1, 4), (2, 2) and (2, 1, 2), against the JAX
-  ``NamedSharding.shard_shape`` of the same leaf, but for a cache's
-  KV-head dim: the rank's own heads (the JAX cache keeps every KV head on
-  every rank of "model"); and of train_4k's FSDP step;
+  (1, 4) and under the heads' rule on (1, 4), (2, 2) and (2, 2, 1), and
+  the MoE configs under the heads' and experts' rules (Phi on (2, 2),
+  whose dropless decode splits a group over the batch's ranks, Maverick
+  on (1, 4)): tokens equal wherever the reference's top-2 gap exceeds the
+  tolerance, caches within 1e-5;
+- every leaf of ``BuiltStep.args`` at the full size of Llama-3.1-8B and of
+  Phi-3.5-MoE, for the four input shapes on (1, 4), (2, 2) and (2, 1, 2),
+  against the JAX ``NamedSharding.shard_shape`` of the same leaf, but for
+  a cache's KV-head dim: the rank's own heads (the JAX cache keeps every
+  KV head on every rank of "model"); and of train_4k's FSDP step;
 - ``LM.loss_terms`` with the vocabulary cut, on labels that hold -1 and
   the first and last id of every rank's block, against the JAX
   ``LM.loss`` and the port's outside rules;
@@ -45,10 +55,10 @@ their output, past ``WALL_S``. Then, in fp32:
 
 In the test process alone: ``batch_specs`` and ``cache_specs`` for all
 five families against the JAX functions, ``param_specs_fsdp`` for every
-dense and vlm config, FSDP's ``init_params`` against one draw cut to each
-rank's blocks, ``effective_window`` for every ``ARCH_IDS`` x
-``INPUT_SHAPES`` pair, the analytic FLOPs, and the refusals that name
-A12.
+dense, vlm and moe config, FSDP's ``init_params`` against one draw cut to
+each rank's blocks, ``effective_window`` for every ``ARCH_IDS`` x
+``INPUT_SHAPES`` pair, the analytic FLOPs, that each MoE case's batch
+drops choices by capacity, and the refusals that name A12.
 """
 import dataclasses
 import os
@@ -70,7 +80,8 @@ from repro.launch import shardspecs as JSS  # noqa: E402
 from repro.models import LM as JaxLM  # noqa: E402
 from repro.models import make_batch_specs  # noqa: E402
 from repro.training.checkpoint import _flatten  # noqa: E402
-from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config  # noqa: E402
+from repro_torch.configs import (ARCH_IDS, INPUT_SHAPES,  # noqa: E402
+                                 InputShape, get_config)
 from repro_torch.launch import shardspecs as SS  # noqa: E402
 from repro_torch.launch import step_cases as C  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
@@ -122,9 +133,13 @@ CONFIGS = {"llama": get_config("llama3.1-8b").reduced(),
                                         .reduced()),
            "chameleon": get_config("chameleon-34b").reduced(),
            "llama_v510": dataclasses.replace(get_config("llama3.1-8b")
-                                             .reduced(), vocab_size=510)}
+                                             .reduced(), vocab_size=510),
+           "phi": get_config("phi3.5-moe-42b-a6.6b").reduced(),
+           "maverick": get_config("llama4-maverick-400b-a17b").reduced()}
 CONFIGS["starcoder2_whole4"] = dataclasses.replace(
     CONFIGS["starcoder2_whole"], n_layers=4)
+CONFIGS["phi6"] = dataclasses.replace(CONFIGS["phi"], n_experts=6)
+MOE = ("phi", "maverick", "phi6")
 
 
 def paths(tree, is_leaf=None):
@@ -148,18 +163,25 @@ PARAMS = {k: weights(k) for k in CONFIGS}
 opt_cfg = AdamWConfig(state_dtype=jnp.float32)
 for case in filter(None, sys.argv[3].split(",")):
     name, tag, *mode = case.split("/")
-    pre = "train/v510/" if name == "llama_v510" else "train/"
+    pre = "train/moe/" if name in MOE else \
+        "train/v510/" if name == "llama_v510" else "train/"
     train_batch = {k: jnp.asarray(inp[pre + k]) for k in ("tokens", "labels")}
     mesh = mesh_of(tag)
-    built = build_step(CONFIGS[name], mesh, InputShape("train_small", 16, 4,
-                                                       "train"),
+    shape = InputShape("train_moe", 64, 4, "train") if name in MOE else \
+        InputShape("train_small", 16, 4, "train")
+    built = build_step(CONFIGS[name], mesh, shape,
                        dtype=jnp.float32, opt_cfg=opt_cfg,
                        param_mode=mode[0] if mode else "2d")
     params = jax.tree.map(jnp.array, PARAMS[name])
     opt = init_state(opt_cfg, params)
     with mesh:
+        # compiled once: the step's outputs come back sharded, which a
+        # second call of the jitted function would compile anew for
+        step = built.fn.lower(params, opt, train_batch).compile()
+        params, opt, train_batch = jax.device_put(
+            (params, opt, train_batch), step.input_shardings[0])
         for i in range(2):
-            params, opt, metrics = built.fn(params, opt, train_batch)
+            params, opt, metrics = step(params, opt, train_batch)
             for k, v in metrics.items():
                 out[f"train/{case}/step{i}/{k}"] = np.asarray(v)
     for part, tree in (("params", params), ("m", opt["m"]), ("v", opt["v"])):
@@ -169,49 +191,61 @@ for case in filter(None, sys.argv[3].split(",")):
 if sys.argv[4] != "rest":        # the train cases alone
     np.savez(sys.argv[2], **out)
     sys.exit(0)
-cfg = CONFIGS["llama"]
-lm = LM(cfg)
 prompt = jnp.asarray(inp["serve/prompt"])
 feed = jnp.asarray(inp["serve/feed"])
 kv_seq = {"heads": None, "d_ff": None}
-for case, tag, overrides, axis in (("kv_seq/1x4", "1x4", kv_seq, "model"),
-                                   ("heads/1x4", "1x4", None, None),
-                                   ("heads/2x2", "2x2", None, None),
-                                   ("heads/2x2x1", "2x2x1", None, None)):
+for case, name, tag, overrides, axis in (
+        ("kv_seq/1x4", "llama", "1x4", kv_seq, "model"),
+        ("heads/1x4", "llama", "1x4", None, None),
+        ("heads/2x2", "llama", "2x2", None, None),
+        ("heads/2x2x1", "llama", "2x2x1", None, None),
+        ("phi/2x2", "phi", "2x2", None, None),
+        ("maverick/1x4", "maverick", "1x4", None, None)):
+    cfg = CONFIGS[name]
+    lm = LM(cfg)
     mesh = mesh_of(tag)
     kw = dict(dtype=jnp.float32, rule_overrides=overrides, kv_seq_axis=axis)
     pre = build_step(cfg, mesh, InputShape("prefill_small", 32, 4, "prefill"),
                      **kw)
     dec = build_step(cfg, mesh, InputShape("decode_small", 32, 4, "decode"),
                      **kw)
-    params = PARAMS["llama"]
+    params = PARAMS[name]
     with mesh:
         tok, cache = pre.fn(params, {"tokens": prompt},
                             lm.init_cache(4, 32, dtype=jnp.float32))
         out[f"serve/{case}/prefill"] = np.asarray(tok)
         cache = dict(cache, pos=jnp.asarray(22, jnp.int32))
+        step = dec.fn.lower(params, feed[:, 0], cache).compile()
+        params, _, cache = jax.device_put((params, feed[:, 0], cache),
+                                          step.input_shardings[0])
         for i in range(feed.shape[1]):
-            tok, cache = dec.fn(params, feed[:, i], cache)
+            tok, cache = step(params, jax.device_put(
+                feed[:, i], step.input_shardings[0][1]), cache)
             out[f"serve/{case}/step{i}"] = np.asarray(tok)
     for i, slot in enumerate(cache["slots"]):
-        for name in ("k", "v"):
-            out[f"serve/{case}/cache/{i}/{name}"] = np.asarray(slot[name])
+        for kv in ("k", "v"):
+            out[f"serve/{case}/cache/{i}/{kv}"] = np.asarray(slot[kv])
 # the unsharded logits of the same feed: the tokens' top-2 gaps
-params = PARAMS["llama"]
-logits, cache = jax.jit(lm.prefill)(params, {"tokens": prompt},
-                                    lm.init_cache(4, 32, dtype=jnp.float32))
-out["serve/logits/prefill"] = np.asarray(logits)
-cache = dict(cache, pos=jnp.asarray(22, jnp.int32))
-decode = jax.jit(lm.decode_step)
-for i in range(feed.shape[1]):
-    logits, cache = decode(params, feed[:, i], cache)
-    out[f"serve/logits/step{i}"] = np.asarray(logits)
+for name in ("llama", "phi", "maverick"):
+    lm = LM(CONFIGS[name])
+    params = PARAMS[name]
+    logits, cache = jax.jit(lm.prefill)(params, {"tokens": prompt},
+                                        lm.init_cache(4, 32,
+                                                      dtype=jnp.float32))
+    out[f"serve/logits/{name}/prefill"] = np.asarray(logits)
+    cache = dict(cache, pos=jnp.asarray(22, jnp.int32))
+    decode = jax.jit(lm.decode_step)
+    for i in range(feed.shape[1]):
+        logits, cache = decode(params, feed[:, i], cache)
+        out[f"serve/logits/{name}/step{i}"] = np.asarray(logits)
+lm, params = LM(CONFIGS["llama"]), PARAMS["llama"]
 out["loss/ref"] = np.asarray(jax.jit(lm.loss)(params, {
     k: jnp.asarray(inp["loss/" + k]) for k in ("tokens", "labels")}))
 
-full = get_config("llama3.1-8b")
-flm = LM(full)
-for tag in ("1x4", "2x2", "2x1x2"):
+for pre, arch, tag in [(p, a, t) for p, a in (("", "llama3.1-8b"),
+                                              ("phi/", "phi3.5-moe-42b-a6.6b"))
+                       for t in ("1x4", "2x2", "2x1x2")]:
+    full = get_config(arch)
     mesh = mesh_of(tag)
     for name, shape in [*INPUT_SHAPES.items(),
                         ("fsdp", INPUT_SHAPES["train_4k"])]:
@@ -242,7 +276,7 @@ for tag in ("1x4", "2x2", "2x1x2"):
             spec_of = paths(specs, lambda x: isinstance(x, P))
             for k, leaf in paths(tree).items():
                 spec = spec_of[k]
-                out[f"args/{tag}/{name}/{part}/{k}"] = np.asarray(
+                out[f"args/{pre}{tag}/{name}/{part}/{k}"] = np.asarray(
                     NamedSharding(mesh, spec).shard_shape(leaf.shape))
 
 for tag, n in (("4x1", 1), ("4x1", 2), ("4x1", 3), ("2x2", 1)):
@@ -267,6 +301,10 @@ JAX_CFGS = {
     "starcoder2_whole4": dataclasses.replace(
         jax_config("starcoder2-15b").reduced(), n_kv_heads=1, head_dim=34,
         n_layers=4),
+    "phi": jax_config("phi3.5-moe-42b-a6.6b").reduced(),
+    "maverick": jax_config("llama4-maverick-400b-a17b").reduced(),
+    "phi6": dataclasses.replace(jax_config("phi3.5-moe-42b-a6.6b").reduced(),
+                                n_experts=6),
 }
 
 
@@ -278,14 +316,28 @@ def test_case_configs_match_jax():
 
 def _inputs(path: Path) -> None:
     """The seeded inputs: the configs' weights as the JAX side draws them
-    (``LM.init(key(SEED))``), a training batch with masked labels, a prompt
-    and the serve steps' feed."""
+    (``LM.init(key(SEED))``; the MoE configs' at the same stds from
+    numpy), the training batches with masked labels, a prompt and the
+    serve steps' feed."""
     rng = np.random.default_rng(0)
     inp = {}
     for name, jcfg in JAX_CFGS.items():
+        if name in C.MOE_CONFIGS:
+            continue
         params = JaxLM(jcfg).init(jax.random.key(SEED))
         inp.update({f"w/{name}/{k}": np.asarray(v)
                     for k, v in _flatten(params).items()})
+    # the MoE configs' weights from numpy, at the stds of the JAX init
+    # (the port's ``param_specs``): drawing them with the JAX init would
+    # take as long as all the others' together
+    wrng = np.random.default_rng(SEED)
+    for name in C.MOE_CONFIGS:
+        cfg = C.CONFIGS[name]()
+        for k, (shape, init) in LM(cfg).mod.param_specs(cfg).items():
+            inp[f"w/{name}/{k}"] = np.ones(shape, np.float32) \
+                if init == "ones" else np.zeros(shape, np.float32) \
+                if init == "zeros" else \
+                init * wrng.standard_normal(shape, np.float32)
     B, S = C.TRAIN_SHAPE.global_batch, C.TRAIN_SHAPE.seq_len
     tokens = rng.integers(0, 512, (B, S + 1)).astype(np.int32)
     labels = tokens[:, 1:].copy()
@@ -310,6 +362,13 @@ def _inputs(path: Path) -> None:
     labels[1, -len(edges):] = edges[::-1]
     inp["loss/labels"] = labels
     inp["loss/tokens"] = rng.integers(0, 512, (2, 12)).astype(np.int32)
+    # the MoE configs' batch (drawn last, so the others keep their draws)
+    B, S = C.MOE_TRAIN_SHAPE.global_batch, C.MOE_TRAIN_SHAPE.seq_len
+    tokens = rng.integers(0, 512, (B, S + 1)).astype(np.int32)
+    labels = tokens[:, 1:].copy()
+    labels[2, -7:] = -1
+    inp["train/moe/tokens"] = tokens[:, :-1].copy()
+    inp["train/moe/labels"] = labels
     np.savez(path, **inp)
 
 
@@ -325,13 +384,18 @@ def runs(tmp_path_factory):
     _inputs(tmp / "inputs.npz")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "OMP_NUM_THREADS": "1", "JAX_PLATFORMS": "cpu",
-           "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
+           # LLVM's optimisation of the JAX side's CPU code off: its
+           # compiles take most of the run's CPU time, which parallel test
+           # workers share, and its steps are small
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=4 "
+                        "--xla_backend_optimization_level=0"}
     cases = [case for case, _, _ in C.TRAIN_CASES]
     procs = []
     for name, cmd in [(f"jax{j}", [sys.executable, "-c", JAX_SIDE,
                                    str(tmp / "inputs.npz"),
                                    str(tmp / f"jax{j}.npz"),
-                                   ",".join(cases[j::JAX_PROCS]),
+                                   ",".join(cases[j::JAX_PROCS - 1]
+                                            if j < JAX_PROCS - 1 else []),
                                    "rest" if j == JAX_PROCS - 1 else "-"])
                       for j in range(JAX_PROCS)] + [
             (f"rank{r}", [sys.executable, "-m",
@@ -479,6 +543,42 @@ def test_train_step_matches_jax(runs, case):
         assert (n_blocks > 0) == (fsdp or not tag.endswith("x1")), n_blocks
 
 
+@pytest.mark.parametrize("name", C.MOE_CONFIGS)
+def test_moe_cases_drop_choices(runs, name, monkeypatch):
+    """Each MoE config's training batch, and for phi and maverick the serve
+    cases' prompt, drops choices by capacity (the ``fits`` of each
+    ``moe_layer.route`` call the forward makes) on the seeded weights, so
+    that the train and prefill cases hold the dropping path; the rows of
+    ``MOE_TRAIN_SHAPE`` hold whole groups on every rank of each mesh."""
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.models import moe_layer
+    route, dropped = moe_layer.route, []
+
+    def counted(*args, **kw):
+        r = route(*args, **kw)
+        dropped.append(int((~r.fits).sum()))
+        return r
+    monkeypatch.setattr(moe_layer, "route", counted)
+    _, _, inp = runs
+    cfg = C.CONFIGS[name]()
+    params = params_from_numpy({k[len(f"w/{name}/"):]: v for k, v in
+                                inp.items() if k.startswith(f"w/{name}/")},
+                               cfg, "cpu")
+    batches = [inp["train/moe/tokens"]]
+    if any(c[1] == name for c in C.SERVE_CASES):
+        batches.append(inp["serve/prompt"])
+    for tokens in batches:
+        dropped.clear()
+        with torch.no_grad():
+            LM(cfg).forward_train(params, {"tokens": torch.from_numpy(
+                tokens)}, remat=False)
+        assert dropped and sum(dropped) > 0, tokens.shape
+    shape = C.MOE_TRAIN_SHAPE
+    for n_batch in (1, 2, WORLD):     # the batch's ranks of the cases
+        rows = shape.global_batch // n_batch
+        assert rows * shape.seq_len % cfg.moe_group_size == 0
+
+
 def test_train_cases_reach_each_kv_plan():
     """The reduced Llama on 1x4 gathers its KV heads, on 2x2 owns them;
     the starcoder2 variant keeps wk and wv whole, used in part."""
@@ -500,12 +600,16 @@ def _clear(logits: np.ndarray) -> np.ndarray:
     return (top2[..., 1] - top2[..., 0]) > tol
 
 
-@pytest.mark.parametrize("case", [c for c, _, _, _ in C.SERVE_CASES])
+@pytest.mark.parametrize("case", [c[0] for c in C.SERVE_CASES])
 def test_prefill_and_serve_steps_match_jax(runs, case):
     """Each rank's rows of the tokens equal the JAX step's wherever the
     unsharded logits' top-2 gap exceeds the tolerance; its block of the
-    cache (its rows under kv_seq, its KV heads under heads) within 1e-5."""
+    cache (its rows under kv_seq, its KV heads under heads) within 1e-5.
+    The MoE cases run their experts over "model" too: phi's prefill on
+    2x2 routes a rank's whole groups with capacity drops, its dropless
+    decode steps a group split over the two rows' ranks."""
     jx, ranks, _ = runs
+    cfg = {c[0]: c[1] for c in C.SERVE_CASES}[case]
     tag = case.split("/")[1]
     n_model = _shape(tag)[-1]
     B = C.SERVE_PREFILL.global_batch * n_model // WORLD
@@ -516,7 +620,7 @@ def test_prefill_and_serve_steps_match_jax(runs, case):
             got = res[f"serve/{case}/{name}"]
             want = jx[f"serve/{case}/{name}"][rows]
             assert got.dtype == np.int32 and want.dtype == np.int32
-            clear = _clear(jx[f"serve/logits/{name}"][rows])
+            clear = _clear(jx[f"serve/logits/{cfg}/{name}"][rows])
             assert clear.any()
             np.testing.assert_array_equal(got[clear], want[clear],
                                           err_msg=name)
@@ -541,11 +645,19 @@ def test_built_args_have_jax_shard_shapes(runs, tag, shape):
     but the cache's KV-head dim, which the JAX cache keeps whole on every
     rank of "model" and the port cuts to the KV heads of the rank's query
     heads (``head_plan``)."""
+    _check_args(runs, "", "llama3.1-8b", tag, shape)
+
+
+def _check_args(runs, pre: str, arch: str, tag: str, shape: str) -> dict:
+    """Every rank's leaves of ``BuiltStep.args`` of ``arch`` at ``shape``
+    on ``tag`` (keys ``args/<pre><tag>/<shape>/``) against the JAX
+    ``shard_shape``s, the cache's KV heads the rank's own. Returns rank
+    0's."""
     jx, ranks, _ = runs
-    pre = f"args/{tag}/{shape}/"
+    pre = f"args/{pre}{tag}/{shape}/"
     want = {k[len(pre):]: v for k, v in jx.items() if k.startswith(pre)}
     assert want
-    full = get_config("llama3.1-8b")
+    full = get_config(arch)
     n_model = _shape(tag)[-1]
     for res in ranks:
         got = {k[len(pre):]: v for k, v in res.items() if k.startswith(pre)}
@@ -557,6 +669,25 @@ def test_built_args_have_jax_shard_shapes(runs, tag, shape):
             np.testing.assert_array_equal(g, w, err_msg=key)
             if key.split("/")[-1] in ("embed", "unembed"):
                 assert full.vocab_size // n_model in g, key
+    return {k[len(pre):]: v for k, v in ranks[0].items() if k.startswith(pre)}
+
+
+@pytest.mark.parametrize("tag", list(C.ARGS_MESHES))
+@pytest.mark.parametrize("shape", list(INPUT_SHAPES))
+def test_moe_built_args_have_jax_shard_shapes(runs, tag, shape):
+    """The same for the full-size Phi-3.5-MoE: the router a rank's (G, D,
+    E / n) and the stacked experts (G, E / n, D, F) of the n = "model"
+    ranks, as the JAX ``shard_shape``s."""
+    got = _check_args(runs, "phi/", "phi3.5-moe-42b-a6.6b", tag, shape)
+    full = get_config("phi3.5-moe-42b-a6.6b")
+    G, D, E, Fd = full.n_layers, full.d_model, full.n_experts, full.d_ff
+    n = _shape(tag)[-1]
+    np.testing.assert_array_equal(got["params/slots/0/ffn/router"],
+                                  (G, D, E // n))
+    np.testing.assert_array_equal(got["params/slots/0/ffn/wi"],
+                                  (G, E // n, D, Fd))
+    np.testing.assert_array_equal(got["params/slots/0/ffn/wo"],
+                                  (G, E // n, Fd, D))
 
 
 @pytest.mark.parametrize("tag", list(C.ARGS_MESHES))
@@ -565,11 +696,22 @@ def test_fsdp_args_have_jax_shard_shapes(runs, tag):
     every parameter leaf, AdamW's m and v and the batch's rows have the
     JAX FSDP step's ``shard_shape``; at this size every weight is cut,
     none kept whole."""
+    _check_fsdp_args(runs, "", "llama3.1-8b", tag)
+
+
+@pytest.mark.parametrize("tag", list(C.ARGS_MESHES))
+def test_moe_fsdp_args_have_jax_shard_shapes(runs, tag):
+    """The same for train_4k's FSDP step of the full-size Phi-3.5-MoE: its
+    router and experts among the leaves every one of which is cut."""
+    _check_fsdp_args(runs, "phi/", "phi3.5-moe-42b-a6.6b", tag)
+
+
+def _check_fsdp_args(runs, pre: str, arch: str, tag: str) -> None:
     jx, ranks, _ = runs
-    pre = f"args/{tag}/fsdp/"
+    pre = f"args/{pre}{tag}/fsdp/"
     want = {k[len(pre):]: v for k, v in jx.items() if k.startswith(pre)}
     assert {k.split("/")[0] for k in want} == {"params", "opt", "batch"}
-    full = get_config("llama3.1-8b")
+    full = get_config(arch)
     whole = {k: shape for k, (shape, _) in
              LM(full).mod.param_specs(full).items()}
     for res in ranks:
@@ -713,7 +855,8 @@ def test_batch_and_cache_specs_match_jax(arch):
 
 
 @pytest.mark.parametrize("arch", ["llama3.1-8b", "starcoder2-15b",
-                                  "chameleon-34b"])
+                                  "chameleon-34b", "phi3.5-moe-42b-a6.6b",
+                                  "llama4-maverick-400b-a17b"])
 def test_param_specs_match_jax(arch):
     """``param_specs`` of the full-size config's parameters, sanitised on a
     (1, 4) mesh, against the JAX function's on the abstract parameters."""
@@ -800,7 +943,8 @@ FSDP_MESHES = ((2, 2), (1, 4), (1, 8), (2, 1, 2))
 def test_param_specs_fsdp_match_jax(arch):
     """The port's ``param_specs_fsdp`` against the JAX function leaf by
     leaf, on (2, 2), (1, 4), (1, 8) and (2, 1, 2) ("pod" in front): each
-    dense and vlm config full and reduced, or ``step_cases``' configs."""
+    dense, vlm and moe config full and reduced, or ``step_cases``'
+    configs."""
     if arch == "step cases":
         pairs = [(JAX_CFGS[n], make()) for n, make in C.CONFIGS.items()]
     else:
@@ -822,18 +966,19 @@ def test_param_specs_fsdp_match_jax(arch):
 
 
 @pytest.mark.parametrize("case", ["starcoder2_whole4/2x2", "llama_v510/1x4",
-                                  "llama/2x1x2"])
+                                  "llama/2x1x2", "phi/2x2"])
 def test_fsdp_init_params_keep_blocks_of_one_draw(case):
     """Under FSDP each rank's ``init_params`` are its blocks of the weights
     that one device draws from the same seed (``LM.init`` cut by
     ``local_params``): a leaf cut on its layer dim (starcoder2_whole4's bk
-    and bv) keeps the rank's layers, embed and unembed over d_model, and
-    on (2, 1, 2) the flattened ("pod", "data", "model")."""
+    and bv) keeps the rank's layers, embed and unembed over d_model, on
+    (2, 1, 2) the flattened ("pod", "data", "model"), and the reduced
+    Phi-3.5-MoE's router and stacked experts their blocks."""
     from repro_torch.launch.steps import build_step, init_params
     from repro_torch.models.params import flatten
     name, tag = case.split("/")
     cfg = C.CONFIGS[name]()
-    shape = dataclasses.replace(C.TRAIN_SHAPE, global_batch=4)
+    shape = dataclasses.replace(C.train_shape(name), global_batch=4)
     whole = LM(cfg).init(torch.Generator().manual_seed(3), device="cpu")
     n_cut = 0
     for r in range(WORLD):
@@ -856,7 +1001,12 @@ def test_refusals_name_a12():
     another axis, and a MAX all-reduce that would need a backward; a rule
     over mesh axes that no process group flattens (not adjacent in the
     mesh's order). FSDP itself builds: ``param_mode="fsdp"`` for the dense
-    family, and ``use_rules`` installs ``fsdp_gather``."""
+    family, and ``use_rules`` installs ``fsdp_gather``. The moe family: a
+    capacity-routed step whose rank's rows split a group (train and
+    prefill, 16 tokens a row over the two rows of 2x2, groups of 64), and
+    an experts rule that disagrees with heads and d_ff; the dropless
+    decode on the same split builds (and runs in the phi/2x2 serve case),
+    as do the moe family's train, FSDP, prefill and serve steps."""
     from repro_torch.launch.steps import build_step
     shape = dataclasses.replace(INPUT_SHAPES["train_4k"], global_batch=4,
                                 seq_len=16)
@@ -865,8 +1015,7 @@ def test_refusals_name_a12():
     assert built.rules["fsdp_gather"] and \
         built.rules["batch"] == ("data", "model")
     assert built.args[2]["tokens"].shape == (1, 16)
-    for arch in ("recurrentgemma-2b", "xlstm-350m", "whisper-large-v3",
-                 "phi3.5-moe-42b-a6.6b"):
+    for arch in ("recurrentgemma-2b", "xlstm-350m", "whisper-large-v3"):
         for kind in ("train_4k", "prefill_32k", "decode_32k"):
             with pytest.raises(NotImplementedError, match="A12"):
                 build_step(get_config(arch).reduced(), _Mesh(),
@@ -878,6 +1027,29 @@ def test_refusals_name_a12():
         build_step(llama, _Mesh(), shape, rule_overrides={"d_ff": None})
     with pytest.raises(NotImplementedError, match="A12"):
         build_step(llama, _Mesh(), shape, rule_overrides={"vocab": "data"})
+    # the moe family
+    from repro_torch.models.moe_layer import check_groups
+    phi = C.CONFIGS["phi"]()
+    split = _Mesh.of((2, 2))
+    for kind, seq in (("train", 16), ("prefill", 16)):
+        with pytest.raises(NotImplementedError, match="A12"):
+            build_step(phi, split, InputShape(kind, seq, 4, kind))
+    with pytest.raises(NotImplementedError, match="A12"):
+        check_groups(phi, 2, 2, dropless=False)
+    check_groups(phi, 2, 2, dropless=True)
+    assert build_step(phi, split, InputShape("decode", 32, 4, "decode"))
+    for over in ({"experts": None}, {"heads": None, "d_ff": None},
+                 {"experts": "data"}):
+        with pytest.raises(NotImplementedError, match="A12"):
+            build_step(phi, _Mesh(), C.MOE_TRAIN_SHAPE, rule_overrides=over)
+    with pytest.raises(ValueError, match="experts"):
+        build_step(phi, _Mesh(), C.MOE_TRAIN_SHAPE, param_mode="fsdp",
+                   rule_overrides={"experts": "model"})
+    for arch in ("phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b"):
+        cfg = get_config(arch).reduced()
+        for kind in ("train_4k", "prefill_32k", "decode_32k"):
+            assert build_step(cfg, _Mesh(), INPUT_SHAPES[kind])
+        assert build_step(cfg, _Mesh(), C.MOE_TRAIN_SHAPE, param_mode="fsdp")
 
     class PodMesh(_Mesh):
         mesh_dim_names = ("pod", "data", "model")
