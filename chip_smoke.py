@@ -98,7 +98,11 @@ its own lines; any failure exits non-zero without the result line:
    ``compute_log_sumexp`` (the same dense mask as a bias, K and V repeated
    to the query heads), its lse held against the kernel's; B1 and B2 at
    phase 6b's shapes (a rank's
-   16 query heads over 4 KV heads: S=2048; B=4 over 1024 rows);
+   16 query heads over 4 KV heads: S=2048; B=4 over 1024 rows); and at
+   7g's (a rank's 5 of RecurrentGemma-2B's 10 query heads over its one KV
+   head, hd 256: B1 at S=3000 in the 2048 window, B2 over the rotating
+   2048 rows, B1's backward at B=2 S=4096; B3 forward at S=3000 and
+   backward at B=2 S=4096 on a rank's 1280 of the RG-LRU width);
 3. reduced llama3.1-8b, qwen1.5-4b, starcoder2-15b, chameleon-34b,
    granite-3-8b, phi3.5-moe, llama4-maverick, whisper-large-v3,
    recurrentgemma-2b and xlstm-350m in fp32 on the card: prefill and
@@ -145,17 +149,20 @@ its own lines; any failure exits non-zero without the result line:
    tokens.
 
 5. training at the published widths through ``train()``: Llama-3.1-8B (all
-   32 layers), RecurrentGemma-2B (all 26) and xLSTM-350M (all 24: 21
-   mLSTM, 3 sLSTM), bf16 parameters and AdamW moments, B=1 S=4096
-   (train_4k's sequence), remat on, 4 steps each (the xLSTM 3: its sLSTM
-   loop makes a step ~45 s), printing each step's wall, loss, grad norm
+   32 layers), RecurrentGemma-2B (all 26) and xLSTM-350M (8 of its 24
+   layers: 7 mLSTM, 1 sLSTM), bf16 parameters and AdamW moments, B=1
+   S=4096 (train_4k's sequence), remat on, 4 steps each (the xLSTM 2: its
+   sLSTM loop makes a step 44-102 s at 24 layers), printing each step's
+   wall, loss, grad norm
    and lr, the peak memory and step 2's device-busy share by
-   ``torch.profiler`` (for the xLSTM also the sLSTM loop's host share);
+   ``torch.profiler`` (the xLSTM's step 1; for the xLSTM also the sLSTM
+   loop's host share);
    each step's launches must match the plan the model's structure
    gives (B1 forward twice and backward once a rematerialised attention
    layer, B3 likewise a rec layer, B4 an mLSTM layer, the hybrid's
    unrolled layers once), and bf16 B1 never runs on the CUDA-core kernel;
-   for the xLSTM, B4's backward device time in step 2, by pass.
+   for the xLSTM, B4's backward device time in the profiled step, by
+   pass.
 
 6. the multi-device layers (``models/sharding.py``, ``launch/mesh.py``,
    ``launch/shardspecs.py``, the sharded branches of ``models/layers.py``)
@@ -251,10 +258,41 @@ its own lines; any failure exits non-zero without the result line:
    prefill (each ``moe_layer.route`` call's ``fits``), run B1 (16
    in the prefill; forward 2 and backward 1 a layer a training step) and
    B2 (16 a serve step) on the sm90 kernels alone and keep their
-   collectives over "model". Phase 2 holds B1 at S=32768 (the plain
+   collectives over "model". 7g, the same two processes:
+   RecurrentGemma-2B at its published widths, bf16, seeded, under
+   ``standard_rules`` on the (1, 2) mesh, each rank its ``local_params``
+   (5 of the 10 query heads and the 1 KV head, d_ff 3840, 1280 of the
+   RG-LRU width: 4 of the 8 gate blocks, and 128,000 of the 256,000 ids;
+   the whole-held gate leaves' gradients summed over "model"): 7g-train,
+   ``build_train_step`` at 8 of its 26 layers ((rec, rec, attn) x 2 and
+   the 2 ``rest`` rec layers), train_4k's sequence at B=2, 2 steps held
+   as 7b against rank 0's unsharded run, its leaves after the first
+   (RG_CHECK_AFTER: after AdamW's first, sign-like update the runs part
+   where bf16 flips a near-zero gradient's sign); 7g-fsdp, the same layers and
+   rows under ``param_mode="fsdp"``, held against the same reference
+   (kept on the host where ``MemAvailable`` holds it); 7g-serve,
+   ``build_prefill_step`` and ``build_serve_step`` at all 26 layers, a
+   B=1 prompt of 3000 tokens into the rotating 2048-row window (max_len
+   4096), 16 serve steps fed the tokens of rank 0's unsharded run in fp32
+   (the bf16 draw upcast), rank 0 running the unsharded bf16 model on the
+   same feed too: the passes' whole logits and each rank's channels of
+   the final h and conv tails must differ from the unsharded bf16
+   model's by no more than those differ from the fp32 model's (max |d|
+   / max |ref|, the worst pass and the worst leaf: the sharding's change
+   within bf16's own rounding, which puts the bf16 model 4-6% of max
+   |logit| from the fp32 one, past DIST_TOL), and the tokens equal the
+   fp32 model's argmax wherever its top-2 gap exceeds DIST_TOL of max
+   |logit|; then the same sharded steps in fp32 (the rank's blocks
+   upcast, the caches in fp32) on the same feed, every pass's logits and
+   the rank's channels of the rec leaves within RG_FP32_TOL = 1e-3 of the
+   unsharded fp32 model's. B1 and B3 launch as ``train_plan``
+   says in training, B1 8 and B3 18 (on the rank's block of the width)
+   in the prefill, B2 8 a serve step, all on the sm90 kernels; the
+   collectives over "model" ("data+model" under FSDP). Phase 2 holds B1
+   at S=32768 (the plain
    version in blocks of 1024 query rows) and B2 over 32768 rows at these
-   shapes, and at 7f's 16/4 heads in its 6b cases. A rank that fails, or
-   phase 7 past 600 s, fails the run.
+   shapes, at 7f's 16/4 heads in its 6b cases, and at 7g's. A rank that
+   fails, or phase 7 past 600 s, fails the run.
 
 Each serve and each training run starts with the previous one's engine
 freed and the allocator's cache emptied, and prints its peak device
@@ -333,8 +371,13 @@ TRAIN_ARCHS = ("llama3.1-8b", "qwen1.5-4b", "starcoder2-15b",
                "recurrentgemma-2b", "xlstm-350m")
 TRAIN_SEQ, TRAIN_STEPS = 4096, 4   # train_4k's sequence length, B=1
 # the xLSTM's step is ~45 s (its sLSTM loop's ~1.2 million device kernels):
-# 3 steps keep the script within half its time limit; step 2 is profiled
-XLSTM_TRAIN_STEPS = 3
+# 2 steps, the last profiled, at 8 of its 24 layers (one of its three
+# sLSTM layers): at 24 layers a step took 44-102 s on the H100's host (the
+# sLSTM loop's host launches), phase 5 324-330 s in two runs against 91 s
+# at 8 layers, and with phase 7 at its depths the whole script took 1193 s
+# of its 1200 in one run at 24 layers
+XLSTM_TRAIN_STEPS = 2
+XLSTM_TRAIN_LAYERS = 8
 # device kernels of a training step by kind, by name (the first that
 # matches); the rest is "other"
 B1_BWD_KERNELS = r"bwd_(?:dq|dkdv|reduce)_sm90|bwd_(?:delta|dkdv|dq)_kernel"
@@ -407,6 +450,40 @@ STEPS_TIMEOUT_S = 600
 # prefill: at 7b's ~0.4 GB/s, 7f should take 60-120 s of phase 7's 600
 STEPS_MOE_TRAIN_LAYERS = 4
 STEPS_MOE_SERVE_LAYERS = 16
+# 7g: RecurrentGemma-2B at its published widths on the same (1, 2) mesh,
+# its RG-LRU width over "model" with the heads, d_ff and the vocabulary: a
+# rank holds 5 of the 10 query heads and the 1 KV head, d_ff 3840, 1280 of
+# the width (4 of the 8 gate blocks) and 128,000 of the 256,000 ids.
+# Training at 8 of its 26 layers ((rec, rec, attn) x 2 and the 2 rest rec
+# layers; 1,939,376,640 parameters), train_4k's sequence at B=2 (FSDP's
+# batch must split over its two ranks, and 7g-train and 7g-fsdp share one
+# unsharded reference, as 7d and 7e do); serving at all 26
+# (3,343,495,680): a B=1 prompt (B=2 took the whole script past 1000 s) of
+# 3000 tokens into the rotating 2048-row window (max_len 4096), 16 steps
+# fed the tokens of the unsharded model in
+# fp32. Its logits and final rec states are held to bf16's own rounding:
+# the unsharded bf16 model is 4-6% of max |logit| from the fp32 one there
+# (on the H100), past DIST_TOL, so the sharded run's distance to
+# the bf16 model may not exceed the bf16 model's to the fp32 one
+STEPS_RG_TRAIN_LAYERS = 8
+STEPS_RG_BATCH = 2
+RG_SERVE = {"batch": 1, "prompt": 3000, "max_len": 4096, "steps": 16}
+# the same sharded prefill and steps with the bf16 draw upcast to fp32,
+# its caches in fp32, against the unsharded fp32 model on the same feed:
+# max |d| / max |ref| of every pass's logits and of each rank's channels of
+# every rec leaf after the steps (the sharding's own error, which bf16's
+# 4-6% would hide)
+RG_FP32_TOL = 1e-3
+# 7g's leaves are held after its first step: AdamW's first update is about
+# lr sign(g) for every value, so wherever bf16 rounding flips the sign of a
+# near-zero gradient the two runs part by 2 lr there, and the second
+# step's gradients inherit it (the last rec layer's w_in's v landed at
+# 0.076-0.102 of max |v| after step 2 in five runs, past 0.1 in two; after
+# step 1 every leaf's m within 0.044 and v within 0.085, on the H100);
+# both steps' loss and grad norm are held as 7b's
+RG_CHECK_AFTER = 1
+RG_TP_HEADS = (5, 1, 256)          # a rank's of recurrentgemma-2b over 2
+RG_TP_WIDTH = 1280                 # a rank's RG-LRU width over 2
 # 7b against the unsharded step (bf16; the sharded layers all-reduce fp32
 # partial products and cast once): the loss and the grad norm relative to
 # the reference's; after the steps, each parameter leaf's change from its
@@ -1161,7 +1238,7 @@ def _sdpa_backward(q, k, v, do, causal: bool, window) -> tuple:
 
 
 def _flash_bwd_case(Sq: int, Skv: int, heads, dtype, gen, causal=True,
-                    window=None) -> dict:
+                    window=None, B: int = 1) -> dict:
     """B1's backward, through the L the forward kernel wrote, against its
     plain version (fp32 math from the same inputs and dO, its own L), with
     its time, the plain version's, SDPA's backward and the bound: 10 hd Hq
@@ -1174,11 +1251,11 @@ def _flash_bwd_case(Sq: int, Skv: int, heads, dtype, gen, causal=True,
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref)
     HQ, KV, HD = heads
-    q = torch.randn((1, Sq, HQ, HD), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((1, Skv, KV, HD), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((1, Skv, KV, HD), generator=gen, device="cuda").to(dtype)
-    do = torch.randn((1, Sq, HQ, HD), generator=gen, device="cuda").to(dtype)
-    lse = torch.empty((1, HQ, Sq), device="cuda")
+    q = torch.randn((B, Sq, HQ, HD), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Skv, KV, HD), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Skv, KV, HD), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((B, Sq, HQ, HD), generator=gen, device="cuda").to(dtype)
+    lse = torch.empty((B, HQ, Sq), device="cuda")
     with torch.no_grad():
         o = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                  lse=lse)
@@ -1196,8 +1273,9 @@ def _flash_bwd_case(Sq: int, Skv: int, heads, dtype, gen, causal=True,
     rel = [e / float(w.float().abs().max()) for e, w in zip(errs, want)]
     same = all(torch.equal(a, b) for a, b in zip(got, kern()))
     del got, want
-    plan = plan_bwd(1, Sq, Skv, HQ, KV, HD, dtype)
-    shape = (f"Sq={Sq} Skv={Skv} Hq={HQ} K={KV} hd={HD} "
+    plan = plan_bwd(B, Sq, Skv, HQ, KV, HD, dtype)
+    shape = ((f"B={B} " if B > 1 else "") +
+             f"Sq={Sq} Skv={Skv} Hq={HQ} K={KV} hd={HD} "
              f"{'causal' if causal else 'non-causal'} window={window}")
     kernels = _passes(kern, B1_BWD_KERNELS, plan["launches"],
                       f"flash_attention_bwd {shape}")
@@ -1217,7 +1295,7 @@ def _flash_bwd_case(Sq: int, Skv: int, heads, dtype, gen, causal=True,
     qpos = np.arange(Sq)
     lo = np.maximum(0, qpos - window + 1) if window else np.zeros(Sq)
     hi = np.minimum(qpos, Skv - 1) if causal else np.full(Sq, Skv - 1)
-    pairs = float(np.sum(hi - lo + 1))
+    pairs = B * float(np.sum(hi - lo + 1))
     n_bytes = q.element_size() * 4.0 * (q.numel() + k.numel())
     b_ms, b_by = bound_ms(n_bytes, 10.0 * HD * HQ * pairs, dtype)
     library, backend, refused = _sdpa_backward(q, k, v, do, causal, window)
@@ -1332,6 +1410,32 @@ def _long_cases(gen, cases: dict, main: dict) -> None:
                      Sc=LONG_SEQ, B=STEPS_DECODE_BATCH)
     cases["decode_attention"].append(c)
     main["decode_attention_32k"] = c
+
+
+def _hybrid_cases(gen) -> dict:
+    """The kernels at 7g's shapes, a rank's of RecurrentGemma-2B over two:
+    B1 (5 query heads over its one KV head, hd 256) at the serve's
+    3000-token prompt in the 2048 window, B2 over the rotating 2048 rows
+    at the last serve step's position, B1's backward at the training's
+    B=2 S=4096; B3 on 1280 of the RG-LRU width, forward at the prefill's
+    S=3000, backward at the training's B=2 S=4096. Returns
+    the table's case name -> (the kernel's list in ``phase_kernels``, the
+    case)."""
+    bf16 = torch.bfloat16
+    B = RG_SERVE["batch"]
+    return {
+        "flash_attention_rg_tp": ("flash_attention", _flash_case(
+            RG_SERVE["prompt"], 2048, bf16, gen, RG_TP_HEADS)),
+        "decode_attention_rg_tp": ("decode_attention", _decode_case(
+            [RG_SERVE["prompt"] + RG_SERVE["steps"] - 1] * B, 2048, bf16,
+            gen, RG_TP_HEADS, B=B)),
+        "rglru_scan_tp": ("rglru_scan", _scan_case(
+            B, RG_SERVE["prompt"], RG_TP_WIDTH, gen, model_gates=True)),
+        "flash_attention_bwd_rg_tp": ("flash_attention_bwd", _flash_bwd_case(
+            TRAIN_SEQ, TRAIN_SEQ, RG_TP_HEADS, bf16, gen, window=2048,
+            B=STEPS_RG_BATCH)),
+        "rglru_scan_bwd_tp": ("rglru_scan_bwd", _scan_bwd_case(
+            STEPS_RG_BATCH, TRAIN_SEQ, RG_TP_WIDTH, gen))}
 
 
 def phase_kernels(report: dict) -> dict:
@@ -1458,8 +1562,11 @@ def phase_kernels(report: dict) -> dict:
                         window=256)]
     main["flash_attention_bwd"] = cases["flash_attention_bwd"][0]
     main["flash_attention_bwd_rg"] = cases["flash_attention_bwd"][1]
-    cases["rglru_scan_bwd"] = [_scan_bwd_case(1, 4096, 2560, gen)]
+    cases["rglru_scan_bwd"] = [_scan_bwd_case(1, TRAIN_SEQ, 2560, gen)]
     main["rglru_scan_bwd"] = cases["rglru_scan_bwd"][0]
+    for key, (name, c) in _hybrid_cases(gen).items():
+        cases[name].append(c)
+        main[key] = c
     # B4's at xlstm-350m's training shape, then ragged chunks from a state
     cases["mlstm_chunk_bwd"] = [
         _mlstm_bwd_case(1, TRAIN_SEQ, 4, 512, False, gen),
@@ -2079,13 +2186,14 @@ def _kernel_times(prof) -> tuple:
 
 
 def phase_train(report: dict, tag: str, arch: str,
-                n_steps: int = TRAIN_STEPS) -> dict:
+                n_steps: int = TRAIN_STEPS, n_layers=None) -> dict:
     """Train ``arch`` at its published shape on one card through
     ``train()``: bf16 parameters (the RG-LRU's lam fp32), AdamW with bf16
     moments, B=1, S=4096 from ``TokenStream(seed=0)``, remat on, ``n_steps``
-    steps.
+    steps, at ``n_layers`` of its layers where given.
     Prints each step's wall, loss, grad norm and lr, the peak memory, and
-    the device-busy share of step 2 by torch.profiler (and the host share
+    the device-busy share of step 2 (the last where there are fewer steps)
+    by torch.profiler (and the host share
     of the xLSTM's sLSTM loop, span ``xlstm.slstm_steps``); fails on a
     non-finite loss or norm, on launch counts a step that differ from
     ``train_plan``, and on a bf16 B1 forward off the tensor-core kernel.
@@ -2102,6 +2210,8 @@ def phase_train(report: dict, tag: str, arch: str,
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.train_loop import train
     cfg = get_config(arch)
+    if n_layers is not None:           # the depth cut, the widths kept
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     plan = train_plan(cfg)
     counters = {"flash_attention": (flash_attention_cuda, "launches_sm90"),
                 "flash_attention_bwd": (flash_attention_bwd_cuda,
@@ -2120,6 +2230,7 @@ def phase_train(report: dict, tag: str, arch: str,
     total = {k: 0 for k in counters}
     steps = []
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    profiled = min(2, n_steps - 1)
 
     def on_step(step, metrics):
         torch.cuda.synchronize()
@@ -2147,9 +2258,9 @@ def phase_train(report: dict, tag: str, arch: str,
             raise SystemExit(f"{arch}: step {step} launched {got} and "
                              f"{cuda_core} CUDA-core B1 forwards, the plan "
                              f"is {plan} and none")
-        if step == 1:              # profile step 2
+        if step == profiled - 1:
             prof.start()
-        elif step == 2:
+        elif step == profiled:
             prof.stop()
 
     log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers at the published "
@@ -2169,7 +2280,7 @@ def phase_train(report: dict, tag: str, arch: str,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     by_kernel, spans = _kernel_times(prof)
     device_ms = sum(ms for _, ms in by_kernel.values())
-    wall_ms = 1e3 * steps[2]["wall_s"]
+    wall_ms = 1e3 * steps[profiled]["wall_s"]
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:8]
     shares = {}
     for name, (_, ms) in by_kernel.items():
@@ -2179,11 +2290,12 @@ def phase_train(report: dict, tag: str, arch: str,
         shares[kind] = shares.get(kind, 0.0) + ms
     log(f"[{tag}] {n_params} parameters; {run_s:.1f} s in all (weights and "
         f"moments drawn included); peak memory {peak_gb:.2f} GB")
-    log(f"[{tag}] step 2 under torch.profiler: device busy {device_ms:.1f} "
+    log(f"[{tag}] step {profiled} under torch.profiler: device busy "
+        f"{device_ms:.1f} "
         f"ms of {wall_ms:.1f} ms wall = {device_ms / wall_ms:.3f}; top "
         "device kernels (launches, ms): " +
         "; ".join(f"{k[:60]}: {n}, {ms:.1f}" for k, (n, ms) in top))
-    log(f"[{tag}] step 2's device ms by kind: " + ", ".join(
+    log(f"[{tag}] step {profiled}'s device ms by kind: " + ", ".join(
         f"{k} {ms:.1f}" for k, ms in sorted(shares.items(),
                                              key=lambda kv: -kv[1])))
     b4_bwd = {}   # B4's backward by pass: (launches, ms)
@@ -2193,9 +2305,11 @@ def phase_train(report: dict, tag: str, arch: str,
             b4_bwd[m.group()] = (n, ms)
     if b4_bwd:
         b4_ms = sum(ms for _, ms in b4_bwd.values())
-        log(f"[{tag}] step 2: B4 backward {b4_ms:.2f} ms of device time; "
+        log(f"[{tag}] step {profiled}: B4 backward {b4_ms:.2f} ms of device "
+            "time; "
             f"by pass (launches, ms): {b4_bwd}")
-    log(f"[{tag}] step 2: {sum(n for n, _ in by_kernel.values())} device "
+    log(f"[{tag}] step {profiled}: {sum(n for n, _ in by_kernel.values())} "
+        "device "
         "kernels" + "".join(f"; span {k} {ms:.1f} ms host = "
                             f"{ms / wall_ms:.3f} of the wall"
                             for k, ms in spans.items()))
@@ -2350,10 +2464,13 @@ def _logits_check(out, ref) -> dict:
             "clear_rows": int(clear.sum()), "ok": ok}
 
 
-def _greedy(lm, params, tokens, max_len: int, steps: int):
-    """Prefill and ``steps`` greedy decode steps: (the logits of each, as
-    fp32 (steps + 1, B, V) on the host; the fed tokens (B, steps))."""
-    cache = lm.init_cache(tokens.shape[0], max_len, dtype=torch.bfloat16,
+def _greedy(lm, params, tokens, max_len: int, steps: int,
+            keep_cache: bool = False, dtype=torch.bfloat16):
+    """Prefill and ``steps`` greedy decode steps, the cache in ``dtype``:
+    (the logits of each, as fp32 (steps + 1, B, V) on the host; the fed
+    tokens (B, steps); where ``keep_cache``, also the cache after the last
+    step)."""
+    cache = lm.init_cache(tokens.shape[0], max_len, dtype=dtype,
                           device="cuda")
     logits, cache = lm.prefill(params, {"tokens": tokens}, cache)
     outs, fed = [logits.float().cpu()], []
@@ -2361,6 +2478,8 @@ def _greedy(lm, params, tokens, max_len: int, steps: int):
         fed.append(logits.argmax(-1))
         logits, cache = lm.decode_step(params, fed[-1], cache)
         outs.append(logits.float().cpu())
+    if keep_cache:
+        return torch.stack(outs), torch.stack(fed, 1), cache
     return torch.stack(outs), torch.stack(fed, 1)
 
 
@@ -2526,7 +2645,7 @@ def _dist_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
     from repro_torch.launch.shardspecs import local_params
     from repro_torch.models import LM
     from repro_torch.models import sharding as SH
-    from repro_torch.models.transformer import whole_logits
+    from repro_torch.models.vocab import whole_logits
     t_start = time.perf_counter()
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2698,15 +2817,22 @@ def phase_dist(report: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def _step_counters(reset: bool = False) -> dict:
-    """B1 forward (all, sm90), B1 backward, B2 (all, sm90) and the
-    all-reduces (count, bytes, host seconds), set to 0 where ``reset``."""
+    """B1 forward (all, sm90), B1 backward, B2 (all, sm90), B3 forward and
+    backward and the all-reduces and all-gathers (count, bytes, host
+    seconds), set to 0 where ``reset``."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda,
     )
+    from repro_torch.kernels.rglru_scan.kernel import (rglru_scan_bwd_cuda,
+                                                       rglru_scan_cuda)
     out = _counters(reset)
-    if reset:
-        flash_attention_bwd_cuda.launches = 0
-    out["flash_attention_bwd.launches"] = flash_attention_bwd_cuda.launches
+    fns = {"flash_attention_bwd": flash_attention_bwd_cuda,
+           "rglru_scan": rglru_scan_cuda,
+           "rglru_scan_bwd": rglru_scan_bwd_cuda}
+    for name, fn in fns.items():
+        if reset:
+            fn.launches = 0
+        out[f"{name}.launches"] = fn.launches
     return out
 
 
@@ -3090,7 +3216,8 @@ def _route_log(check: dict) -> str:
 
 def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
                    opt_cfg, param_mode: str = "2d", reference=None,
-                   keep: bool = False) -> tuple:
+                   keep: bool = False,
+                   check_after: int = STEPS_TRAIN_STEPS) -> tuple:
     """Train ``cfg`` on ``shape`` for STEPS_TRAIN_STEPS steps through
     ``build_train_step(..., param_mode=param_mode)`` on ``mesh`` and hold
     it against rank 0's run of the same steps on ``ref_mesh`` (its
@@ -3108,10 +3235,11 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
     reference (``_route_check``); the choices dropped by capacity are
     counted (forward and remat's recompute). ``reference`` (rank 0): an
     earlier call's kept reference of the same ``cfg``, ``shape`` and
-    ``opt_cfg``, used in place of running it again. Returns (the
-    reference's and the run's steps, launches, collectives, peaks and
-    checks; on rank 0 where ``keep``, the reference for a later call, else
-    None)."""
+    ``opt_cfg``, used in place of running it again. ``check_after``: the
+    step after which the leaves are held (the reference's are kept then,
+    the run's checked then and the steps go on). Returns (the reference's
+    and the run's steps, launches, collectives, peaks and checks; on rank 0
+    where ``keep``, the reference for a later call, else None)."""
     import torch.distributed as dist
 
     from repro_torch.launch.shardspecs import param_blocks
@@ -3120,7 +3248,10 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
     from repro_torch.launch.train import local_batches
     from repro_torch.models.params import flatten
 
-    def train(built, what, keep_init):
+    def train(built, what, at_check, keep_init):
+        """The steps, ``at_check(params, opt, init)`` called after step
+        ``check_after`` (``init``: the parameters drawn before the steps,
+        on the host, where ``keep_init``)."""
         gen = torch.Generator(device="cuda").manual_seed(0)
         params = init_params(cfg, built, gen, "cuda")
         init = {k: t.to("cpu", copy=True)
@@ -3129,7 +3260,11 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
         batches = local_batches(cfg, built, shape, 0, "cuda")
         steps = []
         _step_counters(reset=True)
-        for i in range(STEPS_TRAIN_STEPS):
+        for i in range(STEPS_TRAIN_STEPS + 1):
+            if i == check_after:
+                at_check(params, opt, init)
+            if i == STEPS_TRAIN_STEPS:
+                break
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             params, opt, m = built.fn(params, opt, next(batches))
@@ -3139,7 +3274,7 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
             log(f"[steps r{rank}] {tag} {what} step {i}: {m['wall_s']:.2f} "
                 f"s, loss {m['loss']:.6f}, grad norm {m['grad_norm']:.6f}, "
                 f"lr {m['lr']:.3g}")
-        return params, opt, init, steps, _step_counters()
+        return params, opt, steps, _step_counters()
 
     res = {}
     routes: list = []           # the reference's MoE routing, call by call
@@ -3157,12 +3292,17 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
         log(f"[steps r0] {tag}: the reference reused (kept on the host)")
     elif rank == 0:
         built = build_train_step(cfg, ref_mesh, shape, opt_cfg=opt_cfg)
+        ref = {}
+
+        def keep_ref(params, opt, _):
+            ref.update(
+                params={k: t.cpu() for k, t in flatten(params).items()},
+                m={k: t.cpu() for k, t in flatten(opt["m"]).items()},
+                v={k: t.cpu() for k, t in flatten(opt["v"]).items()})
         with _routes(routes):
-            params, opt, _, steps, counts = train(built, "unsharded", False)
+            params, opt, steps, counts = train(built, "unsharded", keep_ref,
+                                               False)
         routes = _host_routes(routes)
-        ref = {"params": {k: t.cpu() for k, t in flatten(params).items()},
-               "m": {k: t.cpu() for k, t in flatten(opt["m"]).items()},
-               "v": {k: t.cpu() for k, t in flatten(opt["v"]).items()}}
         res["ref"] = {"steps": steps, "counters": counts,
                       "peak_gb": _peak_gb()}
         del params, opt, built
@@ -3188,9 +3328,20 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
     calls: list = []
     if moe:
         routes = _routes_from_rank0(routes if rank == 0 else {}, rank)
+
+    def check_leaves(params, opt, init):
+        # the training's cached blocks back to the card, on every rank
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res["leaves"] = _train_check(rank, param_blocks(cfg, mesh,
+                                                        built.rules),
+                                     params, opt, init, ref)
+        res["leaf_check_s"] = time.perf_counter() - t0
     with _routes(calls, routes["expert"]) if moe else \
             contextlib.nullcontext():
-        params, opt, init, steps, counts = train(built, "sharded", True)
+        params, opt, steps, counts = train(built, "sharded", check_leaves,
+                                           True)
     checks = []
     if moe:
         run = _host_routes(calls)
@@ -3219,7 +3370,11 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
         f"walls {[round(s['wall_s'], 2) for s in steps]} s; B1 "
         f"forward {counts['flash_attention.launches']} "
         f"({counts['flash_attention.launches_sm90']} sm90), backward "
-        f"{counts['flash_attention_bwd.launches']}; all-reduces "
+        f"{counts['flash_attention_bwd.launches']}; "
+        + (f"B3 forward {counts['rglru_scan.launches']}, backward "
+           f"{counts['rglru_scan_bwd.launches']}; "
+           if cfg.family == "hybrid" else "") +
+        f"all-reduces "
         f"{counts['all_reduce.calls']} ({counts['all_reduce.bytes']} bytes, "
         f"{counts['all_reduce.seconds']:.2f} host s; [count, bytes] by mesh "
         f"axes {counts['all_reduce.by_axis']}); all-gathers "
@@ -3228,16 +3383,9 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
         f"{counts['all_gather.by_axis']}); "
         + (f"MoE choices dropped by capacity {counts['moe.dropped']}; "
            if moe else "") + f"peak {res['peak_gb']:.2f} GB")
-    # the training's cached blocks back to the card, on every rank
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    leaves = _train_check(rank, param_blocks(cfg, mesh, built.rules), params,
-                          opt, init, ref)
-    res["leaves"] = leaves
-    res["leaf_check_s"] = time.perf_counter() - t0
+    leaves = res["leaves"]
     if rank == 0:
-        log(f"[steps r0] {tag} after step {STEPS_TRAIN_STEPS}: every rank's "
+        log(f"[steps r0] {tag} after step {check_after}: every rank's "
             f"parameter blocks' change from their initial values, AdamW m "
             f"and v against the unsharded step's, leaf by leaf: worst error "
             f"over its tolerance {leaves['worst_over_tol']} (the change "
@@ -3247,7 +3395,7 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
             f"{leaves['moved_share']:.4f} of the compared parameter values; "
             f"{res['leaf_check_s']:.1f} s")
     kept = (res["ref"], ref) if keep and rank == 0 else None
-    del params, opt, init, built, ref
+    del params, opt, built, ref
     gc.collect()
     torch.cuda.empty_cache()
     dist.barrier()
@@ -3443,8 +3591,298 @@ def _moe_serve(rank: int, cfg, mesh) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def _kept_logits(kept: list):
+    """While the context lasts, each ``LM.prefill`` and ``LM.decode_step``
+    call (a built step's, which takes the argmax of its whole logits)
+    appends a fp32 copy of its logits to ``kept``, on the device (no
+    synchronisation inside a timed step)."""
+    from repro_torch.models.api import LM
+    prefill, decode = LM.prefill, LM.decode_step
+
+    def keep(fn):
+        def wrapped(self, *args, **kw):
+            logits, cache = fn(self, *args, **kw)
+            kept.append(logits.detach().float().clone())
+            return logits, cache
+        return wrapped
+    LM.prefill, LM.decode_step = keep(prefill), keep(decode)
+    try:
+        yield
+    finally:
+        LM.prefill, LM.decode_step = prefill, decode
+
+
+def _rec_leaves(cache) -> dict:
+    """The rec slots' leaves of a hybrid cache (path -> tensor): each
+    stacked or ``rest`` rec slot's conv tail (``.../0``) and h
+    (``.../1``)."""
+    from repro_torch.models.params import flatten
+    return {k: t for k, t in flatten(cache).items()
+            if k.split("/")[-1] in ("0", "1")}
+
+
+def _rel_max(a, b) -> float:
+    """max |a - b| / max |b|."""
+    return float((a.float() - b.float()).abs().max()) / \
+        max(float(b.float().abs().max()), 1e-30)
+
+
+def _worst(rows, what: str) -> float:
+    return max(c[what] for c in rows)
+
+
+def _hybrid_serve(rank: int, cfg, mesh) -> dict:
+    """7g-serve: ``build_prefill_step`` and ``build_serve_step`` of the
+    hybrid ``cfg`` under ``standard_rules`` on ``mesh``, each rank its
+    blocks drawn by ``init_params`` (its query heads, the KV head, its d_ff
+    columns, its RG-LRU width and gate blocks, its vocabulary ids),
+    RG_SERVE's prompt of 3000 tokens into the rotating 2048-row
+    window, then 16 serve steps fed the reference's tokens. Rank 0 first
+    runs the same prompts unsharded twice, keeps each run's logits and
+    final rec states on the host and frees the card: in fp32 (the bf16
+    draw's weights upcast, its caches in fp32; greedy, its tokens the
+    feed) and in bf16 on the same feed. The sharded steps are timed and
+    counted; the whole logits each step takes its argmax of are kept
+    (``_kept_logits``). The logits of the serve's passes, and each rank's
+    channels of the rec leaves after the steps, must differ from the
+    unsharded bf16 model's by no more than that model's differ from the
+    fp32 model's (max |d| / max |ref|, the worst pass against the worst
+    pass, the worst leaf against the worst leaf: each varies by ~15%
+    between runs): the sharding's change within what bf16's rounding alone
+    makes of the function. Each token must equal the fp32
+    model's argmax wherever its top-2 gap exceeds DIST_TOL of max |logit|
+    (``_tokens_check``). Then the same sharded steps run in fp32, the
+    rank's blocks upcast and the caches in fp32, on the same feed: every
+    pass's logits and the rank's channels of every rec leaf within
+    RG_FP32_TOL of the unsharded fp32 model's (max |d| / max |ref|), its
+    tokens held as the bf16 run's."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.steps import build_step, init_params, materialize
+    from repro_torch.models import LM
+    from repro_torch.models.params import flatten, map_leaves
+    sv = RG_SERVE
+    lm = LM(cfg)
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (sv["batch"], sv["prompt"])), device="cuda")
+    # the fp32 and the bf16 reference's logits and rec states after the
+    # steps (whole, on the host), and the feed
+    refs = {d: torch.zeros((sv["steps"] + 1, sv["batch"], cfg.vocab_size))
+            for d in ("fp32", "bf16")}
+    fed = torch.zeros((sv["batch"], sv["steps"]), dtype=torch.long)
+    like = _rec_leaves(lm.init_cache(sv["batch"], sv["max_len"],
+                                     device="meta"))
+    states = {d: {k: torch.zeros(t.shape) for k, t in like.items()}
+              for d in ("fp32", "bf16")}
+    res = {}
+    torch.cuda.reset_peak_memory_stats()
+    if rank == 0:
+        t0 = time.perf_counter()
+        params = lm.init(torch.Generator(device="cuda").manual_seed(0),
+                         dtype=torch.bfloat16, device="cuda")
+        refs["fp32"], fed, cache = _greedy(
+            lm, map_leaves(torch.Tensor.float, params), tokens,
+            sv["max_len"], sv["steps"], keep_cache=True, dtype=torch.float32)
+        states["fp32"] = {k: t.float().cpu()
+                          for k, t in _rec_leaves(cache).items()}
+        del cache
+        cache = lm.init_cache(sv["batch"], sv["max_len"], device="cuda")
+        logits, cache = lm.prefill(params, {"tokens": tokens}, cache)
+        outs = [logits.float().cpu()]
+        for i in range(sv["steps"]):
+            logits, cache = lm.decode_step(params, fed[:, i], cache)
+            outs.append(logits.float().cpu())
+        refs["bf16"] = torch.stack(outs)
+        states["bf16"] = {k: t.float().cpu()
+                          for k, t in _rec_leaves(cache).items()}
+        res["ref"] = {"seconds": time.perf_counter() - t0,
+                      "peak_gb": _peak_gb()}
+        del params, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[steps r0] 7g-serve: the unsharded model in fp32, then in bf16 "
+            f"on its feed, at {cfg.n_layers} layers in "
+            f"{res['ref']['seconds']:.1f} s, peak {res['ref']['peak_gb']:.2f}"
+            " GB")
+    refs = {d: _from_rank0(t, rank) for d, t in refs.items()}
+    fed = _from_rank0(fed.cpu(), rank)
+    states = {d: {k: _from_rank0(t, rank) for k, t in leaves.items()}
+              for d, leaves in states.items()}
+    torch.cuda.reset_peak_memory_stats()
+    pre = build_step(cfg, mesh, InputShape("prefill_rg", sv["prompt"],
+                                           sv["batch"], "prefill"))
+    dec = build_step(cfg, mesh, InputShape("decode_rg", sv["max_len"],
+                                           sv["batch"], "decode"))
+    params = init_params(cfg, pre, torch.Generator(device="cuda")
+                         .manual_seed(0), "cuda")
+    n_local = sum(t.numel() for t in flatten(params).values())
+    kept: list = []
+    with _kept_logits(kept):
+        cache = materialize(dec.args[2], "cuda")
+        _step_counters(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, cache = pre.fn(params, {"tokens": tokens}, cache)
+        out = [tok.cpu()]
+        walls = [time.perf_counter() - t0]
+        pc = _step_counters()
+        _step_counters(reset=True)
+        for i in range(sv["steps"]):
+            t0 = time.perf_counter()
+            tok, cache = dec.fn(params, fed[:, i].to("cuda", torch.int32),
+                                cache)
+            out.append(tok.cpu())                 # synchronises
+            walls.append(time.perf_counter() - t0)
+        dc = _step_counters()
+    logits = torch.stack([t.cpu() for t in kept])
+    # by pass: the sharded run against the bf16 and the fp32 model, and
+    # the bf16 model against the fp32 one (the floor)
+    passes = [{"vs_bf16": _rel_max(o, r16), "vs_fp32": _rel_max(o, r32),
+               "floor": _rel_max(r16, r32)}
+              for o, r16, r32 in zip(logits, refs["bf16"], refs["fp32"])]
+    tokens_ok = _tokens_check(torch.stack(out), refs["fp32"])
+    # this rank's channels of each rec leaf: its block of the width
+    width = cfg.lru_width or cfg.d_model
+
+    def mine(key, t, d):
+        n = t.shape[-1]
+        assert n * mesh.size(1) == width, (key, tuple(t.shape))
+        return states[d][key][..., rank * n:(rank + 1) * n]
+    leaves = {}
+    for key, t in _rec_leaves(cache).items():
+        s16, s32 = mine(key, t, "bf16"), mine(key, t, "fp32")
+        leaves[key] = {"vs_bf16": _rel_max(t.cpu(), s16),
+                       "vs_fp32": _rel_max(t.cpu(), s32),
+                       "floor": _rel_max(s16, s32)}
+    attn_shape = tuple(flatten(cache)["slots/2/k"].shape)
+    res.update(walls_s=walls, prefill_counters=pc, serve_counters=dc,
+               logits=passes, tokens=tokens_ok, states=leaves,
+               logits_ok=_worst(passes, "vs_bf16") <= _worst(passes, "floor"),
+               states_ok=_worst(leaves.values(), "vs_bf16") <=
+               _worst(leaves.values(), "floor"),
+               local_parameters=n_local, peak_gb=_peak_gb(),
+               cache_shapes={"attention": attn_shape,
+                             "h": tuple(flatten(cache)["slots/0/1"].shape)})
+    # the same steps in fp32 on the same blocks upcast, against the
+    # unsharded fp32 model (not timed; its launches are not the path's)
+    del cache, kept
+    params = map_leaves(torch.Tensor.float, params)
+    kw = {"dtype": torch.float32}
+    pre, dec = (build_step(cfg, mesh, b, **kw) for b in (
+        InputShape("prefill_rg", sv["prompt"], sv["batch"], "prefill"),
+        InputShape("decode_rg", sv["max_len"], sv["batch"], "decode")))
+    kept = []
+    with _kept_logits(kept):
+        cache = materialize(dec.args[2], "cuda")
+        tok, cache = pre.fn(params, {"tokens": tokens}, cache)
+        out32 = [tok.cpu()]
+        for i in range(sv["steps"]):
+            tok, cache = dec.fn(params, fed[:, i].to("cuda", torch.int32),
+                                cache)
+            out32.append(tok.cpu())
+    fp32 = {"logits": [_rel_max(o.cpu(), r32)
+                       for o, r32 in zip(kept, refs["fp32"])],
+            "states": {key: _rel_max(t.cpu(), mine(key, t, "fp32"))
+                       for key, t in _rec_leaves(cache).items()},
+            "tokens": _tokens_check(torch.stack(out32), refs["fp32"])}
+    fp32["ok"] = bool(max(fp32["logits"]) <= RG_FP32_TOL and
+                      max(fp32["states"].values()) <= RG_FP32_TOL and
+                      fp32["tokens"]["ok"])
+    res["fp32"] = fp32
+    del params, cache, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[steps r{rank}] 7g-serve at {cfg.n_layers} layers: {n_local} "
+        f"parameters on this rank; prefill B={sv['batch']} x {sv['prompt']} "
+        f"{walls[0]:.2f} s (B1 {pc['flash_attention.launches']}, "
+        f"{pc['flash_attention.launches_sm90']} sm90; B3 "
+        f"{pc['rglru_scan.launches']} on the rank's (B, S, "
+        f"{width // mesh.size(1)}) block; all-reduces "
+        f"{pc['all_reduce.calls']}, {pc['all_reduce.bytes']} bytes, "
+        f"{pc['all_reduce.seconds']:.2f} host s, by mesh axes "
+        f"{pc['all_reduce.by_axis']}; all-gathers {pc['all_gather.calls']}, "
+        f"{pc['all_gather.bytes']} bytes, {pc['all_gather.seconds']:.2f} "
+        f"host s, by mesh axes {pc['all_gather.by_axis']}); "
+        f"{sv['steps']} serve steps median "
+        f"{np.median(walls[1:]) * 1e3:.1f} ms (B2 "
+        f"{dc['decode_attention.launches']}, "
+        f"{dc['decode_attention.launches_sm90']} sm90; B1 "
+        f"{dc['flash_attention.launches']}, B3 {dc['rglru_scan.launches']}; "
+        f"all-reduces {dc['all_reduce.calls']}, {dc['all_reduce.bytes']} "
+        f"bytes, {dc['all_reduce.seconds']:.2f} host s; all-gathers "
+        f"{dc['all_gather.calls']}, {dc['all_gather.bytes']} bytes, "
+        f"{dc['all_gather.seconds']:.2f} host s); attention cache of a slot "
+        f"{attn_shape}, h {res['cache_shapes']['h']}; peak "
+        f"{res['peak_gb']:.2f} GB")
+
+    def by(rows, what):
+        return [round(c[what], 5) for c in rows]
+    log(f"[steps r{rank}] 7g-serve logits, max |d| / max |ref| by pass: "
+        f"against the unsharded bf16 model {by(passes, 'vs_bf16')}, the "
+        f"worst within that model's own against the fp32 one "
+        f"{by(passes, 'floor')}: {res['logits_ok']} (against the fp32 model "
+        f"{by(passes, 'vs_fp32')}); tokens equal the fp32 model's argmax on "
+        f"{tokens_ok['agree']:.3f} of the rows, "
+        f"{tokens_ok['differ_on_clear']} differ of the "
+        f"{tokens_ok['clear_rows']} whose top-2 gap exceeds {DIST_TOL} max "
+        f"|logit|: {tokens_ok['ok']}; final rec states (conv tails .../0, h "
+        f".../1), the rank's channels: against the bf16 model "
+        f"{ {k: round(c['vs_bf16'], 5) for k, c in leaves.items()} }, the "
+        f"worst within its own against the fp32 one "
+        f"{ {k: round(c['floor'], 5) for k, c in leaves.items()} }: "
+        f"{res['states_ok']} (against the fp32 model "
+        f"{ {k: round(c['vs_fp32'], 5) for k, c in leaves.items()} })")
+    log(f"[steps r{rank}] 7g-serve in fp32 (the blocks upcast) against the "
+        f"unsharded fp32 model, max |d| / max |ref|: logits by pass "
+        f"{[float(f'{e:.3g}') for e in fp32['logits']]}, the rank's channels "
+        f"of the final rec states "
+        f"{ {k: float(f'{e:.3g}') for k, e in fp32['states'].items()} } "
+        f"(tol {RG_FP32_TOL}); tokens differ on "
+        f"{fp32['tokens']['differ_on_clear']} of "
+        f"{fp32['tokens']['clear_rows']} clear rows: {fp32['ok']}")
+    return res
+
+
+def _hybrid_steps(rank: int, res: dict, mesh, ref_mesh, opt_cfg) -> None:
+    """7g on this rank, its results into ``res``: RecurrentGemma-2B at its
+    published widths on ``mesh`` (1, 2), its RG-LRU width over "model":
+    STEPS_RG_TRAIN_LAYERS layers trained tensor parallel and then under
+    FSDP, both held against one unsharded run on ``ref_mesh`` (rank 0's
+    one-rank pool; the reference kept on the host where MemAvailable
+    holds it; the leaves after step RG_CHECK_AFTER), then all 26 layers
+    prefilled and served (``_hybrid_serve``)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import INPUT_SHAPES
+    rg = get_config("recurrentgemma-2b")
+    rg_cfg = dataclasses.replace(rg, n_layers=STEPS_RG_TRAIN_LAYERS)
+    rg_shape = dataclasses.replace(INPUT_SHAPES["train_4k"],
+                                   global_batch=STEPS_RG_BATCH)
+    t0 = time.perf_counter()
+    res["train_rg"], reference = _held_training(
+        rank, "7g-train", rg_cfg, rg_shape, ref_mesh, mesh, opt_cfg,
+        keep=True, check_after=RG_CHECK_AFTER)
+    if rank == 0:
+        ref_gb = sum(t.numel() * t.element_size() for part in
+                     reference[1].values() for t in part.values()) / 1e9
+        res["rg_fsdp_reference"] = {"leaves_gb": ref_gb,
+                                    "mem_available_gb": _mem_available_gb()}
+        if res["rg_fsdp_reference"]["mem_available_gb"] < ref_gb:
+            reference = None
+    res["train_rg_fsdp"], _ = _held_training(
+        rank, "7g-fsdp", rg_cfg, rg_shape, ref_mesh, mesh, opt_cfg,
+        param_mode="fsdp", reference=reference, check_after=RG_CHECK_AFTER)
+    del reference
+    gc.collect()
+    res["serve_rg"] = _hybrid_serve(rank, rg, mesh)
+    res["rg_seconds"] = time.perf_counter() - t0
+    dist.barrier()
+
+
 def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
-    """One rank of 7b, 7c, 7d and 7e on cuda:0 in a gloo world of two. 7b:
+    """One rank of 7b to 7g on cuda:0 in a gloo world of two. 7b:
     Llama-3.1-8B at full width and STEPS_TRAIN_LAYERS layers on the (1, 2)
     mesh under ``standard_rules`` (heads, d_ff and the vocabulary cut),
     held against rank 0's unsharded run on its one-rank pool
@@ -3457,8 +3895,12 @@ def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
     reference. 7f: Phi-3.5-MoE at its published widths on the (1, 2)
     mesh, its experts over "model": STEPS_MOE_TRAIN_LAYERS layers trained
     and held against rank 0's unsharded run, then STEPS_MOE_SERVE_LAYERS
-    layers prefilled and served (``_moe_serve``). Writes its results to
-    ``out_dir/steps_rank<rank>.json``."""
+    layers prefilled and served (``_moe_serve``). 7g: RecurrentGemma-2B at
+    its published widths on the (1, 2) mesh, its RG-LRU width over
+    "model": STEPS_RG_TRAIN_LAYERS layers trained tensor parallel and
+    under FSDP, both held against one unsharded run of rank 0's, then all
+    26 layers prefilled and served (``_hybrid_serve``). Writes its results
+    to ``out_dir/steps_rank<rank>.json``."""
     import dataclasses as dc
     import datetime
 
@@ -3548,7 +3990,7 @@ def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
     torch.cuda.empty_cache()
     dist.barrier()
     # 7d: the multi-pod batch over the flattened ("pod", "data"), a whole
-    # replica a rank: 8 of the 32 layers, so that two fit the card
+    # replica a rank: STEPS_POD_LAYERS of the 32 layers, so that two fit
     pod_cfg = dc.replace(full, n_layers=STEPS_POD_LAYERS)
     pod_shape = dc.replace(train_4k, global_batch=STEPS_POD_BATCH)
     res["train_pod"], reference = _held_training(
@@ -3580,16 +4022,87 @@ def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
         rank, dc.replace(phi, n_layers=STEPS_MOE_SERVE_LAYERS), mesh12)
     res["moe_seconds"] = time.perf_counter() - t0
     dist.barrier()
+    _hybrid_steps(rank, res, mesh12, pools[0], opt_cfg)
     res["seconds"] = time.perf_counter() - t_start
     Path(out_dir, f"steps_rank{rank}.json").write_text(json.dumps(res))
     dist.destroy_process_group()
 
 
-def phase_steps_ranks(report: dict) -> dict:
-    """7b to 7f: two gloo ranks sharing the card (``_steps_rank``), spawned
-    with ``torch.multiprocessing``; fails if a rank fails, outlasts what
-    is left of STEPS_TIMEOUT_S or finds a result off. Returns the launches
-    by path."""
+def _hybrid_problems(r: dict) -> list:
+    """7g's checks on rank ``r``'s results: each training run's B1 and B3
+    launches (all sm90) as ``train_plan`` of its 8 layers gives them for
+    its 2 steps; the tensor-parallel run's collectives over "model"
+    alone, the FSDP run's over "data+model" alone, half the parameters
+    a rank; the serve's logits, tokens and final rec states held, B1 a
+    layer of attention in the prefill and B3 a rec layer (on the rank's
+    block of the width), B2 a layer of attention a serve step and neither
+    B1 nor B3 there, its collectives over "model" alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import rglru
+    rg = get_config("recurrentgemma-2b")
+    cfg = dataclasses.replace(rg, n_layers=STEPS_RG_TRAIN_LAYERS)
+    plan = train_plan(cfg)
+    out = []
+    for run, tag, axes in (("train_rg", "7g-train", {"model"}),
+                           ("train_rg_fsdp", "7g-fsdp", {"data+model"})):
+        c = r[run]["counters"]
+        for name, want in plan.items():
+            if c[f"{name}.launches"] != want * STEPS_TRAIN_STEPS:
+                out.append(f"rank {r['rank']}: {tag} {name} launches "
+                           f"{c[f'{name}.launches']}, "
+                           f"{want * STEPS_TRAIN_STEPS} expected")
+        if c["flash_attention.launches_sm90"] != \
+                c["flash_attention.launches"]:
+            out.append(f"rank {r['rank']}: {tag} B1 off the sm90 kernel")
+        for name in ("all_reduce", "all_gather"):
+            got = set(c[f"{name}.by_axis"])
+            if got - axes:
+                out.append(f"rank {r['rank']}: {tag} {name} over {got}")
+    total = sum(math.prod(shape) for shape, _ in
+                rglru.param_specs(cfg).values())
+    if r["train_rg_fsdp"]["local_parameters"] * STEPS_WORLD != total:
+        out.append(f"rank {r['rank']}: 7g-fsdp holds "
+                   f"{r['train_rg_fsdp']['local_parameters']} of {total}")
+    serve = r["serve_rg"]
+    for what, detail in (("logits_ok", "logits"), ("states_ok", "states")):
+        if not serve[what]:
+            out.append(f"rank {r['rank']}: 7g-serve {detail} past bf16's "
+                       f"own: {serve[detail]}")
+    if not serve["tokens"]["ok"]:
+        out.append(f"rank {r['rank']}: 7g-serve tokens {serve['tokens']}")
+    if not serve["fp32"]["ok"]:
+        out.append(f"rank {r['rank']}: 7g-serve in fp32 past {RG_FP32_TOL} "
+                   f"of the unsharded fp32 model's: {serve['fp32']}")
+    n_attn = rg.layer_kinds().count("attn")
+    n_rec = rg.layer_kinds().count("rec")
+    pc, dc = serve["prefill_counters"], serve["serve_counters"]
+    for what, n, n_sm90, expected in (
+            ("prefill B1", pc["flash_attention.launches"],
+             pc["flash_attention.launches_sm90"], n_attn),
+            ("prefill B3", pc["rglru_scan.launches"],
+             pc["rglru_scan.launches"], n_rec),
+            ("serve B2", dc["decode_attention.launches"],
+             dc["decode_attention.launches_sm90"],
+             n_attn * RG_SERVE["steps"]),
+            ("serve B1", dc["flash_attention.launches"], 0, 0),
+            ("serve B3", dc["rglru_scan.launches"], 0, 0)):
+        if not n == n_sm90 == expected:
+            out.append(f"rank {r['rank']}: 7g {what} launches {n} "
+                       f"({n_sm90} sm90), {expected} expected")
+    for c in (pc, dc):
+        for name in ("all_reduce", "all_gather"):
+            if set(c[f"{name}.by_axis"]) - {"model"}:
+                out.append(f"rank {r['rank']}: 7g-serve {name} over "
+                           f"{set(c[f'{name}.by_axis'])}")
+    return out
+
+
+def _spawn_ranks(target, tag: str, limit: float) -> tuple:
+    """STEPS_WORLD gloo ranks sharing the card, spawned with
+    ``torch.multiprocessing``, each ``target(rank, world, rendezvous file,
+    out dir)`` writing ``build/<tag>_rank<r>.json``. Returns (the ranks'
+    results, seconds); fails if a rank fails or outlasts ``limit``
+    seconds, stopping them all."""
     import os
 
     import torch.multiprocessing as mp
@@ -3597,18 +4110,17 @@ def phase_steps_ranks(report: dict) -> dict:
     torch.cuda.empty_cache()
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
-    rdv = out_dir / f"steps_rdv_{os.getpid()}"
+    rdv = out_dir / f"{tag}_rdv_{os.getpid()}"
     rdv.unlink(missing_ok=True)
     for r in range(STEPS_WORLD):
-        (out_dir / f"steps_rank{r}.json").unlink(missing_ok=True)
+        (out_dir / f"{tag}_rank{r}.json").unlink(missing_ok=True)
     ctx = mp.get_context("spawn")
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=_steps_rank,
+    procs = [ctx.Process(target=target,
                          args=(r, STEPS_WORLD, str(rdv), str(out_dir)))
              for r in range(STEPS_WORLD)]
     for p in procs:
         p.start()
-    limit = STEPS_TIMEOUT_S - report["steps_serve"]["seconds"]
     while any(p.is_alive() for p in procs):
         if time.perf_counter() - t0 > limit or any(
                 p.exitcode not in (None, 0) for p in procs):
@@ -3625,17 +4137,32 @@ def phase_steps_ranks(report: dict) -> dict:
     secs = time.perf_counter() - t0
     bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
     if bad:
-        raise SystemExit(f"phase 7b-7f: ranks failed or outlasted "
-                         f"{limit:.0f} s (exit codes {bad})")
-    ranks = [json.loads((out_dir / f"steps_rank{r}.json").read_text())
-             for r in range(STEPS_WORLD)]
+        raise SystemExit(f"{tag}: ranks failed or outlasted {limit:.0f} s "
+                         f"(exit codes {bad})")
+    return [json.loads((out_dir / f"{tag}_rank{r}.json").read_text())
+            for r in range(STEPS_WORLD)], secs
+
+
+def phase_steps_ranks(report: dict) -> dict:
+    """7b to 7g: two gloo ranks sharing the card (``_steps_rank``); fails
+    if a rank fails, outlasts what is left of STEPS_TIMEOUT_S or finds a
+    result off. Returns the launches by path."""
+    ranks, secs = _spawn_ranks(
+        _steps_rank, "steps",
+        STEPS_TIMEOUT_S - report["steps_serve"]["seconds"])
     report["steps_ranks"] = {"seconds": secs, "ranks": ranks}
     problems = []
     held = {"train_tp": ("7b", STEPS_TRAIN_LAYERS),
             "train_pod": ("7d", STEPS_POD_LAYERS),
             "train_fsdp": ("7e", STEPS_POD_LAYERS),
             "train_moe": ("7f-train", STEPS_MOE_TRAIN_LAYERS)}
+    # the hybrid's runs are held as these, their launches by train_plan
+    held_rg = {"train_rg": "7g-train", "train_rg_fsdp": "7g-fsdp"}
     for r in ranks:
+        for run, tag in held_rg.items():
+            if not all(c["ok"] for c in r[run]["checks"]):
+                problems.append(f"rank {r['rank']}: {tag} loss or grad norm "
+                                f"off: {r[run]['checks']}")
         for run, (tag, _) in held.items():
             if not all(c["ok"] for c in r[run]["checks"]):
                 problems.append(f"rank {r['rank']}: {tag} loss, grad norm or "
@@ -3682,6 +4209,7 @@ def phase_steps_ranks(report: dict) -> dict:
             if not serve[what]["ok"]:
                 problems.append(f"rank {r['rank']}: 7f-serve {what} off: "
                                 f"{serve[what]}")
+        problems += _hybrid_problems(r)
         pc, dc = serve["prefill_counters"], serve["serve_counters"]
         n_serve = STEPS_MOE_SERVE_LAYERS * DIST_TP["steps"]
         for what, n, n_sm90, expected in (
@@ -3693,7 +4221,8 @@ def phase_steps_ranks(report: dict) -> dict:
             if not n == n_sm90 == expected:
                 problems.append(f"rank {r['rank']}: 7f {what} launches {n} "
                                 f"({n_sm90} sm90), {expected} expected")
-    for run, (tag, _) in held.items():
+    for run, tag in [(k, t) for k, (t, _) in held.items()] + \
+            list(held_rg.items()):
         leaves = ranks[0][run]["leaves"]
         if leaves["n_failed"]:
             problems.append(f"{tag}: {leaves['n_failed']} leaves off: "
@@ -3728,7 +4257,18 @@ def phase_steps_ranks(report: dict) -> dict:
                 bwd != [per_layer] * STEPS_WORLD:
             problems.append(f"{tag} B1 launches forward {fwd}, backward "
                             f"{bwd}")
-    log(f"[steps] 7b-7f in {secs:.1f} s; peak GB by rank: 7b reference "
+    rg_ref = ranks[0]["train_rg"]["ref"]
+    log(f"[steps] 7g in {[round(r['rg_seconds'], 1) for r in ranks]} s; "
+        f"peak GB by rank: 7g-train reference {rg_ref['peak_gb']:.2f}, "
+        f"tensor-parallel "
+        f"{[round(r['train_rg']['peak_gb'], 2) for r in ranks]}; 7g-fsdp "
+        f"{[round(r['train_rg_fsdp']['peak_gb'], 2) for r in ranks]} "
+        f"(reference reused: "
+        f"{ranks[0]['train_rg_fsdp']['ref'].get('reused', False)}, "
+        f"{ranks[0]['rg_fsdp_reference']}); 7g-serve reference "
+        f"{ranks[0]['serve_rg']['ref']['peak_gb']:.2f}, sharded "
+        f"{[round(r['serve_rg']['peak_gb'], 2) for r in ranks]}")
+    log(f"[steps] 7b-7g in {secs:.1f} s; peak GB by rank: 7b reference "
         f"{ranks[0]['train_tp']['ref']['peak_gb']:.2f}, tensor-parallel "
         f"{[round(r['train_tp']['peak_gb'], 2) for r in ranks]}; pools "
         f"{[round(r['pool_run']['peak_gb'], 2) for r in ranks]}; 7d "
@@ -3744,7 +4284,7 @@ def phase_steps_ranks(report: dict) -> dict:
         f"{[round(r['serve_moe']['peak_gb'], 2) for r in ranks]}; 7f in "
         f"{[round(r['moe_seconds'], 1) for r in ranks]} s")
     if problems:
-        raise SystemExit(f"phase 7b-7f: {problems}")
+        raise SystemExit(f"phase 7b-7g: {problems}")
 
     def total(run, name):
         return sum(r[run]["counters"][f"{name}.launches"] for r in ranks)
@@ -3770,19 +4310,28 @@ def phase_steps_ranks(report: dict) -> dict:
                 "flash_attention_bwd": total("train_moe",
                                              "flash_attention_bwd"),
                 "decode_attention": sum(r["serve_moe"]["serve_counters"][
-                    "decode_attention.launches"] for r in ranks)}}
+                    "decode_attention.launches"] for r in ranks)},
+            "steps-hybrid": {
+                name: sum(total(run, name) for run in held_rg) +
+                sum(r["serve_rg"][c][f"{name}.launches"] for r in ranks
+                    for c in ("prefill_counters", "serve_counters"))
+                for name in ("flash_attention", "flash_attention_bwd",
+                             "decode_attention", "rglru_scan",
+                             "rglru_scan_bwd")}}
 
 
 def phase_steps(report: dict) -> dict:
-    """Phase 7: 7a, then 7b to 7f; fails past STEPS_TIMEOUT_S."""
+    """Phase 7: 7a, then 7b to 7g; fails past STEPS_TIMEOUT_S."""
     t0 = time.perf_counter()
     by_path = phase_steps_serve(report)
     by_path.update(phase_steps_ranks(report))
     secs = time.perf_counter() - t0
-    log(f"[steps] phase 7 in {secs:.1f} s (7a {report['steps_serve']['seconds']:.1f}, "
-        f"7b-7f {report['steps_ranks']['seconds']:.1f}, of which 7f "
-        f"{max(r['moe_seconds'] for r in report['steps_ranks']['ranks']):.1f}"
-        ")")
+    ranks = report["steps_ranks"]["ranks"]
+    log(f"[steps] phase 7 in {secs:.1f} s (7a "
+        f"{report['steps_serve']['seconds']:.1f}, 7b-7g "
+        f"{report['steps_ranks']['seconds']:.1f}, of which 7f "
+        f"{max(r['moe_seconds'] for r in ranks):.1f}, 7g "
+        f"{max(r['rg_seconds'] for r in ranks):.1f})")
     if secs > STEPS_TIMEOUT_S:
         raise SystemExit(f"phase 7 took {secs:.0f} s, past "
                          f"{STEPS_TIMEOUT_S}")
@@ -3857,7 +4406,8 @@ def main() -> int:
     for arch in ("llama3.1-8b", "recurrentgemma-2b"):
         by_path[f"train-{arch}"] = phase_train(report, f"train-{arch}", arch)
     by_path["train-xlstm-350m"] = phase_train(
-        report, "train-xlstm-350m", "xlstm-350m", n_steps=XLSTM_TRAIN_STEPS)
+        report, "train-xlstm-350m", "xlstm-350m", n_steps=XLSTM_TRAIN_STEPS,
+        n_layers=XLSTM_TRAIN_LAYERS)
     secs["5 train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     by_path.update(phase_dist(report))
@@ -3867,6 +4417,8 @@ def main() -> int:
     secs["7 steps"] = time.perf_counter() - t0
     secs["7f moe, in 7"] = max(r["moe_seconds"] for r in
                                report["steps_ranks"]["ranks"])
+    secs["7g hybrid, in 7"] = max(r["rg_seconds"] for r in
+                                  report["steps_ranks"]["ranks"])
     log(f"[time] seconds by phase: "
         f"{ {k: round(v, 1) for k, v in secs.items()} }")
     report["phase_s"] = secs
@@ -3939,6 +4491,30 @@ def main() -> int:
          "source": "src/repro_torch/csrc/decode_attention_sm90.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
          "case": "decode_attention_tp", "path": "steps-moe"},
+        # phase 7g: RecurrentGemma-2B's rank of 5/1 heads and 1280 of the
+        # RG-LRU width (its phase 2 cases)
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:84",
+         "case": "flash_attention_rg_tp", "path": "steps-hybrid"},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention_sm90.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
+         "case": "decode_attention_rg_tp", "path": "steps-hybrid"},
+        {"name": "rglru_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan/kernel.py:54",
+         "case": "rglru_scan_tp", "path": "steps-hybrid"},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:84",
+         "grad_of": "src/repro/models/layers.py:105 gqa_attention",
+         "case": "flash_attention_bwd_rg_tp", "path": "steps-hybrid"},
+        {"name": "rglru_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan/kernel.py:54",
+         "grad_of": "src/repro/models/rglru.py:114 associative_scan",
+         "case": "rglru_scan_bwd_tp", "path": "steps-hybrid"},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:54"},

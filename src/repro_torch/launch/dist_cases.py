@@ -16,7 +16,8 @@ rules. The inputs (all made from a seed by the caller):
   the MoE FFN's, two groups of its 64 tokens;
 - ``layer/<arch>/<name>``: one attention block's and one FFN's weights;
   ``layer/<moe arch>/moe/<name>`` one MoE FFN's (``shared/...`` its
-  shared expert's);
+  shared expert's); ``layer/rg/rec/<name>`` one rec block's of the reduced
+  RecurrentGemma, ``rec/tail`` and ``rec/h`` a state of it;
 - ``lm/<path>``: the reduced Llama-3.1-8B's parameters, flattened as
   ``repro.training.checkpoint._flatten`` names them; ``lm/tokens`` (B, S)
   the prompt and ``lm/steps`` (B, n) the tokens fed to the decode steps.
@@ -32,6 +33,10 @@ What each rank writes (its own block, in fp32), by case:
   aux loss under ``tp_bf16_ar`` on the (1, 4) mesh, each rank one of the
   reduced config's 4 experts and router columns (and its block of the
   shared expert's d_ff), cut as a layer stack of one;
+- ``tp/rg/<dtype>/{rec,tail,h}``: the reduced RecurrentGemma's rec block
+  (``rglru._rec_block``) of ``x`` from the state ``rec/{tail,h}`` under
+  ``tp_bf16_ar`` on the (1, 4) mesh, its output and the rank's block of
+  the new state;
 - ``lm/<case>/{prefill,step<i>,train}``: the reduced model's logits through
   ``LM.prefill`` and ``decode_step`` (and ``forward_train`` under tensor
   parallelism, its vocabulary block gathered), ``lm/<case>/cache/<slot>/
@@ -57,10 +62,10 @@ from repro_torch.launch.mesh import batch_axes_for, make_mesh
 from repro_torch.launch.shardspecs import local_leaf, local_params
 from repro_torch.models import LM
 from repro_torch.models import layers as L
-from repro_torch.models import moe_layer
+from repro_torch.models import moe_layer, rglru
 from repro_torch.models import sharding as SH
 from repro_torch.models.params import flatten
-from repro_torch.models.transformer import whole_logits
+from repro_torch.models.vocab import whole_logits
 
 MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
 ARCHS = {"llama": "llama3.1-8b", "starcoder2": "starcoder2-15b"}
@@ -156,6 +161,28 @@ def tp_moe(inp, mesh, out: Dict[str, np.ndarray]) -> None:
                 out[f"tp/{arch}/{dname}/aux"] = _np(aux)
 
 
+def tp_rec(inp, mesh, out: Dict[str, np.ndarray]) -> None:
+    """The reduced RecurrentGemma's rec block from the given state under
+    ``tp_bf16_ar``: the leaves cut by ``shardspecs.local_leaf``, the state
+    to the rank's block of the RG-LRU width."""
+    cfg = get_config("recurrentgemma-2b").reduced()
+    pre = "layer/rg/rec/"
+    with SH.use_rules(rules_tp(), mesh):
+        for dname, dtype in DTYPES.items():
+            p = {k[len(pre):]: local_leaf(
+                cfg, f"rec/{k[len(pre):]}", torch.tensor(v), mesh).to(
+                    torch.float32 if k.endswith("lam") else dtype)
+                for k, v in inp.items() if k.startswith(pre)}
+            p["ln"] = {"w": p.pop("ln/w")}
+            state = (_rows(torch.tensor(inp["rec/tail"]), mesh, "model",
+                           2).to(dtype),
+                     _rows(torch.tensor(inp["rec/h"]), mesh, "model", 1))
+            y, (tail, h) = rglru._rec_block(
+                p, torch.tensor(inp["x"]).to(dtype), cfg, state, "prefill")
+            for name, t in (("rec", y), ("tail", tail), ("h", h)):
+                out[f"tp/rg/{dname}/{name}"] = _np(t)
+
+
 def lm_case(inp, mesh, rules, tp: bool, dtype, tag: str,
             out: Dict[str, np.ndarray]) -> None:
     """Prefill + decode steps of the reduced Llama-3.1-8B under ``rules``
@@ -213,6 +240,7 @@ def main() -> None:
                     ",".join(batch_axes_for(bs, mesh)))
         tp_layers(inp, meshes["1x4"], out)
         tp_moe(inp, meshes["1x4"], out)
+        tp_rec(inp, meshes["1x4"], out)
         for dname, dtype in DTYPES.items():
             lm_case(inp, meshes["1x4"], rules_kv_seq(), False, dtype,
                     f"lm/kv_seq/{dname}", out)

@@ -13,7 +13,7 @@ rank's KV cache (defined in ``models.transformer``, which sizes the cache
 with it). Under rules whose ``vocab`` names "model", ``embed`` and
 ``unembed`` are cut as their specs place them (``("model", None)``,
 ``(None, "model")``): a rank holds its block of the vocabulary's rows or
-columns, which ``models.transformer`` looks up and multiplies. A spec
+columns, which ``models.vocab`` looks up and multiplies. A spec
 entry may name a tuple of mesh axes, flattened (the multi-pod batch over
 ("pod", "data")). ``param_specs_fsdp`` is a copy of the JAX function: under
 rules with ``fsdp_gather`` (the FSDP train step) every leaf is cut over the
@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 from repro_torch.models.api import family_module
+from repro_torch.models.rglru import check_lru_axis
 from repro_torch.models.params import flatten, map_leaves, narrow, unflatten
 from repro_torch.models import sharding as SH
 # the shape of a rank's KV cache, kept beside the layers that size it
@@ -39,10 +40,12 @@ _REPLICATED_LEAVES = {
 }
 # the leaves the explicit layers take cut (attention's by heads, the FFN's
 # by d_ff, an MoE FFN's experts and router columns by experts, its shared
-# expert by d_ff): the blocks that ``local_params`` keeps
+# expert by d_ff, an RG-LRU block's by lru): the blocks that
+# ``local_params`` keeps
 EXPLICIT_LEAVES = {"attn": ("wq", "wk", "wv", "bq", "bk", "bv", "wo"),
                    "ffn": ("wi", "wg", "wo", "router"),
-                   "shared": ("wi", "wg", "wo")}
+                   "shared": ("wi", "wg", "wo"),
+                   "rec": ("w_gate", "w_in", "conv_w", "w_out")}
 # the leaves cut over the vocabulary, kept cut where the rules' vocab is
 VOCAB_LEAVES = ("embed", "unembed")
 
@@ -158,29 +161,31 @@ def explicit(path: str) -> bool:
     return len(parts) >= 2 and parts[-1] in EXPLICIT_LEAVES.get(parts[-2], ())
 
 
-def cuts(rules: dict, experts: bool = False) -> tuple:
+def cuts(rules: dict, experts: bool = False, lru: bool = False) -> tuple:
     """(whether the rank holds its blocks of the explicit layers' leaves,
     of ``embed`` and ``unembed``, of every leaf by its FSDP spec) under
     ``rules``: the layers' blocks where heads and d_ff map to "model" (and
-    where ``experts``, a model with MoE FFNs, the experts too), none where
+    where ``experts``, a model with MoE FFNs, the experts too; where
+    ``lru``, a model with RG-LRU blocks, the lru width too), none where
     they all map to nothing; the vocabulary's where vocab maps to "model";
     every leaf's under ``fsdp_gather``, which takes heads, d_ff, vocab
-    (and the experts) over nothing. Raises for another cut, which the
-    parameter specs do not place."""
+    (and the experts, the lru width) over nothing. Raises for another cut,
+    which the parameter specs do not place."""
     heads, d_ff, vocab = (rules.get(k) for k in ("heads", "d_ff", "vocab"))
-    layer = (heads, d_ff, rules.get("experts")) if experts else (heads, d_ff)
+    names = ("heads", "d_ff") + (("experts",) if experts else ()) + \
+        (("lru",) if lru else ())
+    layer = tuple(rules.get(k) for k in names)
     if rules.get("fsdp_gather"):
         if set(layer) | {vocab} != {None}:
-            raise ValueError(f"fsdp_gather with heads over {heads!r}, d_ff "
-                             f"over {d_ff!r}, vocab over {vocab!r} (and the "
-                             f"experts over {rules.get('experts')!r}): the "
-                             "FSDP step cuts every weight over the "
-                             "flattened mesh and no layer by its width")
+            raise ValueError(f"fsdp_gather with {', '.join(names)} over "
+                             f"{layer} and vocab over {vocab!r}: the FSDP "
+                             "step cuts every weight over the flattened "
+                             "mesh and no layer by its width")
         return False, False, True
     if set(layer) not in ({None}, {"model"}):
-        what = "heads, d_ff and experts" if experts else "heads and d_ff"
-        raise NotImplementedError(f"{what} over {layer}: other cuts of the "
-                                  "parameters come with ROADMAP A12")
+        raise NotImplementedError(f"{', '.join(names)} over {layer}: other "
+                                  "cuts of the parameters come with ROADMAP "
+                                  "A12")
     if vocab not in (None, "model"):
         raise NotImplementedError(f"vocab over {vocab!r}: other cuts of the "
                                   "parameters come with ROADMAP A12")
@@ -195,7 +200,8 @@ def param_blocks(cfg, mesh, rules: Optional[dict] = None) -> dict:
     flattened axes divide). ``rules``: by default the ones installed by
     ``models.sharding.use_rules``, else ``standard_rules`` of the mesh.
     The layers cut their work by the same rules and check the leaves'
-    widths against them."""
+    widths against them. Raises where an ``lru`` axis would cut the
+    RG-LRU's gate blocks (``rglru.check_lru_axis``)."""
     if cfg.family not in SH.SHARDED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family "
                                   "under sharding rules comes with ROADMAP "
@@ -203,7 +209,10 @@ def param_blocks(cfg, mesh, rules: Optional[dict] = None) -> dict:
     if rules is None:
         rules = SH.installed() if SH.active() else \
             SH.standard_rules("pod" in mesh.mesh_dim_names)
-    layers, vocab, fsdp = cuts(rules, cfg.n_experts > 0)
+    hybrid = cfg.family == "hybrid"
+    layers, vocab, fsdp = cuts(rules, cfg.n_experts > 0, hybrid)
+    if layers and hybrid:
+        check_lru_axis(SH.axis_size(mesh, rules["lru"]))
     out = {}
     for key, (shape, _) in family_module(cfg).param_specs(cfg).items():
         if fsdp or (layers and explicit(key)) or \

@@ -28,12 +28,15 @@ What each rank writes (fp32 unless said), by case:
 - ``train/<case>/step<i>/{loss,grad_norm,lr}`` and, after the last step,
   ``train/<case>/{params,m,v}/<path>``: its blocks;
 - ``serve/<case>/prefill`` (the argmax tokens), ``serve/<case>/step<i>``,
-  ``serve/<case>/cache/<slot>/{k,v}`` after the steps, and
-  ``serve/<case>/kv_heads`` (the rank's KV heads);
+  ``serve/<case>/cache/<path>`` after the steps (``slots/<i>/{k,v}``; the
+  hybrid family's also ``slots/<i>/{0,1}`` and ``rest/<j>/{0,1}``, a rec
+  slot's conv tail and h), and ``serve/<case>/kv_heads`` (the rank's KV
+  heads);
 - ``args/<mesh>/<shape>/<part>/<path>``: the shape of each leaf of
   ``BuiltStep.args`` for the full-size Llama-3.1-8B (``<shape>`` "fsdp":
   train_4k's FSDP step); ``args/phi/<mesh>/...`` the same for the
-  full-size Phi-3.5-MoE;
+  full-size Phi-3.5-MoE, ``args/rg/<mesh>/...`` for the full-size
+  RecurrentGemma-2B (on 2x2 and 2x1x2);
 - ``split/<mesh>/<n>/{pre,dec}``: ``split_disagg_mesh``'s pools' ranks
   (data x model), and ``split/<mesh>/<n>/sum`` the SUM of the ranks over
   the rank's own pool's data axis;
@@ -98,7 +101,17 @@ CONFIGS = {
     "phi": lambda: get_config("phi3.5-moe-42b-a6.6b").reduced(),
     "maverick": lambda: get_config("llama4-maverick-400b-a17b").reduced(),
     "phi6": lambda: dataclasses.replace(CONFIGS["phi"](), n_experts=6),
+    "rg": lambda: hybrid(get_config("recurrentgemma-2b").reduced()),
 }
+
+
+def hybrid(cfg):
+    """The reduced RecurrentGemma at 5 layers of the published pattern
+    ("rec", "rec", "attn"): one stacked group and two ``rest`` rec layers,
+    an RG-LRU width of 256 in 8 gate blocks of 32, and a window of 16 that
+    the serve cases' 32-token prompts wrap."""
+    return dataclasses.replace(cfg, n_layers=5,
+                               attn_pattern=("rec", "rec", "attn"), window=16)
 # a vocabulary that 4 does not divide: embed and unembed stay whole on (1, 4)
 VOCAB_UNEVEN = 510
 # (case, config, mesh): the reduced Llama's 2 KV heads over 4 ranks take the
@@ -116,7 +129,9 @@ VOCAB_UNEVEN = 510
 # batch over "data", over ("pod", "data") on 2x1x2 and under FSDP; the
 # reduced Llama-4-Maverick (top-1 at capacity 20, a shared expert cut over
 # d_ff, a dense slot of d_ff_dense 16384); phi6, 6 experts, which 4 does
-# not divide, so its experts and router stay whole
+# not divide, so its experts and router stay whole; rg, the hybrid family:
+# its RG-LRU width over "model" (2 of the 8 gate blocks a rank on 1x4, 4 on
+# 2x1x2), its 4 query heads over 1 KV head (the "gather" plan)
 TRAIN_CASES = (("llama/1x4", "llama", "1x4"), ("llama/2x2", "llama", "2x2"),
                ("llama/4x1", "llama", "4x1"),
                ("llama/2x2x1", "llama", "2x2x1"),
@@ -136,6 +151,8 @@ TRAIN_CASES = (("llama/1x4", "llama", "1x4"), ("llama/2x2", "llama", "2x2"),
                ("phi/1x4/fsdp", "phi", "1x4"),
                ("maverick/1x4", "maverick", "1x4"),
                ("maverick/2x2/fsdp", "maverick", "2x2"),
+               ("rg/1x4", "rg", "1x4"), ("rg/2x1x2", "rg", "2x1x2"),
+               ("rg/2x2/fsdp", "rg", "2x2"),
                ("phi6/1x4", "phi6", "1x4"))
 TRAIN_SHAPE = InputShape("train_small", 16, 4, "train")
 # the MoE configs' batch: 4 rows of 64 tokens, so that a rank's rows hold
@@ -177,9 +194,16 @@ SERVE_CASES = (("kv_seq/1x4", "llama", "1x4", KV_SEQ, "model"),
                ("heads/2x2x1", "llama", "2x2x1", None, None),
                ("phi/2x2", "phi", "2x2", None, None),
                ("maverick/1x4", "maverick", "1x4", None, None))
+# (case, config, mesh) of the hybrid family's serve cases: the prefill's 32
+# tokens wrap the 16-row window, and the serve steps go on from the
+# prefill's own position 32 (its rec states are the prompt's)
+HYBRID_SERVE_CASES = (("rg/1x4", "rg", "1x4"), ("rg/2x2", "rg", "2x2"))
 ARGS_MESHES = ("1x4", "2x2", "2x1x2")
-# the full-size configs of ``args_shapes``, and their keys' prefixes
-ARGS_ARCHS = (("", "llama3.1-8b"), ("phi/", "phi3.5-moe-42b-a6.6b"))
+# the full-size configs of ``args_shapes``, their keys' prefixes and their
+# meshes: RecurrentGemma-2B's 10 heads do not split over 4 ranks
+ARGS_ARCHS = (("", "llama3.1-8b", ARGS_MESHES),
+              ("phi/", "phi3.5-moe-42b-a6.6b", ARGS_MESHES),
+              ("rg/", "recurrentgemma-2b", ("2x2", "2x1x2")))
 
 
 def train_opt() -> AdamWConfig:
@@ -221,6 +245,10 @@ def train_case(inp, case: str, name: str, mesh, out: Dict[str, np.ndarray]):
 
 def serve_case(inp, case: str, name: str, mesh, overrides, kv_seq,
                out: Dict[str, np.ndarray]) -> None:
+    """The prefill, then the serve steps fed ``serve/feed`` from SERVE_POS
+    (from the prefill's own position for the hybrid family); writes the
+    tokens, every cache leaf after the steps (``cache/<path>``, as
+    ``params.flatten`` names it) and the rank's KV heads."""
     cfg = CONFIGS[name]()
     kw = dict(dtype=torch.float32, rule_overrides=overrides,
               kv_seq_axis=kv_seq)
@@ -235,19 +263,22 @@ def serve_case(inp, case: str, name: str, mesh, overrides, kv_seq,
     cache = materialize(pre.args[2], "cpu")
     tokens, cache = pre.fn(params, {"tokens": rows["prompt"]}, cache)
     out[f"serve/{case}/prefill"] = tokens.numpy()
-    cache["pos"] = torch.tensor(SERVE_POS, dtype=torch.int32)
+    if cfg.family != "hybrid":
+        cache["pos"] = torch.tensor(SERVE_POS, dtype=torch.int32)
     for i in range(rows["feed"].shape[1]):
         tokens, cache = dec.fn(params, rows["feed"][:, i].contiguous(), cache)
         out[f"serve/{case}/step{i}"] = tokens.numpy()
-    for i, slot in enumerate(cache["slots"]):
-        for kv in ("k", "v"):
-            out[f"serve/{case}/cache/{i}/{kv}"] = _np(slot[kv])
+    for path, t in flatten(cache).items():
+        if path != "pos":
+            out[f"serve/{case}/cache/{path}"] = _np(t)
     with SH.use_rules(dec.rules, mesh):
         out[f"serve/{case}/kv_heads"] = np.asarray(L.head_plan(cfg).kv_heads)
 
 
 def args_shapes(mesh, tag: str, out: Dict[str, np.ndarray]) -> None:
-    for pre, arch in ARGS_ARCHS:
+    for pre, arch, tags in ARGS_ARCHS:
+        if tag not in tags:
+            continue
         cfg = get_config(arch)
         for name, shape, mode in [(n, s, "2d") for n, s in
                                   INPUT_SHAPES.items()] + \
@@ -335,6 +366,8 @@ def main() -> None:
         train_case(inp, case, name, meshes[tag], out)
     for case, name, tag, overrides, kv_seq in SERVE_CASES:
         serve_case(inp, case, name, meshes[tag], overrides, kv_seq, out)
+    for case, name, tag in HYBRID_SERVE_CASES:
+        serve_case(inp, case, name, meshes[tag], None, None, out)
     for tag in ARGS_MESHES:
         args_shapes(meshes[tag], tag, out)
     splits(meshes, out)

@@ -22,8 +22,11 @@ the loss is the masked mean over every rank's rows (its log-sum-exp taken
 over the vocabulary's blocks, ``LM.loss_terms``) plus the MoE FFNs' aux
 loss averaged over the batch's ranks (each rank's the mean over its own
 groups, so the average is the mean over the global batch's groups), each
-leaf's gradient is the global one restricted to the rank's block, the
-gradient norm is the global norm, and the clip and AdamW run on those.
+leaf's gradient is the global one restricted to the rank's block (a
+leaf held whole but read in part, the QK-norm's weights under the heads'
+rule or an RG-LRU block's gates under the lru rule, summed over that
+axis), the gradient norm is the global norm, and the clip and AdamW run on
+those.
 Each step's rules name in ``batch`` the mesh axes its rows are cut over
 (none where ``batch_axes_for`` leaves the batch whole), which the MoE FFN
 reads to tell whether the rank's rows hold whole groups of the global
@@ -54,6 +57,7 @@ from repro_torch.launch import shardspecs as SS
 from repro_torch.launch.mesh import batch_axes_for
 from repro_torch.models import LM
 from repro_torch.models import layers as L
+from repro_torch.models import rglru
 from repro_torch.models import sharding as SH
 from repro_torch.models.api import MOE_AUX_WEIGHT, family_module
 from repro_torch.models.moe_layer import check_groups
@@ -198,12 +202,19 @@ def build_train_step(cfg: ModelConfig, mesh, shape: InputShape,
                     "count": torch.empty((), dtype=torch.int32,
                                          device="meta")}
     abstract_batch = _meta_batch(cfg, rows, shape.seq_len, dtype)
+    # the leaves a rank holds whole and reads in part: path -> the axis its
+    # gradient's shares are summed over (the heads' for the attention's,
+    # the lru width's for an RG-LRU block's)
     with SH.use_rules(rules, mesh):
-        plan_axis = L.head_plan(cfg).axis
-        in_part = L.partial_leaves(cfg)
-    partial = [k for k in flatten(abstract_params)
-               if k.split("/")[-2:-1] == ["attn"] and
-               k.split("/")[-1] in in_part]
+        in_part = {"attn": (L.head_plan(cfg).axis, L.partial_leaves(cfg))}
+        if cfg.family == "hybrid":
+            in_part["rec"] = (rules["lru"], rglru.partial_leaves())
+    partial = {}
+    for key in flatten(abstract_params):
+        *_, block, leaf = ["", *key.split("/")]
+        axis, names = in_part.get(block, (None, ()))
+        if leaf in names:
+            partial[key] = axis
 
     def train_step(params, opt_state, batch):
         with SH.use_rules(rules, mesh):
@@ -228,8 +239,8 @@ def build_train_step(cfg: ModelConfig, mesh, shape: InputShape,
                 for key, g in grads.items():         # data parallel
                     if key not in summed:
                         SH.all_reduce(g, bax)
-                for key in partial:                  # a rank's heads' share
-                    SH.all_reduce(grads[key], plan_axis)
+                for key, axis in partial.items():    # a rank's share
+                    SH.all_reduce(grads[key], axis)
                 gnorm = _global_norm(grads, blocks)
             params, opt_state, metrics = apply_updates(
                 opt_cfg, params, rebuild(params, grads.values()), opt_state,

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rglru, transformer, whisper, xlstm
+from repro_torch.models.vocab import vocab_block
 from repro_torch.models import sharding as SH
 from repro_torch.models.params import init_from_specs
 
@@ -127,7 +128,7 @@ def _block_terms(logits, labels, cfg):
     takes its gold from no block."""
     axis = SH.rule("vocab")
     width = logits.shape[-1]
-    lo = transformer.vocab_block(cfg, width)
+    lo = vocab_block(cfg, width)
     z = logits.float()
     with torch.no_grad():
         m = SH.all_reduce(z.amax(-1), axis, "max")

@@ -250,7 +250,8 @@ def head_plan(cfg) -> HeadPlan:
         if sh.size > 1 and cfg.q_dim % sh.size == 0:
             raise NotImplementedError(
                 f"{H} heads over {sh.size} ranks: wq's block would cut a "
-                "head")
+                "head; gathering whole heads over the axis comes with "
+                "ROADMAP A12")
         return HeadPlan(None, 0, H, "whole", tuple(range(K)))
     n_q = H // sh.size
     h0 = sh.rank * n_q
@@ -269,7 +270,7 @@ def head_plan(cfg) -> HeadPlan:
                     tuple(range(lo, hi)) if even else tuple(need))
 
 
-def _check_width(p, name: str, want: int) -> None:
+def check_width(p, name: str, want: int) -> None:
     """Raise unless leaf ``name`` is as wide as the rules give this rank
     (the parameters were cut, or kept whole, under other rules)."""
     if p[name].shape[-1] != want:
@@ -289,9 +290,9 @@ def _rank_heads(p, q, k, v, cfg):
     hd, K = cfg.head_dim, cfg.n_kv_heads
     if plan.axis is not None:
         n = cfg.n_heads // plan.n_q                 # ranks over the heads
-        _check_width(p, "wq", plan.n_q * hd)
-        _check_width(p, "wk", {"whole": K * hd, "own": plan.n_kv * hd,
-                               "gather": cfg.kv_dim // n}[plan.kv])
+        check_width(p, "wq", plan.n_q * hd)
+        check_width(p, "wk", {"whole": K * hd, "own": plan.n_kv * hd,
+                              "gather": cfg.kv_dim // n}[plan.kv])
     if plan.kv == "gather":
         k = SH.all_gather(k, plan.axis, -1)
         v = SH.all_gather(v, plan.axis, -1)
@@ -503,7 +504,7 @@ def mlp_forward(p, x, cfg, d_ff: Optional[int] = None):
     width = d_ff or _ffn_width(cfg)
     sh = SH.shard_of("d_ff")
     sharded = sh.size > 1 and width % sh.size == 0
-    _check_width(p, "wi", width // sh.size if sharded else width)
+    check_width(p, "wi", width // sh.size if sharded else width)
     if sharded:           # d_ff's work is cut: the gradient of x sums
         x = SH.entry(x, SH.rule("d_ff"))
     if _tp_axis_ok(width):

@@ -47,10 +47,10 @@ _MESH = None
 # weight held cut over ``fsdp_axes``, gathered a layer at a time by
 # ``maybe_gather_params``)
 FLAGS = ("tp_bf16_ar", "fsdp_gather")
-# the families whose layers run under rules (``models.layers``, and the
-# MoE FFN's experts in ``models.moe_layer``); the others raise there until
-# ROADMAP A12
-SHARDED_FAMILIES = ("dense", "vlm", "moe")
+# the families whose layers run under rules (``models.layers``, the MoE
+# FFN's experts in ``models.moe_layer``, the RG-LRU's width in
+# ``models.rglru``); the others raise there until ROADMAP A12
+SHARDED_FAMILIES = ("dense", "vlm", "moe", "hybrid")
 # the mesh axes FSDP cuts the weights over, flattened (``fsdp_axes``)
 FSDP_AXES = ("data", "model")
 
@@ -417,3 +417,36 @@ def maybe_gather_params(tree, whole: Dict[str, tuple]):
                              "rules")
         out.append(all_gather(t, axes, diff[0]))
     return rebuild(tree, out)
+
+
+def whole_shapes(specs: dict, prefix: str,
+                 stacked: bool = False) -> Dict[str, tuple]:
+    """``maybe_gather_params``' whole shapes for the subtree ``prefix``
+    (``slots/``, ``rest/<j>/``) of a family's ``param_specs`` (path ->
+    (shape, init)), keyed as ``params.flatten`` names that subtree's
+    leaves (``0/attn/wq``); one layer's shapes where ``stacked``."""
+    return {k[len(prefix):]: shape[1:] if stacked else shape
+            for k, (shape, _) in specs.items() if k.startswith(prefix)}
+
+
+def gather_layer_dim(slots, n_layers: int):
+    """Under ``fsdp_gather``, the stacked ``slots`` with each leaf that is
+    cut on its layer dim (whole layers a rank) gathered whole, since
+    ``params.layer_of`` indexes the global layer; as they are otherwise."""
+    if not rule("fsdp_gather"):
+        return slots
+    return maybe_gather_params(slots, {
+        k: (n_layers, *t.shape[1:]) for k, t in flatten(slots).items()})
+
+
+def gather_top(params, specs: dict, stacks: Tuple[str, ...] = ("slots",)):
+    """Under ``fsdp_gather``, ``params`` with its leaves outside the
+    layer stacks ``stacks`` (``embed``, ``unembed``, ``final_norm``)
+    gathered whole, their whole shapes from ``specs`` (a family's
+    ``param_specs``); as they are otherwise."""
+    if not rule("fsdp_gather"):
+        return params
+    top = {k: v for k, v in params.items() if k not in stacks}
+    return {**params, **maybe_gather_params(top, {
+        k: shape for k, (shape, _) in specs.items()
+        if k.split("/")[0] not in stacks})}

@@ -12,13 +12,12 @@ dim G under ``slots[i]`` (the JAX package stacks them with ``vmap`` to
 The KV cache is ``{"slots": ({"k", "v"}, ...), "pos"}``, one (G, B, Sc, K,
 hd) pair a slot; ``prefill`` and ``decode_step`` write into them in place
 and return them. Under sharding rules (``api.LM`` refuses the families
-other than these three) each rank runs its block of the layers and the
-cache (``models.layers``; an MoE FFN's experts, ``moe_layer``), and, where
-``embed`` and ``unembed`` are cut over the vocabulary
-(``launch.shardspecs.local_params``), its block of the vocabulary: the
-embedding is a SUM over the ``vocab`` axis of each rank's
-lookup of its own rows, and ``forward_train`` returns the rank's block of
-the logits, which ``api.LM.loss_terms`` reduces without gathering;
+that ``sharding.SHARDED_FAMILIES`` does not list) each rank runs its block
+of the layers and the cache (``models.layers``; an MoE FFN's experts,
+``moe_layer``), and, where ``embed`` and ``unembed`` are cut over the
+vocabulary (``launch.shardspecs.local_params``), its block of the
+vocabulary (``models.vocab``): ``forward_train`` returns the rank's block
+of the logits, which ``api.LM.loss_terms`` reduces without gathering;
 ``prefill`` and ``decode_step`` return whole logits, gathered. Under FSDP
 (the ``fsdp_gather`` rule) each rank holds its block of every leaf and
 gathers a group's weights whole inside the group's remat
@@ -34,8 +33,8 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import sharding as SH
 from repro_torch.models.moe_layer import init_moe, moe_forward
-from repro_torch.models.params import (flatten, layer_of, prefixed,
-                                       unbind_layers)
+from repro_torch.models.params import layer_of, prefixed, unbind_layers
+from repro_torch.models.vocab import embed, logits, whole_logits
 
 
 def _slot_kinds(cfg):
@@ -103,20 +102,14 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _layer_shapes(cfg) -> Dict[str, tuple]:
-    """The whole shape of one layer's slice of each stacked leaf, keyed as
-    ``params.flatten`` names a group's ``slots`` (``0/attn/wq``)."""
-    return {k[len("slots/"):]: shape[1:] for k, (shape, _) in
-            param_specs(cfg).items() if k.startswith("slots/")}
-
-
 def _group(slots, x, aux, cfg, mode: str, cache, g: int, window):
     """Group g's layers (slot i of ``slots``, its parameters), their
     weights gathered whole first under FSDP (inside the group's remat, so
     its recompute gathers them again and no group's whole weights are kept
     for the backward). Returns (x, aux plus their MoE FFNs' aux loss)."""
     if SH.rule("fsdp_gather"):
-        slots = SH.maybe_gather_params(slots, _layer_shapes(cfg))
+        slots = SH.maybe_gather_params(slots, SH.whole_shapes(
+            param_specs(cfg), "slots/", stacked=True))
     for i, kind in enumerate(_slot_kinds(cfg)):
         p = slots[i]
         h = L.apply_norm(x, p["ln1"], cfg.norm, cfg.norm_eps)
@@ -150,68 +143,11 @@ def _run_stack(params, x, cfg, mode: str, cache=None, window=None,
     of the MoE FFNs)."""
     aux = torch.zeros((), device=x.device)
     G = _n_groups(cfg)
-    slots = params["slots"]
-    if SH.rule("fsdp_gather"):
-        # a leaf cut on its layer dim holds whole layers: gathered whole
-        # here, since ``layer_of`` indexes the global layer
-        slots = SH.maybe_gather_params(slots, {
-            k: (G, *t.shape[1:]) for k, t in flatten(slots).items()})
-    slots = unbind_layers(slots)
+    slots = unbind_layers(SH.gather_layer_dim(params["slots"], G))
     for g in range(G):
         args = (layer_of(slots, g), x, aux, cfg, mode, cache, g, window)
         x, aux = L.checkpointed(_group, *args) if remat else _group(*args)
     return x, aux
-
-
-def vocab_block(cfg, width: int) -> Optional[int]:
-    """The first vocabulary id of this rank's block where a leaf holds
-    ``width`` of the vocabulary's rows or columns: None where it holds
-    them all (outside rules, or kept whole), the rank's first id where it
-    holds its block over the ``vocab`` axis. Raises for any other width."""
-    V = cfg.vocab_size
-    if width == V:
-        return None
-    sh = SH.shard_of("vocab")
-    if sh.size == 1 or V % sh.size or width != V // sh.size:
-        raise ValueError(f"embed/unembed hold {width} of the vocabulary's "
-                         f"{V} ids where the rules give this rank "
-                         f"{V // sh.size if V % sh.size == 0 else V}: cut "
-                         "the parameters with launch.shardspecs.local_params "
-                         "under the same rules")
-    return sh.rank * width
-
-
-def _embed(params, tokens, cfg):
-    """The embedding rows of ``tokens``; with ``embed`` cut over the
-    vocabulary, each rank looks up the tokens in its rows, zeros the
-    others and the ranks' lookups are summed (whose backward gives each
-    rank the gradient of its own rows)."""
-    table = params["embed"]
-    lo = vocab_block(cfg, table.shape[0])
-    if lo is None:
-        return table[tokens]
-    local = tokens - lo
-    mine = (local >= 0) & (local < table.shape[0])
-    x = table[local.clamp(0, table.shape[0] - 1)] * \
-        mine[..., None].to(table.dtype)
-    return SH.all_reduce(x, SH.rule("vocab"))
-
-
-def _logits(params, x, cfg):
-    """The logits of this rank's columns of ``unembed``: (..., V), or the
-    rank's block (..., V / n) of them where it holds a block."""
-    x = L.apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-    if vocab_block(cfg, params["unembed"].shape[-1]) is not None:
-        x = SH.entry(x, SH.rule("vocab"))  # the gradient of x sums
-    return x @ params["unembed"]
-
-
-def whole_logits(logits, cfg):
-    """Whole logits (..., V) from ``forward_train``'s or ``_logits``' (the
-    rank's block gathered over ``vocab``; whole logits as they are)."""
-    if logits.shape[-1] == cfg.vocab_size:
-        return logits
-    return SH.all_gather(logits, SH.rule("vocab"), -1)
 
 
 def forward_train(params, cfg, batch, *, window=None, remat=True):
@@ -220,23 +156,19 @@ def forward_train(params, cfg, batch, *, window=None, remat=True):
     summed aux loss, 0 without them); with ``unembed`` cut over the
     vocabulary, the rank's block of the logits, (B, S, V / n). Under FSDP
     ``embed``, ``unembed`` and ``final_norm`` are gathered whole first."""
-    if SH.rule("fsdp_gather"):
-        top = {k: v for k, v in params.items() if k != "slots"}
-        params = {**params, **SH.maybe_gather_params(top, {
-            k: shape for k, (shape, _) in param_specs(cfg).items()
-            if not k.startswith("slots/")})}
-    x = _embed(params, batch["tokens"], cfg)
+    params = SH.gather_top(params, param_specs(cfg))
+    x = embed(params, batch["tokens"], cfg)
     x, aux = _run_stack(params, x, cfg, "train", window=window, remat=remat)
-    return _logits(params, x, cfg), aux
+    return logits(params, x, cfg), aux
 
 
 def prefill(params, cfg, batch, cache, *, window=None):
     """Process the prompt and fill the cache in place. Returns (last-token
     logits (B, V), whole on every rank, cache)."""
     tokens = batch["tokens"]
-    x = _embed(params, tokens, cfg)
+    x = embed(params, tokens, cfg)
     x, _ = _run_stack(params, x, cfg, "prefill", cache=cache, window=window)
-    last = whole_logits(_logits(params, x[:, -1:, :], cfg)[:, 0], cfg)
+    last = whole_logits(logits(params, x[:, -1:, :], cfg)[:, 0], cfg)
     pos = torch.tensor(tokens.shape[1], dtype=torch.int32, device=x.device)
     return last, {"slots": cache["slots"], "pos": pos}
 
@@ -248,7 +180,7 @@ def decode_step(params, cfg, token, cache, *, window=None):
     advanced by one."""
     if token.ndim == 1:
         token = token[:, None]
-    x = _embed(params, token, cfg)
+    x = embed(params, token, cfg)
     x, _ = _run_stack(params, x, cfg, "decode", cache=cache, window=window)
-    logits = whole_logits(_logits(params, x, cfg)[:, 0], cfg)
-    return logits, {"slots": cache["slots"], "pos": cache["pos"] + 1}
+    out = whole_logits(logits(params, x, cfg)[:, 0], cfg)
+    return out, {"slots": cache["slots"], "pos": cache["pos"] + 1}

@@ -72,7 +72,7 @@ from repro.configs import get_config
 from repro.kernels.decode_attention.ref import decode_attention_ref
 from repro.launch.mesh import batch_axes_for
 from repro.launch.shardspecs import param_spec, sanitize_spec
-from repro.models import LM, layers as L, moe_layer
+from repro.models import LM, layers as L, moe_layer, rglru
 from repro.models.sharding import standard_rules, use_rules
 from repro.training.checkpoint import _flatten
 
@@ -155,6 +155,22 @@ for arch, arch_id in (("phi", "phi3.5-moe-42b-a6.6b"),
             y, aux = jax.jit(moe)(p, jnp.asarray(inp["x_moe"], dt))
         out[f"tp/{arch}/{dname}/moe"] = np.asarray(y, np.float32)
         out[f"tp/{arch}/{dname}/aux"] = np.asarray(aux, np.float32)
+
+# the reduced RecurrentGemma's rec block from a given state, its RG-LRU
+# width over "model" (the JAX function unsharded: GSPMD places it)
+cfg = get_config("recurrentgemma-2b").reduced()
+pre = "layer/rg/rec/"
+for dname, dt in (("fp32", jnp.float32), ("bf16", jnp.bfloat16)):
+    p = {k[len(pre):]: jnp.asarray(v, jnp.float32 if k.endswith("lam")
+                                   else dt)
+         for k, v in inp.items() if k.startswith(pre)}
+    p["ln"] = {"w": p.pop("ln/w")}
+    state = (jnp.asarray(inp["rec/tail"], dt), jnp.asarray(inp["rec/h"]))
+    y, (tail, h) = jax.jit(lambda p, x, st: rglru._rec_block(
+        p, x, cfg, st, "prefill"))(p, jnp.asarray(inp["x"], dt), state)
+    out[f"tp/rg/{dname}/rec"] = np.asarray(y, np.float32)
+    out[f"tp/rg/{dname}/tail"] = np.asarray(tail, np.float32)
+    out[f"tp/rg/{dname}/h"] = np.asarray(h, np.float32)
 
 cfg = get_config("llama3.1-8b").reduced()
 lm = LM(cfg)
@@ -250,6 +266,26 @@ def _inputs(path: Path) -> None:
                         "shared/wo": normal(F, D, scale=F ** -0.5)})
         inp.update({f"layer/{arch}/moe/{k}": v for k, v in moe.items()})
     inp["x_moe"] = normal(2, MOE_S, cfg.d_model)
+    # the reduced RecurrentGemma's rec block (its x: the reduced Llama's
+    # width), biases off zero so that a rank's slice of them shows, and a
+    # given state
+    cfg = jax_config("recurrentgemma-2b").reduced()
+    D, W, cw = cfg.d_model, cfg.lru_width, cfg.conv_width
+    nb = W // 8
+    u = rng.uniform(0.9, 0.999, W)
+    rec = {"ln/w": 1.0 + normal(D, scale=0.1),
+           "w_gate": normal(D, W, scale=D ** -0.5),
+           "w_in": normal(D, W, scale=D ** -0.5),
+           "conv_w": normal(cw, W, scale=0.1), "conv_b": normal(W, scale=0.3),
+           "w_r": normal(8, nb, nb, scale=nb ** -0.5),
+           "w_i": normal(8, nb, nb, scale=nb ** -0.5),
+           "b_r": normal(W, scale=0.3), "b_i": normal(W, scale=0.3),
+           "lam": np.log(np.expm1(-np.log(u ** 8.0) / 8.0)).astype(
+               np.float32),
+           "w_out": normal(W, D, scale=W ** -0.5)}
+    inp.update({f"layer/rg/rec/{k}": v for k, v in rec.items()})
+    inp["rec/tail"] = normal(2, cw - 1, W)
+    inp["rec/h"] = normal(2, W, scale=0.5)
     inp["batches"] = np.asarray(BATCHES)
     np.savez(path, **inp)
 
@@ -377,6 +413,29 @@ def test_tp_moe_matches_jax(runs, arch, dtype):
             assert np.abs(out - ref).max() <= 2 * _bf16_step(ref)
         assert _rel(res[f"tp/{arch}/{dtype}/aux"],
                     jx[f"tp/{arch}/{dtype}/aux"]) < FP32_TOL
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_tp_rec_block_matches_jax(runs, dtype):
+    """The reduced RecurrentGemma's rec block from a given state under
+    ``tp_bf16_ar`` on (1, 4): each rank its 64 of the RG-LRU width (2 of
+    the 8 gate blocks, its slices of lam, b_r, b_i and conv_b, its block
+    of the given conv tail and h), the partial product of w_out formed and
+    all-reduced in x's dtype. The output as the mlp's; the rank's block of
+    the new conv tail and h within 1e-5 in fp32."""
+    jx, ranks, _, _ = runs
+    ref = jx[f"tp/rg/{dtype}/rec"]
+    for r, res in enumerate(ranks):
+        out = res[f"tp/rg/{dtype}/rec"]
+        if dtype == "fp32":
+            assert _rel(out, ref) < FP32_TOL
+            for name in ("tail", "h"):
+                full = jx[f"tp/rg/fp32/{name}"]
+                n = full.shape[-1] // 4
+                assert _rel(res[f"tp/rg/fp32/{name}"],
+                            full[..., r * n:(r + 1) * n]) < FP32_TOL, name
+        else:
+            assert np.abs(out - ref).max() <= 2 * _bf16_step(ref)
 
 
 def _check_logits(out, ref, dtype: str, what: str) -> None:
@@ -529,7 +588,7 @@ def test_refusals():
     from repro_torch.models import layers as L
     rules = {**SH.standard_rules(False), "tp_bf16_ar": True}
     with SH.use_rules(rules, _Mesh()):
-        for arch in ("recurrentgemma-2b", "xlstm-350m", "whisper-large-v3"):
+        for arch in ("xlstm-350m", "whisper-large-v3"):
             with pytest.raises(NotImplementedError, match="A12"):
                 LM(get_config(arch).reduced()).init_cache(2, 32,
                                                           device="cpu")
@@ -539,17 +598,17 @@ def test_refusals():
         with pytest.raises(ValueError, match="local_params"):
             L.attn_forward(whole, torch.zeros(1, 2, cfg.d_model), cfg)
         # a vocabulary leaf neither whole nor the rank's block of 4
-        from repro_torch.models import transformer as T
+        from repro_torch.models import vocab
         V, D = cfg.vocab_size, cfg.d_model
         for rows in (V // 2, V // 4 + 1):
             with pytest.raises(ValueError, match="local_params"):
-                T._embed({"embed": torch.zeros(rows, D)},
-                         torch.zeros(1, 2, dtype=torch.long), cfg)
+                vocab.embed({"embed": torch.zeros(rows, D)},
+                            torch.zeros(1, 2, dtype=torch.long), cfg)
             with pytest.raises(ValueError, match="local_params"):
-                T._logits({"unembed": torch.zeros(D, rows),
-                           "final_norm": {"w": torch.ones(D)}},
-                          torch.zeros(1, 2, D), cfg)
-        assert T.vocab_block(cfg, V) is None
+                vocab.logits({"unembed": torch.zeros(D, rows),
+                              "final_norm": {"w": torch.ones(D)}},
+                             torch.zeros(1, 2, D), cfg)
+        assert vocab.vocab_block(cfg, V) is None
 
 
 def test_rules_without_process_group_raise():

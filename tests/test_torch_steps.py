@@ -5,13 +5,13 @@ and the meshes of ``launch.mesh``, against the JAX package's, on the CPU.
 One module-scoped run launches, at once, four ``gloo`` ranks of
 ``python -m repro_torch.launch.step_cases`` (one torch thread each, a file
 rendezvous in the test's temporary directory) and ``JAX_PROCS`` JAX
-processes (the train cases split among all but the last, which runs the
-rest) with four host devices on ``Auto`` axes (jax 0.9's ``make_mesh`` makes
+processes (its jobs spread over them by their rough CPU cost, longest
+first) with four host devices on ``Auto`` axes (jax 0.9's ``make_mesh`` makes
 Explicit axes, which the JAX steps' ``constrain`` refuses; each step
 compiled once, ahead of its calls, and LLVM's optimisation of their CPU
 code off, to keep the compiles short), on the same seeded weights and
-batches; the ranks are killed, and the run fails with their output, past
-``WALL_S``. Then, in fp32:
+batches; the processes are killed, and the run fails with their output,
+past ``WALL_S``. Then, in fp32:
 
 - ``build_train_step`` on meshes (1, 4), (2, 2) and (4, 1) for the reduced
   Llama-3.1-8B (the KV plans "gather", "own" and none; the vocabulary cut
@@ -32,18 +32,27 @@ batches; the ranks are killed, and the run fails with their output, past
   "model", on (1, 4), (2, 2), (2, 1, 2) and under FSDP on (2, 2) and
   (1, 4), the reduced Llama-4-Maverick (top-1, a shared expert, a dense
   slot of d_ff 16384) on (1, 4) and under FSDP on (2, 2), and a 6-expert
-  Phi on (1, 4), its experts and router kept whole;
+  Phi on (1, 4), its experts and router kept whole; the hybrid family, a
+  reduced RecurrentGemma of 5 layers (``step_cases.hybrid``: a stacked
+  group and two ``rest`` rec layers, its RG-LRU width over "model"), on
+  (1, 4), on (2, 1, 2) and under FSDP on (2, 2), its whole-held gate
+  leaves' gradients summed over the lru axis (the JAX side runs the
+  hybrid's train and serve steps once, on (1, 4), ``JAX_RUN_OF``);
 - ``build_prefill_step`` and ``build_serve_step`` under ``kv_seq`` on
   (1, 4) and under the heads' rule on (1, 4), (2, 2) and (2, 2, 1), and
   the MoE configs under the heads' and experts' rules (Phi on (2, 2),
   whose dropless decode splits a group over the batch's ranks, Maverick
   on (1, 4)): tokens equal wherever the reference's top-2 gap exceeds the
-  tolerance, caches within 1e-5;
+  tolerance, caches within 1e-5; the reduced RecurrentGemma on (1, 4) and
+  (2, 2), its prompt wrapping the 16-row window and its serve steps going
+  on from the prefill's position, every cache leaf (k, v, conv tails, h)
+  against the rank's block of the JAX cache;
 - every leaf of ``BuiltStep.args`` at the full size of Llama-3.1-8B and of
   Phi-3.5-MoE, for the four input shapes on (1, 4), (2, 2) and (2, 1, 2),
-  against the JAX ``NamedSharding.shard_shape`` of the same leaf, but for
-  a cache's KV-head dim: the rank's own heads (the JAX cache keeps every
-  KV head on every rank of "model"); and of train_4k's FSDP step;
+  and of RecurrentGemma-2B on (2, 2) and (2, 1, 2), against the JAX
+  ``NamedSharding.shard_shape`` of the same leaf, but for a cache's
+  KV-head dim: the rank's own heads (the JAX cache keeps every KV head on
+  every rank of "model"); and of train_4k's FSDP step;
 - ``LM.loss_terms`` with the vocabulary cut, on labels that hold -1 and
   the first and last id of every rank's block, against the JAX
   ``LM.loss`` and the port's outside rules;
@@ -55,7 +64,7 @@ batches; the ranks are killed, and the run fails with their output, past
 
 In the test process alone: ``batch_specs`` and ``cache_specs`` for all
 five families against the JAX functions, ``param_specs_fsdp`` for every
-dense, vlm and moe config, FSDP's ``init_params`` against one draw cut to
+dense, vlm, moe and hybrid config, FSDP's ``init_params`` against one draw cut to
 each rank's blocks, ``effective_window`` for every ``ARCH_IDS`` x
 ``INPUT_SHAPES`` pair, the analytic FLOPs, that each MoE case's batch
 drops choices by capacity, and the refusals that name A12.
@@ -86,17 +95,31 @@ from repro_torch.launch import shardspecs as SS  # noqa: E402
 from repro_torch.launch import step_cases as C  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import sharding as SH  # noqa: E402
+from repro_torch.models.params import LRU_LAMBDA  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 4
-WALL_S = 150
+# the fixture's watchdog (inputs and processes): alone they take ~60 s, but
+# its ten processes share the CPU with the other test workers; under six of
+# them on 8 cores the module's first test, the fixture's set-up in it, took
+# 154 s without the hybrid's cases, and with them the processes were still
+# running at 150 s
+WALL_S = 300
 SEED = 1
 TOL = 1e-5
 FEED_STEPS = 6
-JAX_PROCS = 5     # the JAX side's processes (its compiles take the time)
+JAX_PROCS = 6     # the JAX side's processes (its compiles take the time)
+# the JAX step a case is held against where it is not the case's own: the
+# hybrid's steps compile three times as long as Llama's, and the JAX
+# sharding of a step places one function on every mesh (the same loss,
+# parameters, moments, tokens and caches, gathered whole, to fp32's
+# rounding), so its train and serve steps run once, on (1, 4)
+JAX_RUN_OF = {"rg/2x1x2": "rg/1x4", "rg/2x2/fsdp": "rg/1x4",
+              "rg/2x2": "rg/1x4"}
 
 JAX_SIDE = r"""
 import dataclasses
+import functools
 import sys
 import numpy as np
 import jax
@@ -139,6 +162,9 @@ CONFIGS = {"llama": get_config("llama3.1-8b").reduced(),
 CONFIGS["starcoder2_whole4"] = dataclasses.replace(
     CONFIGS["starcoder2_whole"], n_layers=4)
 CONFIGS["phi6"] = dataclasses.replace(CONFIGS["phi"], n_experts=6)
+CONFIGS["rg"] = dataclasses.replace(
+    get_config("recurrentgemma-2b").reduced(), n_layers=5,
+    attn_pattern=("rec", "rec", "attn"), window=16)
 MOE = ("phi", "maverick", "phi6")
 
 
@@ -151,17 +177,17 @@ def paths(tree, is_leaf=None):
 # config name's weights from the inputs (the test process's
 # LM.init(key(SEED))) in LM.init's pytree: drawing them again here would
 # compile the init anew in every process
+@functools.cache
 def weights(name):
     like = LM(CONFIGS[name]).init_abstract(jnp.float32)
     return jax.tree.unflatten(jax.tree.structure(like), [
         jnp.asarray(inp[f"w/{name}/{k}"]) for k in paths(like)])
 
 
-PARAMS = {k: weights(k) for k in CONFIGS}
-
-
 opt_cfg = AdamWConfig(state_dtype=jnp.float32)
-for case in filter(None, sys.argv[3].split(",")):
+
+
+def train(case):
     name, tag, *mode = case.split("/")
     pre = "train/moe/" if name in MOE else \
         "train/v510/" if name == "llama_v510" else "train/"
@@ -172,7 +198,7 @@ for case in filter(None, sys.argv[3].split(",")):
     built = build_step(CONFIGS[name], mesh, shape,
                        dtype=jnp.float32, opt_cfg=opt_cfg,
                        param_mode=mode[0] if mode else "2d")
-    params = jax.tree.map(jnp.array, PARAMS[name])
+    params = jax.tree.map(jnp.array, weights(name))
     opt = init_state(opt_cfg, params)
     with mesh:
         # compiled once: the step's outputs come back sharded, which a
@@ -188,19 +214,22 @@ for case in filter(None, sys.argv[3].split(",")):
         for k, v in _flatten(tree).items():
             out[f"train/{case}/{part}/{k}"] = v
 
-if sys.argv[4] != "rest":        # the train cases alone
-    np.savez(sys.argv[2], **out)
-    sys.exit(0)
 prompt = jnp.asarray(inp["serve/prompt"])
 feed = jnp.asarray(inp["serve/feed"])
 kv_seq = {"heads": None, "d_ff": None}
-for case, name, tag, overrides, axis in (
-        ("kv_seq/1x4", "llama", "1x4", kv_seq, "model"),
-        ("heads/1x4", "llama", "1x4", None, None),
-        ("heads/2x2", "llama", "2x2", None, None),
-        ("heads/2x2x1", "llama", "2x2x1", None, None),
-        ("phi/2x2", "phi", "2x2", None, None),
-        ("maverick/1x4", "maverick", "1x4", None, None)):
+# the hybrid family's cases go on from the prefill's own position (32)
+SERVE = {"kv_seq/1x4": ("llama", "1x4", kv_seq, "model"),
+         "heads/1x4": ("llama", "1x4", None, None),
+         "heads/2x2": ("llama", "2x2", None, None),
+         "heads/2x2x1": ("llama", "2x2x1", None, None),
+         "phi/2x2": ("phi", "2x2", None, None),
+         "maverick/1x4": ("maverick", "1x4", None, None),
+         "rg/1x4": ("rg", "1x4", None, None),
+         "rg/2x2": ("rg", "2x2", None, None)}
+
+
+def serve(case):
+    name, tag, overrides, axis = SERVE[case]
     cfg = CONFIGS[name]
     lm = LM(cfg)
     mesh = mesh_of(tag)
@@ -209,12 +238,13 @@ for case, name, tag, overrides, axis in (
                      **kw)
     dec = build_step(cfg, mesh, InputShape("decode_small", 32, 4, "decode"),
                      **kw)
-    params = PARAMS[name]
+    params = weights(name)
     with mesh:
         tok, cache = pre.fn(params, {"tokens": prompt},
                             lm.init_cache(4, 32, dtype=jnp.float32))
         out[f"serve/{case}/prefill"] = np.asarray(tok)
-        cache = dict(cache, pos=jnp.asarray(22, jnp.int32))
+        if name != "rg":
+            cache = dict(cache, pos=jnp.asarray(22, jnp.int32))
         step = dec.fn.lower(params, feed[:, 0], cache).compile()
         params, _, cache = jax.device_put((params, feed[:, 0], cache),
                                           step.input_shardings[0])
@@ -222,70 +252,93 @@ for case, name, tag, overrides, axis in (
             tok, cache = step(params, jax.device_put(
                 feed[:, i], step.input_shardings[0][1]), cache)
             out[f"serve/{case}/step{i}"] = np.asarray(tok)
-    for i, slot in enumerate(cache["slots"]):
-        for kv in ("k", "v"):
-            out[f"serve/{case}/cache/{i}/{kv}"] = np.asarray(slot[kv])
+    for path, leaf in paths(cache).items():
+        if path != "pos":
+            out[f"serve/{case}/cache/{path}"] = np.asarray(leaf)
+
+
 # the unsharded logits of the same feed: the tokens' top-2 gaps
-for name in ("llama", "phi", "maverick"):
+def logits(name):
     lm = LM(CONFIGS[name])
-    params = PARAMS[name]
+    params = weights(name)
     logits, cache = jax.jit(lm.prefill)(params, {"tokens": prompt},
                                         lm.init_cache(4, 32,
                                                       dtype=jnp.float32))
     out[f"serve/logits/{name}/prefill"] = np.asarray(logits)
-    cache = dict(cache, pos=jnp.asarray(22, jnp.int32))
+    if name != "rg":
+        cache = dict(cache, pos=jnp.asarray(22, jnp.int32))
     decode = jax.jit(lm.decode_step)
     for i in range(feed.shape[1]):
         logits, cache = decode(params, feed[:, i], cache)
         out[f"serve/logits/{name}/step{i}"] = np.asarray(logits)
-lm, params = LM(CONFIGS["llama"]), PARAMS["llama"]
-out["loss/ref"] = np.asarray(jax.jit(lm.loss)(params, {
-    k: jnp.asarray(inp["loss/" + k]) for k in ("tokens", "labels")}))
 
-for pre, arch, tag in [(p, a, t) for p, a in (("", "llama3.1-8b"),
-                                              ("phi/", "phi3.5-moe-42b-a6.6b"))
-                       for t in ("1x4", "2x2", "2x1x2")]:
+
+def loss(_):
+    lm, params = LM(CONFIGS["llama"]), weights("llama")
+    out["loss/ref"] = np.asarray(jax.jit(lm.loss)(params, {
+        k: jnp.asarray(inp["loss/" + k]) for k in ("tokens", "labels")}))
+
+
+ARGS = {"": ("llama3.1-8b", ("1x4", "2x2", "2x1x2")),
+        "phi/": ("phi3.5-moe-42b-a6.6b", ("1x4", "2x2", "2x1x2")),
+        "rg/": ("recurrentgemma-2b", ("2x2", "2x1x2"))}
+
+
+def args(pre):
+    arch, tags = ARGS[pre]
     full = get_config(arch)
-    mesh = mesh_of(tag)
-    for name, shape in [*INPUT_SHAPES.items(),
-                        ("fsdp", INPUT_SHAPES["train_4k"])]:
-        if name == "fsdp":
-            built = build_step(full, mesh, shape, param_mode="fsdp")
-            baxes = built.rules["batch"]
-            p_specs = SS.param_specs_fsdp(built.args[0], mesh)
-        else:
-            built = build_step(full, mesh, shape)
-            baxes = batch_axes_for(shape.global_batch, mesh)
-            p_specs = SS.param_specs(full, built.args[0], mesh)
-        parts = {"params": (built.args[0], p_specs)}
-        if shape.kind == "train":
-            parts["opt"] = (built.args[1], {"m": p_specs, "v": p_specs,
-                                            "count": P()})
-            parts["batch"] = (built.args[2], SS.batch_specs(
-                full, built.args[2], baxes))
-        else:
-            if shape.kind == "prefill":
-                parts["batch"] = (built.args[1], SS.batch_specs(
-                    full, built.args[1], baxes))
+    for tag in tags:
+        mesh = mesh_of(tag)
+        for name, shape in [*INPUT_SHAPES.items(),
+                            ("fsdp", INPUT_SHAPES["train_4k"])]:
+            if name == "fsdp":
+                built = build_step(full, mesh, shape, param_mode="fsdp")
+                baxes = built.rules["batch"]
+                p_specs = SS.param_specs_fsdp(built.args[0], mesh)
             else:
-                parts["batch"] = ({"token": built.args[1]},
-                                  {"token": P(baxes or None)})
-            parts["cache"] = (built.args[2], SS.cache_specs(
-                full, built.args[2], baxes))
-        for part, (tree, specs) in parts.items():
-            spec_of = paths(specs, lambda x: isinstance(x, P))
-            for k, leaf in paths(tree).items():
-                spec = spec_of[k]
-                out[f"args/{pre}{tag}/{name}/{part}/{k}"] = np.asarray(
-                    NamedSharding(mesh, spec).shard_shape(leaf.shape))
+                built = build_step(full, mesh, shape)
+                baxes = batch_axes_for(shape.global_batch, mesh)
+                p_specs = SS.param_specs(full, built.args[0], mesh)
+            parts = {"params": (built.args[0], p_specs)}
+            if shape.kind == "train":
+                parts["opt"] = (built.args[1], {"m": p_specs, "v": p_specs,
+                                                "count": P()})
+                parts["batch"] = (built.args[2], SS.batch_specs(
+                    full, built.args[2], baxes))
+            else:
+                if shape.kind == "prefill":
+                    parts["batch"] = (built.args[1], SS.batch_specs(
+                        full, built.args[1], baxes))
+                else:
+                    parts["batch"] = ({"token": built.args[1]},
+                                      {"token": P(baxes or None)})
+                parts["cache"] = (built.args[2], SS.cache_specs(
+                    full, built.args[2], baxes))
+            for part, (tree, specs) in parts.items():
+                spec_of = paths(specs, lambda x: isinstance(x, P))
+                for k, leaf in paths(tree).items():
+                    spec = spec_of[k]
+                    out[f"args/{pre}{tag}/{name}/{part}/{k}"] = np.asarray(
+                        NamedSharding(mesh, spec).shard_shape(leaf.shape))
 
-for tag, n in (("4x1", 1), ("4x1", 2), ("4x1", 3), ("2x2", 1)):
-    mesh = mesh_of(tag)
-    order = {d.id: r for r, d in enumerate(np.asarray(mesh.devices).flat)}
-    pre, dec = split_disagg_mesh(mesh, n)
-    for pool, m in (("pre", pre), ("dec", dec)):
-        out[f"split/{tag}/{n}/{pool}"] = np.vectorize(
-            lambda d: order[d.id])(np.asarray(m.devices))
+
+def split(_):
+    for tag, n in (("4x1", 1), ("4x1", 2), ("4x1", 3), ("2x2", 1)):
+        mesh = mesh_of(tag)
+        order = {d.id: r
+                 for r, d in enumerate(np.asarray(mesh.devices).flat)}
+        pre, dec = split_disagg_mesh(mesh, n)
+        for pool, m in (("pre", pre), ("dec", dec)):
+            out[f"split/{tag}/{n}/{pool}"] = np.vectorize(
+                lambda d: order[d.id])(np.asarray(m.devices))
+
+
+# the jobs "kind:argument" of this process, comma-separated
+JOBS = {"train": train, "serve": serve, "logits": logits, "loss": loss,
+        "args": args, "split": split}
+for job in filter(None, sys.argv[3].split(",")):
+    kind, _, arg = job.partition(":")
+    JOBS[kind](arg)
 np.savez(sys.argv[2], **out)
 """
 
@@ -305,6 +358,9 @@ JAX_CFGS = {
     "maverick": jax_config("llama4-maverick-400b-a17b").reduced(),
     "phi6": dataclasses.replace(jax_config("phi3.5-moe-42b-a6.6b").reduced(),
                                 n_experts=6),
+    "rg": dataclasses.replace(jax_config("recurrentgemma-2b").reduced(),
+                              n_layers=5, attn_pattern=("rec", "rec", "attn"),
+                              window=16),
 }
 
 
@@ -314,30 +370,44 @@ def test_case_configs_match_jax():
         assert dataclasses.asdict(make()) == dataclasses.asdict(JAX_CFGS[name])
 
 
+# the configs whose weights are drawn with numpy (the JAX init of the MoE
+# configs would take as long as all the others' together, the hybrid's
+# 6 s)
+NUMPY_WEIGHTS = (*C.MOE_CONFIGS, "rg")
+
+
+def _numpy_leaf(rng, shape, init) -> np.ndarray:
+    """A leaf drawn as the JAX init draws it, from numpy: a normal at its
+    std, ones, zeros, or the RG-LRU's lambda (``params.LRU_LAMBDA``)."""
+    if init == "ones":
+        return np.ones(shape, np.float32)
+    if init == "zeros":
+        return np.zeros(shape, np.float32)
+    if init == LRU_LAMBDA:
+        u = rng.uniform(0.9, 0.999, shape)
+        return np.log(np.expm1(-np.log(u ** 8.0) / 8.0)).astype(np.float32)
+    return init * rng.standard_normal(shape, np.float32)
+
+
 def _inputs(path: Path) -> None:
     """The seeded inputs: the configs' weights as the JAX side draws them
-    (``LM.init(key(SEED))``; the MoE configs' at the same stds from
-    numpy), the training batches with masked labels, a prompt and the
-    serve steps' feed."""
+    (``LM.init(key(SEED))``; those of ``NUMPY_WEIGHTS`` at the same
+    distributions from numpy), the training batches with masked labels, a
+    prompt and the serve steps' feed."""
     rng = np.random.default_rng(0)
     inp = {}
     for name, jcfg in JAX_CFGS.items():
-        if name in C.MOE_CONFIGS:
+        if name in NUMPY_WEIGHTS:
             continue
         params = JaxLM(jcfg).init(jax.random.key(SEED))
         inp.update({f"w/{name}/{k}": np.asarray(v)
                     for k, v in _flatten(params).items()})
-    # the MoE configs' weights from numpy, at the stds of the JAX init
-    # (the port's ``param_specs``): drawing them with the JAX init would
-    # take as long as all the others' together
+    # at the distributions of the JAX init (the port's ``param_specs``)
     wrng = np.random.default_rng(SEED)
-    for name in C.MOE_CONFIGS:
+    for name in NUMPY_WEIGHTS:
         cfg = C.CONFIGS[name]()
         for k, (shape, init) in LM(cfg).mod.param_specs(cfg).items():
-            inp[f"w/{name}/{k}"] = np.ones(shape, np.float32) \
-                if init == "ones" else np.zeros(shape, np.float32) \
-                if init == "zeros" else \
-                init * wrng.standard_normal(shape, np.float32)
+            inp[f"w/{name}/{k}"] = _numpy_leaf(wrng, shape, init)
     B, S = C.TRAIN_SHAPE.global_batch, C.TRAIN_SHAPE.seq_len
     tokens = rng.integers(0, 512, (B, S + 1)).astype(np.int32)
     labels = tokens[:, 1:].copy()
@@ -376,6 +446,38 @@ def _tail(path: Path) -> str:
     return path.read_text()[-3000:] if path.exists() else ""
 
 
+# a job's rough CPU seconds on the JAX side (its compiles), by its kind and
+# its config: maverick's and rg's steps compile three times as long as
+# llama's, phi's 1.6 times
+_KIND_S = {"train": 6, "serve": 2.5, "logits": 1.5, "args": 1.5}
+_CONFIG_X = {"rg": 3, "maverick": 3, "phi": 1.6, "phi6": 1.6}
+
+
+def _cost(job: str) -> float:
+    kind, _, arg = job.partition(":")
+    return _KIND_S.get(kind, 1) * _CONFIG_X.get(arg.split("/")[0], 1)
+
+
+def _jax_jobs() -> list:
+    """The JAX side's jobs ("kind:argument") spread over ``JAX_PROCS``
+    processes, longest first, each to the least loaded: one comma-separated
+    list a process."""
+    jobs = ([f"train:{c}" for c, _, _ in C.TRAIN_CASES
+             if c not in JAX_RUN_OF]
+            + [f"serve:{c[0]}" for c in C.SERVE_CASES + C.HYBRID_SERVE_CASES
+               if c[0] not in JAX_RUN_OF]
+            + [f"logits:{n}" for n in ("llama", "phi", "maverick", "rg")]
+            + [f"args:{pre}" for pre, _, _ in C.ARGS_ARCHS]
+            + ["loss:", "split:"])
+    load = [0.0] * JAX_PROCS
+    lists = [[] for _ in range(JAX_PROCS)]
+    for job in sorted(jobs, key=_cost, reverse=True):
+        j = load.index(min(load))
+        load[j] += _cost(job)
+        lists[j].append(job)
+    return [",".join(jobs) for jobs in lists]
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(the JAX side's outputs, each rank's outputs, the inputs)."""
@@ -389,15 +491,11 @@ def runs(tmp_path_factory):
            # workers share, and its steps are small
            "XLA_FLAGS": "--xla_force_host_platform_device_count=4 "
                         "--xla_backend_optimization_level=0"}
-    cases = [case for case, _, _ in C.TRAIN_CASES]
     procs = []
     for name, cmd in [(f"jax{j}", [sys.executable, "-c", JAX_SIDE,
                                    str(tmp / "inputs.npz"),
-                                   str(tmp / f"jax{j}.npz"),
-                                   ",".join(cases[j::JAX_PROCS - 1]
-                                            if j < JAX_PROCS - 1 else []),
-                                   "rest" if j == JAX_PROCS - 1 else "-"])
-                      for j in range(JAX_PROCS)] + [
+                                   str(tmp / f"jax{j}.npz"), jobs])
+                      for j, jobs in enumerate(_jax_jobs())] + [
             (f"rank{r}", [sys.executable, "-m",
                           "repro_torch.launch.step_cases",
                           "--rdv", str(tmp / "rdv"), "--rank", str(r),
@@ -506,8 +604,10 @@ def test_train_step_matches_jax(runs, case):
     """Loss, grad norm and lr at each of 2 steps, then every parameter
     block and AdamW's m and v, within 1e-5 max(1, max |ref|); the FSDP
     cases against the JAX ``param_mode="fsdp"`` step, each block as its
-    ``param_specs_fsdp`` places it."""
+    ``param_specs_fsdp`` places it (the hybrid's against its JAX step on
+    (1, 4), ``JAX_RUN_OF``)."""
     jx, ranks, _ = runs
+    jcase = JAX_RUN_OF.get(case, case)
     name, tag = case.split("/")[:2]
     cfg = JAX_CFGS[name]
     fsdp = C.param_mode(case) == "fsdp"
@@ -523,18 +623,20 @@ def test_train_step_matches_jax(runs, case):
         for i in range(C.TRAIN_STEPS):
             for k in ("loss", "grad_norm", "lr"):
                 key = f"train/{case}/step{i}/{k}"
-                assert _rel(res[key], jx[key]) < TOL, (r, key)
+                jkey = f"train/{jcase}/step{i}/{k}"
+                assert _rel(res[key], jx[jkey]) < TOL, (r, key)
         n_blocks = 0
         for part in ("params", "m", "v"):
             pre = f"train/{case}/{part}/"
-            paths = [k[len(pre):] for k in jx if k.startswith(pre)]
+            jpre = f"train/{jcase}/{part}/"
+            paths = [k[len(jpre):] for k in jx if k.startswith(jpre)]
             assert {k[len(pre):] for k in res if k.startswith(pre)} == \
                 set(paths)
             for path in paths:
                 local = res[pre + path]
-                want = _block(jx[pre + path], local, cfg, path, tag, r,
-                              fsdp)
-                n_blocks += want.shape != jx[pre + path].shape
+                full = jx[jpre + path]
+                want = _block(full, local, cfg, path, tag, r, fsdp)
+                n_blocks += want.shape != full.shape
                 assert local.shape == want.shape, (r, part, path)
                 assert _rel(local, want) < TOL, (r, part, path,
                                                  _rel(local, want))
@@ -636,6 +738,54 @@ def test_prefill_and_serve_steps_match_jax(runs, case):
             assert _rel(res[key], full) < TOL, key
 
 
+@pytest.mark.parametrize("case", [c[0] for c in C.HYBRID_SERVE_CASES])
+def test_hybrid_serve_steps_match_jax(runs, case):
+    """The reduced RecurrentGemma (``step_cases.hybrid``) under the heads'
+    and the lru rules: its 32-token prompt prefilled into the 16-row
+    window, then the serve steps from the prefill's own position 32,
+    which wrap the window on both sides. Each rank's rows of the tokens
+    equal the JAX step's wherever the unsharded logits' top-2 gap exceeds
+    the tolerance; every cache leaf after the steps (the attention slot's
+    k and v at the rank's KV heads, each rec slot's conv tail and h at the
+    rank's W/m channels of the lru width, stacked and ``rest``) within
+    1e-5 of the rank's block of the JAX cache (of the JAX step on (1, 4),
+    ``JAX_RUN_OF``)."""
+    jx, ranks, _ = runs
+    jcase = JAX_RUN_OF.get(case, case)
+    tag = case.split("/")[1]
+    n_model = _shape(tag)[-1]
+    B = C.SERVE_PREFILL.global_batch * n_model // WORLD
+    pre, jpre = f"serve/{case}/cache/", f"serve/{jcase}/cache/"
+    paths = [k[len(jpre):] for k in jx if k.startswith(jpre)]
+    assert set(paths) == {
+        "slots/0/0", "slots/0/1", "slots/1/0", "slots/1/1", "slots/2/k",
+        "slots/2/v", "rest/0/0", "rest/0/1", "rest/1/0", "rest/1/1"}
+    for r, res in enumerate(ranks):
+        d, m = _coords(r, tag)
+        rows = slice(d * B, (d + 1) * B)
+        for name in ["prefill"] + [f"step{i}" for i in range(FEED_STEPS)]:
+            got = res[f"serve/{case}/{name}"]
+            want = jx[f"serve/{jcase}/{name}"][rows]
+            clear = _clear(jx[f"serve/logits/rg/{name}"][rows])
+            assert clear.any()
+            np.testing.assert_array_equal(got[clear], want[clear],
+                                          err_msg=name)
+        heads = res[f"serve/{case}/kv_heads"]
+        assert {k[len(pre):] for k in res if k.startswith(pre)} == set(paths)
+        for path in paths:
+            key = pre + path
+            full = jx[jpre + path]
+            # the batch dim: behind the layer dim of a stacked slot
+            full = full[:, rows] if path.startswith("slots/") else full[rows]
+            if path.endswith(("/k", "/v")):
+                full = full[..., heads, :]
+            else:
+                W = full.shape[-1] // n_model
+                full = full[..., m * W:(m + 1) * W]
+            assert res[key].shape == full.shape, (r, key)
+            assert _rel(res[key], full) < TOL, (r, key, _rel(res[key], full))
+
+
 @pytest.mark.parametrize("tag", list(C.ARGS_MESHES))
 @pytest.mark.parametrize("shape", list(INPUT_SHAPES))
 def test_built_args_have_jax_shard_shapes(runs, tag, shape):
@@ -664,8 +814,10 @@ def _check_args(runs, pre: str, arch: str, tag: str, shape: str) -> dict:
         assert set(got) == set(want)
         for key, g in got.items():
             w = want[key].copy()
-            if key.startswith("cache/slots/"):
-                w[3] = full.n_kv_heads // n_model
+            if key.startswith("cache/slots/") and key.endswith(("/k",
+                                                                "/v")):
+                # a rank's query heads read one KV head at least
+                w[-2] = max(1, full.n_kv_heads // n_model)
             np.testing.assert_array_equal(g, w, err_msg=key)
             if key.split("/")[-1] in ("embed", "unembed"):
                 assert full.vocab_size // n_model in g, key
@@ -690,6 +842,29 @@ def test_moe_built_args_have_jax_shard_shapes(runs, tag, shape):
                                   (G, E // n, Fd, D))
 
 
+@pytest.mark.parametrize("tag", ["2x2", "2x1x2"])
+@pytest.mark.parametrize("shape", list(INPUT_SHAPES))
+def test_hybrid_built_args_have_jax_shard_shapes(runs, tag, shape):
+    """The same for the full-size RecurrentGemma-2B, whose 10 query heads
+    split over 2 ranks (on 1x4 the build refuses, naming A12): the rec
+    blocks' w_gate, w_in and conv_w a rank's W/2 columns, w_out its W/2
+    rows, a rec state's conv tail and h its W/2 channels, the attention
+    cache the one KV head, as the JAX ``shard_shape``s."""
+    got = _check_args(runs, "rg/", "recurrentgemma-2b", tag, shape)
+    full = get_config("recurrentgemma-2b")
+    D, W, G = full.d_model, full.lru_width, full.n_layers // 3
+    np.testing.assert_array_equal(got["params/slots/0/rec/w_in"],
+                                  (G, D, W // 2))
+    np.testing.assert_array_equal(got["params/rest/1/rec/w_out"],
+                                  (W // 2, D))
+    np.testing.assert_array_equal(got["params/slots/1/rec/w_r"],
+                                  (G, 8, W // 8, W // 8))
+    if INPUT_SHAPES[shape].kind != "train":
+        assert got["cache/slots/0/1"][-1] == W // 2
+        assert got["cache/rest/0/0"][-1] == W // 2
+        assert got["cache/slots/2/k"][-2] == 1
+
+
 @pytest.mark.parametrize("tag", list(C.ARGS_MESHES))
 def test_fsdp_args_have_jax_shard_shapes(runs, tag):
     """``BuiltStep.args`` of train_4k's FSDP step (full-size Llama-3.1-8B):
@@ -704,6 +879,14 @@ def test_moe_fsdp_args_have_jax_shard_shapes(runs, tag):
     """The same for train_4k's FSDP step of the full-size Phi-3.5-MoE: its
     router and experts among the leaves every one of which is cut."""
     _check_fsdp_args(runs, "phi/", "phi3.5-moe-42b-a6.6b", tag)
+
+
+@pytest.mark.parametrize("tag", ["2x2", "2x1x2"])
+def test_hybrid_fsdp_args_have_jax_shard_shapes(runs, tag):
+    """The same for train_4k's FSDP step of the full-size RecurrentGemma-2B:
+    its stacked and ``rest`` rec leaves among the leaves every one of
+    which is cut."""
+    _check_fsdp_args(runs, "rg/", "recurrentgemma-2b", tag)
 
 
 def _check_fsdp_args(runs, pre: str, arch: str, tag: str) -> None:
@@ -856,7 +1039,8 @@ def test_batch_and_cache_specs_match_jax(arch):
 
 @pytest.mark.parametrize("arch", ["llama3.1-8b", "starcoder2-15b",
                                   "chameleon-34b", "phi3.5-moe-42b-a6.6b",
-                                  "llama4-maverick-400b-a17b"])
+                                  "llama4-maverick-400b-a17b",
+                                  "recurrentgemma-2b"])
 def test_param_specs_match_jax(arch):
     """``param_specs`` of the full-size config's parameters, sanitised on a
     (1, 4) mesh, against the JAX function's on the abstract parameters."""
@@ -943,7 +1127,7 @@ FSDP_MESHES = ((2, 2), (1, 4), (1, 8), (2, 1, 2))
 def test_param_specs_fsdp_match_jax(arch):
     """The port's ``param_specs_fsdp`` against the JAX function leaf by
     leaf, on (2, 2), (1, 4), (1, 8) and (2, 1, 2) ("pod" in front): each
-    dense, vlm and moe config full and reduced, or ``step_cases``'
+    dense, vlm, moe and hybrid config full and reduced, or ``step_cases``'
     configs."""
     if arch == "step cases":
         pairs = [(JAX_CFGS[n], make()) for n, make in C.CONFIGS.items()]
@@ -966,14 +1150,16 @@ def test_param_specs_fsdp_match_jax(arch):
 
 
 @pytest.mark.parametrize("case", ["starcoder2_whole4/2x2", "llama_v510/1x4",
-                                  "llama/2x1x2", "phi/2x2"])
+                                  "llama/2x1x2", "phi/2x2", "rg/2x2"])
 def test_fsdp_init_params_keep_blocks_of_one_draw(case):
     """Under FSDP each rank's ``init_params`` are its blocks of the weights
     that one device draws from the same seed (``LM.init`` cut by
     ``local_params``): a leaf cut on its layer dim (starcoder2_whole4's bk
     and bv) keeps the rank's layers, embed and unembed over d_model, on
-    (2, 1, 2) the flattened ("pod", "data", "model"), and the reduced
-    Phi-3.5-MoE's router and stacked experts their blocks."""
+    (2, 1, 2) the flattened ("pod", "data", "model"), the reduced
+    Phi-3.5-MoE's router and stacked experts their blocks, and the hybrid
+    family's stacked and ``rest`` rec leaves theirs (``lam`` drawn in
+    fp32)."""
     from repro_torch.launch.steps import build_step, init_params
     from repro_torch.models.params import flatten
     name, tag = case.split("/")
@@ -1006,7 +1192,11 @@ def test_refusals_name_a12():
     prefill, 16 tokens a row over the two rows of 2x2, groups of 64), and
     an experts rule that disagrees with heads and d_ff; the dropless
     decode on the same split builds (and runs in the phi/2x2 serve case),
-    as do the moe family's train, FSDP, prefill and serve steps."""
+    as do the moe family's train, FSDP, prefill and serve steps. The
+    hybrid family: the full-size RecurrentGemma-2B's 10 heads over 4
+    ranks, an lru axis that cuts the 8 gate blocks (16 ranks, or 3), and
+    an lru rule that differs from heads and d_ff; its reduced config's
+    train, FSDP, prefill and serve steps build."""
     from repro_torch.launch.steps import build_step
     shape = dataclasses.replace(INPUT_SHAPES["train_4k"], global_batch=4,
                                 seq_len=16)
@@ -1015,7 +1205,7 @@ def test_refusals_name_a12():
     assert built.rules["fsdp_gather"] and \
         built.rules["batch"] == ("data", "model")
     assert built.args[2]["tokens"].shape == (1, 16)
-    for arch in ("recurrentgemma-2b", "xlstm-350m", "whisper-large-v3"):
+    for arch in ("xlstm-350m", "whisper-large-v3"):
         for kind in ("train_4k", "prefill_32k", "decode_32k"):
             with pytest.raises(NotImplementedError, match="A12"):
                 build_step(get_config(arch).reduced(), _Mesh(),
@@ -1050,6 +1240,23 @@ def test_refusals_name_a12():
         for kind in ("train_4k", "prefill_32k", "decode_32k"):
             assert build_step(cfg, _Mesh(), INPUT_SHAPES[kind])
         assert build_step(cfg, _Mesh(), C.MOE_TRAIN_SHAPE, param_mode="fsdp")
+
+    # the hybrid family
+    rg_full, rg = get_config("recurrentgemma-2b"), C.CONFIGS["rg"]()
+    for kind in ("train_4k", "prefill_32k", "decode_32k"):
+        with pytest.raises(NotImplementedError, match="A12"):
+            build_step(rg_full, _Mesh(), INPUT_SHAPES[kind])
+        assert build_step(rg_full, _Mesh(2), INPUT_SHAPES[kind])
+        assert build_step(rg, _Mesh(), INPUT_SHAPES[kind])
+    assert build_step(rg, _Mesh(), shape, param_mode="fsdp")
+    rg16 = dataclasses.replace(rg, n_heads=16)     # the heads split
+    for mesh in (_Mesh(16), _Mesh(3)):
+        with pytest.raises(NotImplementedError, match="gate blocks.*A12"):
+            build_step(rg16, mesh, shape)
+    for over in ({"lru": None}, {"lru": "data"}, {"heads": None,
+                                                  "d_ff": None}):
+        with pytest.raises(NotImplementedError, match="A12"):
+            build_step(rg, _Mesh(), shape, rule_overrides=over)
 
     class PodMesh(_Mesh):
         mesh_dim_names = ("pod", "data", "model")
