@@ -102,7 +102,9 @@ its own lines; any failure exits non-zero without the result line:
    7g's (a rank's 5 of RecurrentGemma-2B's 10 query heads over its one KV
    head, hd 256: B1 at S=3000 in the 2048 window, B2 over the rotating
    2048 rows, B1's backward at B=2 S=4096; B3 forward at S=3000 and
-   backward at B=2 S=4096 on a rank's 1280 of the RG-LRU width);
+   backward at B=2 S=4096 on a rank's 1280 of the RG-LRU width); and at
+   7h's (a rank's 2 of xLSTM-350M's 4 mLSTM heads of 512: B4 forward and
+   backward at B=2 S=1024, the forward at B=1 S=1000);
 3. reduced llama3.1-8b, qwen1.5-4b, starcoder2-15b, chameleon-34b,
    granite-3-8b, phi3.5-moe, llama4-maverick, whisper-large-v3,
    recurrentgemma-2b and xlstm-350m in fp32 on the card: prefill and
@@ -206,7 +208,7 @@ its own lines; any failure exits non-zero without the result line:
    first step's tokens equal to ``LM.decode_step``'s on the same cache,
    B1's 32 and B2's 512 launches all on the sm90 kernels. 7b, two
    ``gloo`` ranks sharing the card: ``build_train_step`` under
-   ``standard_rules`` on mesh (1, 2), 16 of the 32 layers, the heads, d_ff and
+   ``standard_rules`` on mesh (1, 2), 8 of the 32 layers, the heads, d_ff and
    the vocabulary cut (``embed``/``unembed`` a rank's 64128 ids; the
    loss's log-sum-exp over the two blocks), B=1, S=4096, remat, 2 steps,
    after rank 0 ran the same steps unsharded on its one-rank pool (and
@@ -244,7 +246,7 @@ its own lines; any failure exits non-zero without the result line:
    its 32 layers, train_4k's sequence at B=1 (8 groups of 512 at capacity
    80), 2 steps held as 7b against rank 0's unsharded run, with the
    reference's MoE routing imposed; 7f-serve, ``build_prefill_step`` and
-   ``build_serve_step`` at 16 of its 32 layers, 6b's B=4 prompts of 1000
+   ``build_serve_step`` at 8 of its 32 layers, 6b's B=4 prompts of 1000
    tokens into a 1024-row cache and 16 dropless serve steps fed the
    tokens of rank 0's unsharded ``LM.prefill`` and ``LM.decode_step``
    (run first, its logits and routing kept on the host), run once as it
@@ -255,17 +257,17 @@ its own lines; any failure exits non-zero without the result line:
    equal the reference's argmax wherever its top-2 gap exceeds DIST_TOL
    of max |logit| (as it runs, save rows whose own token routed
    otherwise); both must drop choices by capacity in training and in the
-   prefill (each ``moe_layer.route`` call's ``fits``), run B1 (16
+   prefill (each ``moe_layer.route`` call's ``fits``), run B1 (8
    in the prefill; forward 2 and backward 1 a layer a training step) and
-   B2 (16 a serve step) on the sm90 kernels alone and keep their
+   B2 (8 a serve step) on the sm90 kernels alone and keep their
    collectives over "model". 7g, the same two processes:
    RecurrentGemma-2B at its published widths, bf16, seeded, under
    ``standard_rules`` on the (1, 2) mesh, each rank its ``local_params``
    (5 of the 10 query heads and the 1 KV head, d_ff 3840, 1280 of the
    RG-LRU width: 4 of the 8 gate blocks, and 128,000 of the 256,000 ids;
    the whole-held gate leaves' gradients summed over "model"): 7g-train,
-   ``build_train_step`` at 8 of its 26 layers ((rec, rec, attn) x 2 and
-   the 2 ``rest`` rec layers), train_4k's sequence at B=2, 2 steps held
+   ``build_train_step`` at 5 of its 26 layers ((rec, rec, attn) and the
+   2 ``rest`` rec layers), train_4k's sequence at B=2, 2 steps held
    as 7b against rank 0's unsharded run, its leaves after the first
    (RG_CHECK_AFTER: after AdamW's first, sign-like update the runs part
    where bf16 flips a near-zero gradient's sign); 7g-fsdp, the same layers and
@@ -284,15 +286,45 @@ its own lines; any failure exits non-zero without the result line:
    fp32 model's argmax wherever its top-2 gap exceeds DIST_TOL of max
    |logit|; then the same sharded steps in fp32 (the rank's blocks
    upcast, the caches in fp32) on the same feed, every pass's logits and
-   the rank's channels of the rec leaves within RG_FP32_TOL = 1e-3 of the
-   unsharded fp32 model's. B1 and B3 launch as ``train_plan``
+   the rank's channels of the rec leaves within SERVE_FP32_TOL = 1e-3 of
+   the unsharded fp32 model's. B1 and B3 launch as ``train_plan``
    says in training, B1 8 and B3 18 (on the rank's block of the width)
    in the prefill, B2 8 a serve step, all on the sm90 kernels; the
-   collectives over "model" ("data+model" under FSDP). Phase 2 holds B1
-   at S=32768 (the plain
-   version in blocks of 1024 query rows) and B2 over 32768 rows at these
-   shapes, at 7f's 16/4 heads in its 6b cases, and at 7g's. A rank that
-   fails, or phase 7 past 600 s, fails the run.
+   collectives over "model" ("data+model" under FSDP). 7h, the same two
+   processes: xLSTM-350M at its published widths, bf16, seeded, under
+   ``standard_rules`` on the (1, 2) mesh, each rank its ``local_params`` (2
+   of the 4 mLSTM heads: 1024 of the 2048 inner columns of w_up, w_gate,
+   wq, wk and wv and rows of w_if and w_down; 2048 of the sLSTM's 4096 w_in
+   columns and 512 of w_out's 1024 rows; 25,152 of the 50,304 ids; the
+   sLSTM's r and b_in whole, their gradients summed over "model"), each
+   rank running the sLSTM's recurrence whole. The seeded model amplifies a
+   rounding difference from layer to layer (XL_FP32_SEQ), so its long runs
+   are held where that does not swamp the sharding's own error: 7h-train32,
+   ``build_train_step`` at 8 of its 24 layers (7 mLSTM, 1 sLSTM) in fp32,
+   B=2, S=200, 2 steps, the first's loss and grad norm and the leaves after
+   it held as 7b against rank 0's unsharded run (XL_CHECK_AFTER: after
+   AdamW's first, sign-like update the runs part, and this model amplifies
+   it); 7h-train, the same in bf16 at S=1024, its first step's loss and
+   grad norm held; 7h-fsdp, the bf16 run's layers and rows under
+   ``param_mode="fsdp"`` (the unsharded arithmetic a head), held as 7b
+   against 7h-train's reference; 7h-serve, ``build_prefill_step`` and
+   ``build_serve_step`` at all 24 layers, a B=1 prompt of 1000 tokens, 16
+   serve steps fed the unsharded fp32 model's tokens, the bf16 run reported
+   beside bf16's own floor (0.94-1.37 of max |logit| there, so not held),
+   and the fp32 run teacher-forced block by block (each block on the
+   unsharded fp32 model's input to it, ``_block_io``): every block call's
+   change, every pass's logits and every state leaf (the rank's heads of
+   each mLSTM state (C, n, m), each sLSTM state whole) within
+   SERVE_FP32_TOL, its tokens on clear rows. B4 launches forward and
+   backward as ``train_plan`` says in training and 21 times in the prefill,
+   on the CUDA kernels alone and on the rank's 2 heads (4 under FSDP; the
+   heads of each call of ``models.xlstm``'s ``mlstm_chunk``, recorded); the
+   collectives over "model" ("data+model" under FSDP). Phase 2 holds B1 at
+   S=32768 (the plain version in blocks of 1024 query rows) and B2 over
+   32768 rows at these shapes, at 7f's 16/4 heads in its 6b cases, at 7g's,
+   and B4 forward and backward at 7h's (2 heads of 512: B=2 S=1024, and the
+   forward at the prefill's B=1 S=1000). A rank that fails, or phase 7 past
+   600 s, fails the run.
 
 Each serve and each training run starts with the previous one's engine
 freed and the allocator's cache emptied, and prints its peak device
@@ -415,10 +447,11 @@ DIST_TP = {"train_seq": 2048, "batch": 4, "max_len": 1024, "prompt": 1000,
            "steps": 16}
 # phase 7: the steps of launch/steps.py at Llama-3.1-8B's full width. 7a:
 # prefill_32k's 32 sequences cut to 1, decode_32k's 128 to 8 (their 34.4 GB
-# of KV cache beside 16.06 GB of weights); 7b: 16 of the 32 layers, the
+# of KV cache beside 16.06 GB of weights); 7b: 8 of the 32 layers, the
 # vocabulary cut with the layers (all 32, ~36 GB a rank of blocks, AdamW
 # moments, gradients and logits, took ~170 s of the script's 1200 with
-# its leaf check: cut to make room for 7f); 7c: the pools; 7d: 8 of the 32 layers, as
+# its leaf check: cut to 16 to make room for 7f, to 8 for 7h); 7c: the
+# pools; 7d: 8 of the 32 layers, as
 # two whole replicas of ~28 GB each (data parallel over the flattened
 # ("pod", "data")) must share the one card; 7e: the same 8 layers under
 # FSDP. 7e's collectives are staged through the host on gloo: at 7d's rate
@@ -431,7 +464,7 @@ LONG_SEQ = 32768                # prefill_32k's and decode_32k's rows
 STEPS_DECODE_BATCH = 8
 STEPS_DECODE_POS = 32752        # the 16 steps write the cache's last rows
 STEPS_DECODE_STEPS = 16
-STEPS_TRAIN_LAYERS = 16
+STEPS_TRAIN_LAYERS = 8
 STEPS_TRAIN_STEPS = 2
 STEPS_POD_LAYERS = 8
 STEPS_POD_BATCH = 2
@@ -444,18 +477,20 @@ STEPS_TIMEOUT_S = 600
 # parameters, gradients and moments unsharded (the reference), ~21.9 GB a
 # rank (8 layers would need ~84 GB for the two ranks); train_4k's sequence
 # at B=1 makes 8 groups of 512 at capacity 80, so choices are dropped.
-# Serving at 16 of 32 layers: 21.1e9 parameters, 42.1 GB whole (the
-# reference), ~21.1 GB a rank; 6b's prompts, cache and steps (DIST_TP).
+# Serving at 8 of 32 layers (16 until 7h came): 10,665,136,128
+# parameters, 21.3 GB whole (the reference), ~10.7 GB a rank; 6b's
+# prompts, cache and steps (DIST_TP).
 # The host-staged all-reduces come to ~1.3 GB a training step and ~2 GB a
 # prefill: at 7b's ~0.4 GB/s, 7f should take 60-120 s of phase 7's 600
 STEPS_MOE_TRAIN_LAYERS = 4
-STEPS_MOE_SERVE_LAYERS = 16
+STEPS_MOE_SERVE_LAYERS = 8
 # 7g: RecurrentGemma-2B at its published widths on the same (1, 2) mesh,
 # its RG-LRU width over "model" with the heads, d_ff and the vocabulary: a
 # rank holds 5 of the 10 query heads and the 1 KV head, d_ff 3840, 1280 of
 # the width (4 of the 8 gate blocks) and 128,000 of the 256,000 ids.
-# Training at 8 of its 26 layers ((rec, rec, attn) x 2 and the 2 rest rec
-# layers; 1,939,376,640 parameters), train_4k's sequence at B=2 (FSDP's
+# Training at 5 of its 26 layers ((rec, rec, attn) and the 2 rest rec
+# layers; 1,705,356,800 parameters; 8 until 7h came), train_4k's sequence
+# at B=2 (FSDP's
 # batch must split over its two ranks, and 7g-train and 7g-fsdp share one
 # unsharded reference, as 7d and 7e do); serving at all 26
 # (3,343,495,680): a B=1 prompt (B=2 took the whole script past 1000 s) of
@@ -465,7 +500,7 @@ STEPS_MOE_SERVE_LAYERS = 16
 # the unsharded bf16 model is 4-6% of max |logit| from the fp32 one there
 # (on the H100), past DIST_TOL, so the sharded run's distance to
 # the bf16 model may not exceed the bf16 model's to the fp32 one
-STEPS_RG_TRAIN_LAYERS = 8
+STEPS_RG_TRAIN_LAYERS = 5
 STEPS_RG_BATCH = 2
 RG_SERVE = {"batch": 1, "prompt": 3000, "max_len": 4096, "steps": 16}
 # the same sharded prefill and steps with the bf16 draw upcast to fp32,
@@ -473,7 +508,7 @@ RG_SERVE = {"batch": 1, "prompt": 3000, "max_len": 4096, "steps": 16}
 # max |d| / max |ref| of every pass's logits and of each rank's channels of
 # every rec leaf after the steps (the sharding's own error, which bf16's
 # 4-6% would hide)
-RG_FP32_TOL = 1e-3
+SERVE_FP32_TOL = 1e-3
 # 7g's leaves are held after its first step: AdamW's first update is about
 # lr sign(g) for every value, so wherever bf16 rounding flips the sign of a
 # near-zero gradient the two runs part by 2 lr there, and the second
@@ -484,6 +519,47 @@ RG_FP32_TOL = 1e-3
 RG_CHECK_AFTER = 1
 RG_TP_HEADS = (5, 1, 256)          # a rank's of recurrentgemma-2b over 2
 RG_TP_WIDTH = 1280                 # a rank's RG-LRU width over 2
+# 7h: xLSTM-350M at its published widths on the same (1, 2) mesh, the
+# mLSTM's inner width and heads and the sLSTM's gate columns over "model"
+# with the vocabulary: a rank holds 2 of the 4 mLSTM heads (1024 of the
+# 2048 inner columns), 2048 of the sLSTM's 4096 w_in columns and 512 of
+# w_out's 1024 rows, and 25,152 of the 50,304 ids; each rank runs the
+# sLSTM's recurrence whole. Training at 8 of its 24 layers (one group:
+# 7 mLSTM, 1 sLSTM; 241,562,680 parameters) at B=2 (FSDP's batch splits
+# over the two ranks; 7h-train and 7h-fsdp share one unsharded reference,
+# as 7g's do) and S=1024, not train_4k's 4096: the sLSTM loop's launches
+# hold a step (phase 5: ~15-30 s a step at 8 layers and S=4096), and both
+# ranks and the reference walk it; serving at all 24 (518,640,808): a B=1
+# prompt of 1000 tokens (past B4's 64-step chunks, not a multiple of them),
+# 16 steps fed the unsharded fp32 model's tokens, held as 7g-serve
+STEPS_XL_TRAIN_LAYERS = 8
+STEPS_XL_BATCH = 2
+STEPS_XL_SEQ = 1024
+XL_SERVE = {"batch": 1, "prompt": 1000, "max_len": 4096, "steps": 16}
+# 7h's leaves are held after its first step, for 7g's reason
+# (RG_CHECK_AFTER): AdamW's first update is about lr sign(g) for every
+# value, so wherever rounding flips the sign of a near-zero gradient the
+# runs part by 2 lr and the second step's gradients carry it, which this
+# model amplifies (XL_FP32_SEQ): the tensor-parallel runs hold their first
+# step's loss and grad norm alone, FSDP (the unsharded arithmetic a head)
+# both steps'
+XL_CHECK_AFTER = 1
+# The seeded xLSTM-350M amplifies a rounding difference from layer to layer
+# (as C3's gradients show; ``launch.check_xlstm_tp`` holds the sharding
+# itself in fp64 on the CPU): after 24 layers and 1000 tokens the unsharded
+# bf16 model's logits are 95-137% of max |logit| from the fp32 one's, and
+# the sharded fp32 run's 8.5-33% from the unsharded fp32 run's. So
+# 7h-serve's fp32 run is held block by block, each block run on the
+# unsharded model's input to it (``_block_io``). A training step parts the
+# runs too: after AdamW's first, sign-like update (XL_CHECK_AFTER) the
+# second step's grad norm lay 32% (bf16, S=1024) and 27% (fp32, S=200) from
+# the unsharded run's. So 7h-train's bf16 run holds the loss and grad norm
+# of its first step, and the same training in fp32 at a short sequence
+# (7h-train32, XL_FP32_SEQ) holds them and every leaf after that step as 7b
+# (the leaves 0.16-0.30 of their tolerance, on the H100)
+XL_FP32_SEQ = 200
+XL_TP_HEADS = 2                    # a rank's mLSTM heads of xlstm-350m
+XL_TP_HD = 512                     # its mLSTM head dim (2 d_model / 4)
 # 7b against the unsharded step (bf16; the sharded layers all-reduce fp32
 # partial products and cast once): the loss and the grad norm relative to
 # the reference's; after the steps, each parameter leaf's change from its
@@ -1438,6 +1514,22 @@ def _hybrid_cases(gen) -> dict:
             STEPS_RG_BATCH, TRAIN_SEQ, RG_TP_WIDTH, gen))}
 
 
+def _xlstm_cases(gen) -> dict:
+    """B4 at 7h's shapes, a rank's 2 of xLSTM-350M's 4 mLSTM heads of 512:
+    forward and backward at the training's B=2 S=1024 from a fresh state,
+    and forward at the serve's prefill, B=1 S=1000. Returns the table's
+    case name -> (the kernel's list in ``phase_kernels``, the case)."""
+    B, S = STEPS_XL_BATCH, STEPS_XL_SEQ
+    nh, hd = XL_TP_HEADS, XL_TP_HD
+    return {
+        "mlstm_chunk_tp": ("mlstm_chunk", _mlstm_case(
+            B, S, nh, hd, False, gen)),
+        "mlstm_chunk_tp_prefill": ("mlstm_chunk", _mlstm_case(
+            XL_SERVE["batch"], XL_SERVE["prompt"], nh, hd, False, gen)),
+        "mlstm_chunk_bwd_tp": ("mlstm_chunk_bwd", _mlstm_bwd_case(
+            B, S, nh, hd, False, gen))}
+
+
 def phase_kernels(report: dict) -> dict:
     """Returns the main-path case of each kernel, for the table: bf16
     attention at the llama serve's shapes, the scan at the hybrid serve's
@@ -1572,6 +1664,9 @@ def phase_kernels(report: dict) -> dict:
         _mlstm_bwd_case(1, TRAIN_SEQ, 4, 512, False, gen),
         _mlstm_bwd_case(2, 300, 2, 256, True, gen)]
     main["mlstm_chunk_bwd"] = cases["mlstm_chunk_bwd"][0]
+    for key, (name, c) in _xlstm_cases(gen).items():
+        cases[name].append(c)
+        main[key] = c
     log(f"[kernel] rglru_scan_bwd B=1 S=4096 W=2560: "
         f"{main['rglru_scan_bwd']['ms']:.4f} ms in one launch; the route it "
         f"replaced (reverse scan, flips and products) "
@@ -2818,22 +2913,48 @@ def phase_dist(report: dict) -> dict:
 
 def _step_counters(reset: bool = False) -> dict:
     """B1 forward (all, sm90), B1 backward, B2 (all, sm90), B3 forward and
-    backward and the all-reduces and all-gathers (count, bytes, host
-    seconds), set to 0 where ``reset``."""
+    backward, B4 forward and backward (and the heads B4 ran on) and the
+    all-reduces and all-gathers (count, bytes, host seconds), set to 0
+    where ``reset``."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda,
     )
+    from repro_torch.kernels.mlstm_chunk.kernel import (mlstm_chunk_bwd_cuda,
+                                                        mlstm_chunk_cuda)
     from repro_torch.kernels.rglru_scan.kernel import (rglru_scan_bwd_cuda,
                                                        rglru_scan_cuda)
     out = _counters(reset)
     fns = {"flash_attention_bwd": flash_attention_bwd_cuda,
            "rglru_scan": rglru_scan_cuda,
-           "rglru_scan_bwd": rglru_scan_bwd_cuda}
+           "rglru_scan_bwd": rglru_scan_bwd_cuda,
+           "mlstm_chunk": mlstm_chunk_cuda,
+           "mlstm_chunk_bwd": mlstm_chunk_bwd_cuda}
     for name, fn in fns.items():
         if reset:
             fn.launches = 0
         out[f"{name}.launches"] = fn.launches
+    if reset:
+        _MLSTM_HEADS.clear()
+    out["mlstm_chunk.heads"] = sorted(set(_MLSTM_HEADS))
     return out
+
+
+# the heads (q's dim 2) of each call the xLSTM's blocks made of the
+# chunkwise mLSTM since the counters were last set to 0, in a process of
+# phase 7's ranks (``_record_mlstm_heads``)
+_MLSTM_HEADS: list = []
+
+
+def _record_mlstm_heads() -> None:
+    """Wrap ``models.xlstm``'s call of B4's entry point so that each call's
+    heads (the rank's: q is (B, S, nh, hd)) are kept in _MLSTM_HEADS."""
+    from repro_torch.models import xlstm
+    chunk = xlstm.mlstm_chunk
+
+    def recorded(q, *args):
+        _MLSTM_HEADS.append(int(q.shape[2]))
+        return chunk(q, *args)
+    xlstm.mlstm_chunk = recorded
 
 
 def _peak_gb() -> float:
@@ -3217,7 +3338,8 @@ def _route_log(check: dict) -> str:
 def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
                    opt_cfg, param_mode: str = "2d", reference=None,
                    keep: bool = False,
-                   check_after: int = STEPS_TRAIN_STEPS) -> tuple:
+                   check_after: int = STEPS_TRAIN_STEPS,
+                   dtype=torch.bfloat16) -> tuple:
     """Train ``cfg`` on ``shape`` for STEPS_TRAIN_STEPS steps through
     ``build_train_step(..., param_mode=param_mode)`` on ``mesh`` and hold
     it against rank 0's run of the same steps on ``ref_mesh`` (its
@@ -3237,7 +3359,8 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
     earlier call's kept reference of the same ``cfg``, ``shape`` and
     ``opt_cfg``, used in place of running it again. ``check_after``: the
     step after which the leaves are held (the reference's are kept then,
-    the run's checked then and the steps go on). Returns (the reference's
+    the run's checked then and the steps go on). ``dtype``: the
+    parameters' (and the activations'). Returns (the reference's
     and the run's steps, launches, collectives, peaks and checks; on rank 0
     where ``keep``, the reference for a later call, else None)."""
     import torch.distributed as dist
@@ -3291,7 +3414,8 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
         res["ref"] = dict(res["ref"], reused=True)
         log(f"[steps r0] {tag}: the reference reused (kept on the host)")
     elif rank == 0:
-        built = build_train_step(cfg, ref_mesh, shape, opt_cfg=opt_cfg)
+        built = build_train_step(cfg, ref_mesh, shape, dtype,
+                                 opt_cfg=opt_cfg)
         ref = {}
 
         def keep_ref(params, opt, _):
@@ -3319,7 +3443,7 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
     for t in ref_steps:
         dist.broadcast(t, src=0)
     torch.cuda.reset_peak_memory_stats()
-    built = build_train_step(cfg, mesh, shape, opt_cfg=opt_cfg,
+    built = build_train_step(cfg, mesh, shape, dtype, opt_cfg=opt_cfg,
                              param_mode=param_mode)
     # a model with MoE FFNs runs the reference's routing (a choice near a
     # gate tie may go the other way in bf16, and the runs then part, as
@@ -3373,7 +3497,10 @@ def _held_training(rank: int, tag: str, cfg, shape, ref_mesh, mesh,
         f"{counts['flash_attention_bwd.launches']}; "
         + (f"B3 forward {counts['rglru_scan.launches']}, backward "
            f"{counts['rglru_scan_bwd.launches']}; "
-           if cfg.family == "hybrid" else "") +
+           if cfg.family == "hybrid" else "")
+        + (f"B4 forward {counts['mlstm_chunk.launches']}, backward "
+           f"{counts['mlstm_chunk_bwd.launches']} on heads "
+           f"{counts['mlstm_chunk.heads']}; " if cfg.family == "ssm" else "") +
         f"all-reduces "
         f"{counts['all_reduce.calls']} ({counts['all_reduce.bytes']} bytes, "
         f"{counts['all_reduce.seconds']:.2f} host s; [count, bytes] by mesh "
@@ -3632,60 +3759,128 @@ def _worst(rows, what: str) -> float:
     return max(c[what] for c in rows)
 
 
-def _hybrid_serve(rank: int, cfg, mesh) -> dict:
-    """7g-serve: ``build_prefill_step`` and ``build_serve_step`` of the
-    hybrid ``cfg`` under ``standard_rules`` on ``mesh``, each rank its
-    blocks drawn by ``init_params`` (its query heads, the KV head, its d_ff
-    columns, its RG-LRU width and gate blocks, its vocabulary ids),
-    RG_SERVE's prompt of 3000 tokens into the rotating 2048-row
-    window, then 16 serve steps fed the reference's tokens. Rank 0 first
-    runs the same prompts unsharded twice, keeps each run's logits and
-    final rec states on the host and frees the card: in fp32 (the bf16
+@dataclasses.dataclass
+class RecurrentServe:
+    """What ``_recurrent_serve`` runs and holds for one model: its tag, the
+    serve's shape (batch, prompt, max_len, steps), the recurrent leaves of
+    a cache (path -> tensor), the dim along which a rank holds its block
+    of such a leaf (None: whole), for the log the kernels' (label,
+    counter) and the cache leaves whose shapes it prints (label, path),
+    and ``blocks``: the block functions ((module, name), each layer one
+    call ``fn(p, x, cfg, state, mode) -> x + out``) that the fp32 run is
+    teacher-forced through (``_block_io``), or none: the fp32 run end to
+    end."""
+    tag: str
+    shape: dict
+    leaves: object
+    block_dim: object
+    kernels: tuple
+    shapes: tuple
+    blocks: tuple = ()
+
+
+@contextlib.contextmanager
+def _block_io(blocks: tuple, io: list, ref: list | None = None,
+              errs: list | None = None):
+    """While the context lasts, each call of the block functions
+    ``blocks`` ((module, name) pairs; ``fn(p, x, cfg, state, mode) -> x +
+    out``): without ``ref``, appends (x, its output) as fp32 host tensors
+    to ``io``; with ``ref`` (what such a run appended), runs the call on
+    the reference's x in its place, in order, and appends max |d| / max
+    |ref| of the call's change (output - x) against the reference's to
+    ``errs``. A forced model's error does not carry from layer to layer:
+    each block is held on its own."""
+    import importlib
+    calls = iter(ref) if ref is not None else None
+    saved = []
+    for module, name in blocks:
+        mod = importlib.import_module(module)
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def wrapped(p, x, *args, fn=fn):
+            if calls is None:
+                y = fn(p, x, *args)
+                io.append((x.detach().float().cpu(), y.detach().float().cpu()))
+                return y
+            x_ref, y_ref = next(calls)
+            x = x_ref.to(x.device, x.dtype)
+            y = fn(p, x, *args)
+            errs.append(_rel_max((y.float() - x.float()).cpu(), y_ref - x_ref))
+            return y
+        setattr(mod, name, wrapped)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _recurrent_serve(rank: int, cfg, mesh, how: RecurrentServe) -> dict:
+    """7g-serve and 7h-serve: ``build_prefill_step`` and
+    ``build_serve_step`` of ``cfg`` under ``standard_rules`` on ``mesh``,
+    each rank its blocks drawn by ``init_params``, ``how.shape``'s prompt,
+    then its serve steps fed the reference's tokens. Rank 0 first runs the
+    same prompts unsharded twice, keeps each run's logits and final
+    recurrent states on the host and frees the card: in fp32 (the bf16
     draw's weights upcast, its caches in fp32; greedy, its tokens the
     feed) and in bf16 on the same feed. The sharded steps are timed and
     counted; the whole logits each step takes its argmax of are kept
     (``_kept_logits``). The logits of the serve's passes, and each rank's
-    channels of the rec leaves after the steps, must differ from the
-    unsharded bf16 model's by no more than that model's differ from the
-    fp32 model's (max |d| / max |ref|, the worst pass against the worst
-    pass, the worst leaf against the worst leaf: each varies by ~15%
-    between runs): the sharding's change within what bf16's rounding alone
-    makes of the function. Each token must equal the fp32
-    model's argmax wherever its top-2 gap exceeds DIST_TOL of max |logit|
-    (``_tokens_check``). Then the same sharded steps run in fp32, the
-    rank's blocks upcast and the caches in fp32, on the same feed: every
-    pass's logits and the rank's channels of every rec leaf within
-    RG_FP32_TOL of the unsharded fp32 model's (max |d| / max |ref|), its
-    tokens held as the bf16 run's."""
+    block of the recurrent leaves after the steps (``how.leaves``, cut
+    along ``how.block_dim``), must differ from the unsharded bf16 model's
+    by no more than that model's differ from the fp32 model's (max |d| /
+    max |ref|, the worst pass against the worst pass, the worst leaf
+    against the worst leaf: each varies by ~15% between runs): the
+    sharding's change within what bf16's rounding alone makes of the
+    function. Each token must equal the fp32 model's argmax wherever its
+    top-2 gap exceeds DIST_TOL of max |logit| (``_tokens_check``). Then the
+    same sharded steps run in fp32, the rank's blocks upcast and the
+    caches in fp32, on the same feed: every pass's logits and the rank's
+    block of every recurrent leaf within SERVE_FP32_TOL of the unsharded
+    fp32 model's (max |d| / max |ref|), its tokens held as the bf16
+    run's. Where ``how.blocks`` names the model's blocks, that fp32 run is
+    teacher-forced: each block runs on the unsharded fp32 model's input to
+    it (recorded in its run, ``_block_io``), and every call's change is
+    held within SERVE_FP32_TOL of the unsharded block's too."""
     from repro_torch.configs.base import InputShape
-    from repro_torch.launch.steps import build_step, init_params, materialize
+    from repro_torch.launch.steps import build_step, init_params
     from repro_torch.models import LM
     from repro_torch.models.params import flatten, map_leaves
-    sv = RG_SERVE
+    sv, tag = how.shape, how.tag
     lm = LM(cfg)
     rng = np.random.default_rng(0)
     tokens = torch.as_tensor(rng.integers(
         0, cfg.vocab_size, (sv["batch"], sv["prompt"])), device="cuda")
-    # the fp32 and the bf16 reference's logits and rec states after the
-    # steps (whole, on the host), and the feed
+    # the fp32 and the bf16 reference's logits and recurrent states after
+    # the steps (whole, on the host), and the feed
     refs = {d: torch.zeros((sv["steps"] + 1, sv["batch"], cfg.vocab_size))
             for d in ("fp32", "bf16")}
     fed = torch.zeros((sv["batch"], sv["steps"]), dtype=torch.long)
-    like = _rec_leaves(lm.init_cache(sv["batch"], sv["max_len"],
-                                     device="meta"))
+    like = how.leaves(lm.init_cache(sv["batch"], sv["max_len"],
+                                    device="meta"))
     states = {d: {k: torch.zeros(t.shape) for k, t in like.items()}
               for d in ("fp32", "bf16")}
+    # the fp32 reference's blocks' inputs and outputs, call by call (each
+    # layer once a pass): rank 0 records them, the others take them
+    io: list = []
+    B, D = sv["batch"], cfg.d_model
+    io_shapes = [(B, sv["prompt"], D)] * cfg.n_layers + \
+        [(B, 1, D)] * (cfg.n_layers * sv["steps"]) if how.blocks else []
     res = {}
     torch.cuda.reset_peak_memory_stats()
     if rank == 0:
         t0 = time.perf_counter()
         params = lm.init(torch.Generator(device="cuda").manual_seed(0),
                          dtype=torch.bfloat16, device="cuda")
-        refs["fp32"], fed, cache = _greedy(
-            lm, map_leaves(torch.Tensor.float, params), tokens,
-            sv["max_len"], sv["steps"], keep_cache=True, dtype=torch.float32)
+        with _block_io(how.blocks, io):
+            refs["fp32"], fed, cache = _greedy(
+                lm, map_leaves(torch.Tensor.float, params), tokens,
+                sv["max_len"], sv["steps"], keep_cache=True,
+                dtype=torch.float32)
+        assert [tuple(x.shape) for x, _ in io] == io_shapes
         states["fp32"] = {k: t.float().cpu()
-                          for k, t in _rec_leaves(cache).items()}
+                          for k, t in how.leaves(cache).items()}
         del cache
         cache = lm.init_cache(sv["batch"], sv["max_len"], device="cuda")
         logits, cache = lm.prefill(params, {"tokens": tokens}, cache)
@@ -3695,31 +3890,35 @@ def _hybrid_serve(rank: int, cfg, mesh) -> dict:
             outs.append(logits.float().cpu())
         refs["bf16"] = torch.stack(outs)
         states["bf16"] = {k: t.float().cpu()
-                          for k, t in _rec_leaves(cache).items()}
+                          for k, t in how.leaves(cache).items()}
         res["ref"] = {"seconds": time.perf_counter() - t0,
                       "peak_gb": _peak_gb()}
         del params, cache
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"[steps r0] 7g-serve: the unsharded model in fp32, then in bf16 "
+        log(f"[steps r0] {tag}: the unsharded model in fp32, then in bf16 "
             f"on its feed, at {cfg.n_layers} layers in "
             f"{res['ref']['seconds']:.1f} s, peak {res['ref']['peak_gb']:.2f}"
             " GB")
     refs = {d: _from_rank0(t, rank) for d, t in refs.items()}
+    if rank != 0:
+        io = [(torch.zeros(shape), torch.zeros(shape)) for shape in io_shapes]
+    io = [(_from_rank0(x, rank), _from_rank0(y, rank)) for x, y in io]
     fed = _from_rank0(fed.cpu(), rank)
     states = {d: {k: _from_rank0(t, rank) for k, t in leaves.items()}
               for d, leaves in states.items()}
     torch.cuda.reset_peak_memory_stats()
-    pre = build_step(cfg, mesh, InputShape("prefill_rg", sv["prompt"],
-                                           sv["batch"], "prefill"))
-    dec = build_step(cfg, mesh, InputShape("decode_rg", sv["max_len"],
-                                           sv["batch"], "decode"))
+    shapes = (InputShape("prefill_" + tag, sv["prompt"], sv["batch"],
+                         "prefill"),
+              InputShape("decode_" + tag, sv["max_len"], sv["batch"],
+                         "decode"))
+    pre, dec = (build_step(cfg, mesh, b) for b in shapes)
     params = init_params(cfg, pre, torch.Generator(device="cuda")
                          .manual_seed(0), "cuda")
     n_local = sum(t.numel() for t in flatten(params).values())
     kept: list = []
     with _kept_logits(kept):
-        cache = materialize(dec.args[2], "cuda")
+        cache = dec.new_cache("cuda")
         _step_counters(reset=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3742,39 +3941,41 @@ def _hybrid_serve(rank: int, cfg, mesh) -> dict:
                "floor": _rel_max(r16, r32)}
               for o, r16, r32 in zip(logits, refs["bf16"], refs["fp32"])]
     tokens_ok = _tokens_check(torch.stack(out), refs["fp32"])
-    # this rank's channels of each rec leaf: its block of the width
-    width = cfg.lru_width or cfg.d_model
 
     def mine(key, t, d):
-        n = t.shape[-1]
-        assert n * mesh.size(1) == width, (key, tuple(t.shape))
-        return states[d][key][..., rank * n:(rank + 1) * n]
+        """This rank's block of the reference's leaf ``key``."""
+        ref = states[d][key]
+        dim = how.block_dim(key)
+        if dim is None:
+            assert t.shape == ref.shape, (key, tuple(t.shape))
+            return ref
+        n = t.shape[dim]
+        assert n * mesh.size(1) == ref.shape[dim], (key, tuple(t.shape))
+        return ref.narrow(dim, rank * n, n)
     leaves = {}
-    for key, t in _rec_leaves(cache).items():
+    for key, t in how.leaves(cache).items():
         s16, s32 = mine(key, t, "bf16"), mine(key, t, "fp32")
         leaves[key] = {"vs_bf16": _rel_max(t.cpu(), s16),
                        "vs_fp32": _rel_max(t.cpu(), s32),
                        "floor": _rel_max(s16, s32)}
-    attn_shape = tuple(flatten(cache)["slots/2/k"].shape)
+    cache_shapes = {label: tuple(flatten(cache)[path].shape)
+                    for label, path in how.shapes}
     res.update(walls_s=walls, prefill_counters=pc, serve_counters=dc,
                logits=passes, tokens=tokens_ok, states=leaves,
                logits_ok=_worst(passes, "vs_bf16") <= _worst(passes, "floor"),
                states_ok=_worst(leaves.values(), "vs_bf16") <=
                _worst(leaves.values(), "floor"),
                local_parameters=n_local, peak_gb=_peak_gb(),
-               cache_shapes={"attention": attn_shape,
-                             "h": tuple(flatten(cache)["slots/0/1"].shape)})
+               cache_shapes=cache_shapes)
     # the same steps in fp32 on the same blocks upcast, against the
     # unsharded fp32 model (not timed; its launches are not the path's)
     del cache, kept
     params = map_leaves(torch.Tensor.float, params)
-    kw = {"dtype": torch.float32}
-    pre, dec = (build_step(cfg, mesh, b, **kw) for b in (
-        InputShape("prefill_rg", sv["prompt"], sv["batch"], "prefill"),
-        InputShape("decode_rg", sv["max_len"], sv["batch"], "decode")))
-    kept = []
-    with _kept_logits(kept):
-        cache = materialize(dec.args[2], "cuda")
+    pre, dec = (build_step(cfg, mesh, b, dtype=torch.float32)
+                for b in shapes)
+    kept, errs = [], []
+    with _kept_logits(kept), _block_io(how.blocks, [], io, errs):
+        cache = dec.new_cache("cuda")
         tok, cache = pre.fn(params, {"tokens": tokens}, cache)
         out32 = [tok.cpu()]
         for i in range(sv["steps"]):
@@ -3784,41 +3985,44 @@ def _hybrid_serve(rank: int, cfg, mesh) -> dict:
     fp32 = {"logits": [_rel_max(o.cpu(), r32)
                        for o, r32 in zip(kept, refs["fp32"])],
             "states": {key: _rel_max(t.cpu(), mine(key, t, "fp32"))
-                       for key, t in _rec_leaves(cache).items()},
-            "tokens": _tokens_check(torch.stack(out32), refs["fp32"])}
-    fp32["ok"] = bool(max(fp32["logits"]) <= RG_FP32_TOL and
-                      max(fp32["states"].values()) <= RG_FP32_TOL and
-                      fp32["tokens"]["ok"])
+                       for key, t in how.leaves(cache).items()},
+            "tokens": _tokens_check(torch.stack(out32), refs["fp32"]),
+            "forced_blocks": len(errs),
+            "blocks": max(errs) if errs else None}
+    fp32["ok"] = bool(max(fp32["logits"]) <= SERVE_FP32_TOL and
+                      max(fp32["states"].values()) <= SERVE_FP32_TOL and
+                      fp32["tokens"]["ok"] and
+                      len(errs) == len(io) and
+                      (not errs or max(errs) <= SERVE_FP32_TOL))
     res["fp32"] = fp32
     del params, cache, kept
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[steps r{rank}] 7g-serve at {cfg.n_layers} layers: {n_local} "
+
+    def launches(c):
+        return ", ".join(f"{label} {c[name + '.launches']}" + (
+            f" ({c[name + '.launches_sm90']} sm90)"
+            if name + ".launches_sm90" in c else "") + (
+            f" on heads {c['mlstm_chunk.heads']}"
+            if name == "mlstm_chunk" else "")
+            for label, name in how.kernels)
+
+    def collectives(c):
+        return "; ".join(
+            f"{name}s {c[f'all_{name}.calls']}, {c[f'all_{name}.bytes']} "
+            f"bytes, {c[f'all_{name}.seconds']:.2f} host s, by mesh axes "
+            f"{c[f'all_{name}.by_axis']}" for name in ("reduce", "gather"))
+    log(f"[steps r{rank}] {tag} at {cfg.n_layers} layers: {n_local} "
         f"parameters on this rank; prefill B={sv['batch']} x {sv['prompt']} "
-        f"{walls[0]:.2f} s (B1 {pc['flash_attention.launches']}, "
-        f"{pc['flash_attention.launches_sm90']} sm90; B3 "
-        f"{pc['rglru_scan.launches']} on the rank's (B, S, "
-        f"{width // mesh.size(1)}) block; all-reduces "
-        f"{pc['all_reduce.calls']}, {pc['all_reduce.bytes']} bytes, "
-        f"{pc['all_reduce.seconds']:.2f} host s, by mesh axes "
-        f"{pc['all_reduce.by_axis']}; all-gathers {pc['all_gather.calls']}, "
-        f"{pc['all_gather.bytes']} bytes, {pc['all_gather.seconds']:.2f} "
-        f"host s, by mesh axes {pc['all_gather.by_axis']}); "
+        f"{walls[0]:.2f} s ({launches(pc)}; all-{collectives(pc)}); "
         f"{sv['steps']} serve steps median "
-        f"{np.median(walls[1:]) * 1e3:.1f} ms (B2 "
-        f"{dc['decode_attention.launches']}, "
-        f"{dc['decode_attention.launches_sm90']} sm90; B1 "
-        f"{dc['flash_attention.launches']}, B3 {dc['rglru_scan.launches']}; "
-        f"all-reduces {dc['all_reduce.calls']}, {dc['all_reduce.bytes']} "
-        f"bytes, {dc['all_reduce.seconds']:.2f} host s; all-gathers "
-        f"{dc['all_gather.calls']}, {dc['all_gather.bytes']} bytes, "
-        f"{dc['all_gather.seconds']:.2f} host s); attention cache of a slot "
-        f"{attn_shape}, h {res['cache_shapes']['h']}; peak "
+        f"{np.median(walls[1:]) * 1e3:.1f} ms ({launches(dc)}; "
+        f"all-{collectives(dc)}); cache leaves {cache_shapes}; peak "
         f"{res['peak_gb']:.2f} GB")
 
     def by(rows, what):
         return [round(c[what], 5) for c in rows]
-    log(f"[steps r{rank}] 7g-serve logits, max |d| / max |ref| by pass: "
+    log(f"[steps r{rank}] {tag} logits, max |d| / max |ref| by pass: "
         f"against the unsharded bf16 model {by(passes, 'vs_bf16')}, the "
         f"worst within that model's own against the fp32 one "
         f"{by(passes, 'floor')}: {res['logits_ok']} (against the fp32 model "
@@ -3826,22 +4030,72 @@ def _hybrid_serve(rank: int, cfg, mesh) -> dict:
         f"{tokens_ok['agree']:.3f} of the rows, "
         f"{tokens_ok['differ_on_clear']} differ of the "
         f"{tokens_ok['clear_rows']} whose top-2 gap exceeds {DIST_TOL} max "
-        f"|logit|: {tokens_ok['ok']}; final rec states (conv tails .../0, h "
-        f".../1), the rank's channels: against the bf16 model "
+        f"|logit|: {tokens_ok['ok']}; final recurrent states, the rank's "
+        f"block: against the bf16 model "
         f"{ {k: round(c['vs_bf16'], 5) for k, c in leaves.items()} }, the "
         f"worst within its own against the fp32 one "
         f"{ {k: round(c['floor'], 5) for k, c in leaves.items()} }: "
         f"{res['states_ok']} (against the fp32 model "
         f"{ {k: round(c['vs_fp32'], 5) for k, c in leaves.items()} })")
-    log(f"[steps r{rank}] 7g-serve in fp32 (the blocks upcast) against the "
-        f"unsharded fp32 model, max |d| / max |ref|: logits by pass "
-        f"{[float(f'{e:.3g}') for e in fp32['logits']]}, the rank's channels "
-        f"of the final rec states "
+    forced = (f" each of its {len(errs)} block calls teacher-forced (run on "
+              f"the unsharded model's input; the worst call's change "
+              f"{max(errs):.3g} of max)," if errs else "")
+    log(f"[steps r{rank}] {tag} in fp32 (the blocks upcast),{forced} against "
+        f"the unsharded fp32 model, max |d| / max |ref|: logits by pass "
+        f"{[float(f'{e:.3g}') for e in fp32['logits']]}, the rank's block "
+        f"of the final recurrent states "
         f"{ {k: float(f'{e:.3g}') for k, e in fp32['states'].items()} } "
-        f"(tol {RG_FP32_TOL}); tokens differ on "
+        f"(tol {SERVE_FP32_TOL}); tokens differ on "
         f"{fp32['tokens']['differ_on_clear']} of "
         f"{fp32['tokens']['clear_rows']} clear rows: {fp32['ok']}")
     return res
+
+
+def _hybrid_serve(rank: int, cfg, mesh) -> dict:
+    """7g-serve (``_recurrent_serve``): RecurrentGemma-2B's RG_SERVE prompt
+    of 3000 tokens into the rotating 2048-row window, each rank its query
+    heads, the KV head, its d_ff columns, its RG-LRU width and gate blocks
+    and its vocabulary ids; held on the rec leaves (the conv tails and h,
+    the rank's channels of the width)."""
+    width = cfg.lru_width or cfg.d_model
+
+    def channels(key):
+        return -1
+    assert width % mesh.size(1) == 0
+    return _recurrent_serve(rank, cfg, mesh, RecurrentServe(
+        "7g-serve", RG_SERVE, _rec_leaves, channels,
+        (("B1", "flash_attention"), ("B3", "rglru_scan"),
+         ("B2", "decode_attention")),
+        (("attention", "slots/2/k"), ("h", "slots/0/1"))))
+
+
+def _xlstm_leaves(cache) -> dict:
+    """Every state leaf of an xLSTM cache (path -> tensor): an mLSTM slot's
+    C, n and m (``slots/<i>/{0,1,2}``), an sLSTM slot's c, n, m and h."""
+    from repro_torch.models.params import flatten
+    return {k: t for k, t in flatten(cache).items() if k != "pos"}
+
+
+def _xlstm_serve(rank: int, cfg, mesh) -> dict:
+    """7h-serve (``_recurrent_serve``): xLSTM-350M's XL_SERVE prompt of 1000
+    tokens (past B4's 64-step chunks, not a multiple of them), each rank
+    its 2 of the 4 mLSTM heads, its sLSTM gate columns and w_out rows and
+    its vocabulary ids; held on every state leaf: an mLSTM state at the
+    rank's heads (dim 2 of (G, B, nh, ...)), an sLSTM state whole. Its
+    fp32 run is teacher-forced block by block (XL_FP32_SEQ says why)."""
+    from repro_torch.models import xlstm
+    mlstm = {i for i, kind in enumerate(xlstm._slot_kinds(cfg))
+             if kind == "mlstm"}
+
+    def heads(key):
+        return 2 if int(key.split("/")[1]) in mlstm else None
+    slstm = min(set(range(len(xlstm._slot_kinds(cfg)))) - mlstm)
+    return _recurrent_serve(rank, cfg, mesh, RecurrentServe(
+        "7h-serve", XL_SERVE, _xlstm_leaves, heads,
+        (("B4", "mlstm_chunk"),),
+        (("mLSTM C", "slots/0/0"), ("sLSTM h", f"slots/{slstm}/3")),
+        tuple(("repro_torch.models.xlstm", name)
+              for name in ("_mlstm_block", "_slstm_block"))))
 
 
 def _hybrid_steps(rank: int, res: dict, mesh, ref_mesh, opt_cfg) -> None:
@@ -3881,8 +4135,53 @@ def _hybrid_steps(rank: int, res: dict, mesh, ref_mesh, opt_cfg) -> None:
     dist.barrier()
 
 
+def _xlstm_steps(rank: int, res: dict, mesh, ref_mesh, opt_cfg) -> None:
+    """7h on this rank, its results into ``res``: xLSTM-350M at its
+    published widths on ``mesh`` (1, 2), its mLSTM heads and sLSTM gate
+    columns over "model": STEPS_XL_TRAIN_LAYERS layers trained tensor
+    parallel in fp32 at S=XL_FP32_SEQ (7h-train32), then in bf16 tensor
+    parallel and under FSDP at B=STEPS_XL_BATCH, S=STEPS_XL_SEQ, each held
+    against an unsharded run on ``ref_mesh`` (rank 0's one-rank pool; the
+    bf16 one kept on the host where MemAvailable holds it; the leaves
+    after step XL_CHECK_AFTER), then all 24 layers prefilled and served
+    (``_xlstm_serve``)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import INPUT_SHAPES
+    xl = get_config("xlstm-350m")
+    xl_cfg = dataclasses.replace(xl, n_layers=STEPS_XL_TRAIN_LAYERS)
+    xl_shape = dataclasses.replace(INPUT_SHAPES["train_4k"],
+                                   global_batch=STEPS_XL_BATCH,
+                                   seq_len=STEPS_XL_SEQ)
+    t0 = time.perf_counter()
+    res["train_xl32"], _ = _held_training(
+        rank, "7h-train32", xl_cfg, dataclasses.replace(
+            xl_shape, seq_len=XL_FP32_SEQ), ref_mesh, mesh,
+        dataclasses.replace(opt_cfg, state_dtype=torch.float32),
+        check_after=XL_CHECK_AFTER, dtype=torch.float32)
+    res["train_xl"], reference = _held_training(
+        rank, "7h-train", xl_cfg, xl_shape, ref_mesh, mesh, opt_cfg,
+        keep=True, check_after=XL_CHECK_AFTER)
+    if rank == 0:
+        ref_gb = sum(t.numel() * t.element_size() for part in
+                     reference[1].values() for t in part.values()) / 1e9
+        res["xl_fsdp_reference"] = {"leaves_gb": ref_gb,
+                                    "mem_available_gb": _mem_available_gb()}
+        if res["xl_fsdp_reference"]["mem_available_gb"] < ref_gb:
+            reference = None
+    res["train_xl_fsdp"], _ = _held_training(
+        rank, "7h-fsdp", xl_cfg, xl_shape, ref_mesh, mesh, opt_cfg,
+        param_mode="fsdp", reference=reference, check_after=XL_CHECK_AFTER)
+    del reference
+    gc.collect()
+    res["serve_xl"] = _xlstm_serve(rank, xl, mesh)
+    res["xl_seconds"] = time.perf_counter() - t0
+    dist.barrier()
+
+
 def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
-    """One rank of 7b to 7g on cuda:0 in a gloo world of two. 7b:
+    """One rank of 7b to 7h on cuda:0 in a gloo world of two. 7b:
     Llama-3.1-8B at full width and STEPS_TRAIN_LAYERS layers on the (1, 2)
     mesh under ``standard_rules`` (heads, d_ff and the vocabulary cut),
     held against rank 0's unsharded run on its one-rank pool
@@ -3899,7 +4198,9 @@ def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
     its published widths on the (1, 2) mesh, its RG-LRU width over
     "model": STEPS_RG_TRAIN_LAYERS layers trained tensor parallel and
     under FSDP, both held against one unsharded run of rank 0's, then all
-    26 layers prefilled and served (``_hybrid_serve``). Writes its results
+    26 layers prefilled and served (``_hybrid_serve``). 7h: xLSTM-350M at
+    its published widths on the (1, 2) mesh, its mLSTM heads and sLSTM
+    gate columns over "model" (``_xlstm_steps``). Writes its results
     to ``out_dir/steps_rank<rank>.json``."""
     import dataclasses as dc
     import datetime
@@ -3916,6 +4217,7 @@ def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
     from repro_torch.training.optimizer import AdamWConfig
     t_start = time.perf_counter()
     torch.cuda.set_device(0)
+    _record_mlstm_heads()
     dist.init_process_group(
         "gloo", init_method=f"file://{rdv}", rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=STEPS_TIMEOUT_S))
@@ -4023,6 +4325,7 @@ def _steps_rank(rank: int, world: int, rdv: str, out_dir: str) -> None:
     res["moe_seconds"] = time.perf_counter() - t0
     dist.barrier()
     _hybrid_steps(rank, res, mesh12, pools[0], opt_cfg)
+    _xlstm_steps(rank, res, mesh12, pools[0], opt_cfg)
     res["seconds"] = time.perf_counter() - t_start
     Path(out_dir, f"steps_rank{rank}.json").write_text(json.dumps(res))
     dist.destroy_process_group()
@@ -4071,7 +4374,7 @@ def _hybrid_problems(r: dict) -> list:
     if not serve["tokens"]["ok"]:
         out.append(f"rank {r['rank']}: 7g-serve tokens {serve['tokens']}")
     if not serve["fp32"]["ok"]:
-        out.append(f"rank {r['rank']}: 7g-serve in fp32 past {RG_FP32_TOL} "
+        out.append(f"rank {r['rank']}: 7g-serve in fp32 past {SERVE_FP32_TOL} "
                    f"of the unsharded fp32 model's: {serve['fp32']}")
     n_attn = rg.layer_kinds().count("attn")
     n_rec = rg.layer_kinds().count("rec")
@@ -4093,6 +4396,71 @@ def _hybrid_problems(r: dict) -> list:
         for name in ("all_reduce", "all_gather"):
             if set(c[f"{name}.by_axis"]) - {"model"}:
                 out.append(f"rank {r['rank']}: 7g-serve {name} over "
+                           f"{set(c[f'{name}.by_axis'])}")
+    return out
+
+
+def _xlstm_problems(r: dict) -> list:
+    """7h's checks on rank ``r``'s results: each training run's B4 forward
+    and backward launches as ``train_plan`` of its 8 layers gives them for
+    its 2 steps, on the rank's 2 of the 4 heads tensor parallel and on
+    all 4 under FSDP; the tensor-parallel runs' collectives over "model"
+    alone, the FSDP run's over "data+model" alone, half the parameters a
+    rank; the serve's teacher-forced fp32 run's blocks, logits, states
+    and tokens held, B4 an mLSTM layer in the prefill (21) on the rank's
+    heads and none in a serve step, its collectives over "model" alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm
+    xl = get_config("xlstm-350m")
+    cfg = dataclasses.replace(xl, n_layers=STEPS_XL_TRAIN_LAYERS)
+    plan = train_plan(cfg)
+    out = []
+    for run, tag, axes, heads in (
+            ("train_xl32", "7h-train32", {"model"}, [XL_TP_HEADS]),
+            ("train_xl", "7h-train", {"model"}, [XL_TP_HEADS]),
+            ("train_xl_fsdp", "7h-fsdp", {"data+model"}, [cfg.n_heads])):
+        c = r[run]["counters"]
+        for name, want in plan.items():
+            if c[f"{name}.launches"] != want * STEPS_TRAIN_STEPS:
+                out.append(f"rank {r['rank']}: {tag} {name} launches "
+                           f"{c[f'{name}.launches']}, "
+                           f"{want * STEPS_TRAIN_STEPS} expected")
+        if c["mlstm_chunk.heads"] != heads:
+            out.append(f"rank {r['rank']}: {tag} B4 on heads "
+                       f"{c['mlstm_chunk.heads']}, {heads} expected")
+        for name in ("all_reduce", "all_gather"):
+            got = set(c[f"{name}.by_axis"])
+            if got - axes:
+                out.append(f"rank {r['rank']}: {tag} {name} over {got}")
+    total = sum(math.prod(shape) for shape, _ in
+                xlstm.param_specs(cfg).values())
+    if r["train_xl_fsdp"]["local_parameters"] * STEPS_WORLD != total:
+        out.append(f"rank {r['rank']}: 7h-fsdp holds "
+                   f"{r['train_xl_fsdp']['local_parameters']} of {total}")
+    # the bf16 run's logits, states and tokens are reported, not held: the
+    # unsharded bf16 model's own lie 0.94-1.37 of max from the fp32 one's
+    # past 24 layers (XL_FP32_SEQ), a floor no difference can exceed; the
+    # forced fp32 run's are held
+    serve = r["serve_xl"]
+    if not serve["fp32"]["ok"]:
+        out.append(f"rank {r['rank']}: 7h-serve in fp32 past "
+                   f"{SERVE_FP32_TOL} of the unsharded fp32 model's: "
+                   f"{serve['fp32']}")
+    n_mlstm = xl.layer_kinds().count("mlstm")
+    pc, dc = serve["prefill_counters"], serve["serve_counters"]
+    for what, n, expected in (
+            ("prefill B4", pc["mlstm_chunk.launches"], n_mlstm),
+            ("serve B4", dc["mlstm_chunk.launches"], 0)):
+        if n != expected:
+            out.append(f"rank {r['rank']}: 7h {what} launches {n}, "
+                       f"{expected} expected")
+    if pc["mlstm_chunk.heads"] != [XL_TP_HEADS]:
+        out.append(f"rank {r['rank']}: 7h prefill B4 on heads "
+                   f"{pc['mlstm_chunk.heads']}")
+    for c in (pc, dc):
+        for name in ("all_reduce", "all_gather"):
+            if set(c[f"{name}.by_axis"]) - {"model"}:
+                out.append(f"rank {r['rank']}: 7h-serve {name} over "
                            f"{set(c[f'{name}.by_axis'])}")
     return out
 
@@ -4144,7 +4512,7 @@ def _spawn_ranks(target, tag: str, limit: float) -> tuple:
 
 
 def phase_steps_ranks(report: dict) -> dict:
-    """7b to 7g: two gloo ranks sharing the card (``_steps_rank``); fails
+    """7b to 7h: two gloo ranks sharing the card (``_steps_rank``); fails
     if a rank fails, outlasts what is left of STEPS_TIMEOUT_S or finds a
     result off. Returns the launches by path."""
     ranks, secs = _spawn_ranks(
@@ -4156,11 +4524,18 @@ def phase_steps_ranks(report: dict) -> dict:
             "train_pod": ("7d", STEPS_POD_LAYERS),
             "train_fsdp": ("7e", STEPS_POD_LAYERS),
             "train_moe": ("7f-train", STEPS_MOE_TRAIN_LAYERS)}
-    # the hybrid's runs are held as these, their launches by train_plan
-    held_rg = {"train_rg": "7g-train", "train_rg_fsdp": "7g-fsdp"}
+    # the hybrid's and the ssm's runs are held as these, their launches by
+    # train_plan: run -> (tag, the steps whose loss and grad norm are held,
+    # whether its leaves are); 7h's tensor-parallel runs hold their first
+    # step alone (XL_FP32_SEQ says why)
+    held_rg = {"train_rg": ("7g-train", STEPS_TRAIN_STEPS, True),
+               "train_rg_fsdp": ("7g-fsdp", STEPS_TRAIN_STEPS, True),
+               "train_xl32": ("7h-train32", 1, True),
+               "train_xl": ("7h-train", 1, False),
+               "train_xl_fsdp": ("7h-fsdp", STEPS_TRAIN_STEPS, True)}
     for r in ranks:
-        for run, tag in held_rg.items():
-            if not all(c["ok"] for c in r[run]["checks"]):
+        for run, (tag, steps, _) in held_rg.items():
+            if not all(c["ok"] for c in r[run]["checks"][:steps]):
                 problems.append(f"rank {r['rank']}: {tag} loss or grad norm "
                                 f"off: {r[run]['checks']}")
         for run, (tag, _) in held.items():
@@ -4209,7 +4584,7 @@ def phase_steps_ranks(report: dict) -> dict:
             if not serve[what]["ok"]:
                 problems.append(f"rank {r['rank']}: 7f-serve {what} off: "
                                 f"{serve[what]}")
-        problems += _hybrid_problems(r)
+        problems += _hybrid_problems(r) + _xlstm_problems(r)
         pc, dc = serve["prefill_counters"], serve["serve_counters"]
         n_serve = STEPS_MOE_SERVE_LAYERS * DIST_TP["steps"]
         for what, n, n_sm90, expected in (
@@ -4222,7 +4597,7 @@ def phase_steps_ranks(report: dict) -> dict:
                 problems.append(f"rank {r['rank']}: 7f {what} launches {n} "
                                 f"({n_sm90} sm90), {expected} expected")
     for run, tag in [(k, t) for k, (t, _) in held.items()] + \
-            list(held_rg.items()):
+            [(k, t) for k, (t, _, leaves) in held_rg.items() if leaves]:
         leaves = ranks[0][run]["leaves"]
         if leaves["n_failed"]:
             problems.append(f"{tag}: {leaves['n_failed']} leaves off: "
@@ -4268,7 +4643,18 @@ def phase_steps_ranks(report: dict) -> dict:
         f"{ranks[0]['rg_fsdp_reference']}); 7g-serve reference "
         f"{ranks[0]['serve_rg']['ref']['peak_gb']:.2f}, sharded "
         f"{[round(r['serve_rg']['peak_gb'], 2) for r in ranks]}")
-    log(f"[steps] 7b-7g in {secs:.1f} s; peak GB by rank: 7b reference "
+    xl_ref = ranks[0]["train_xl"]["ref"]
+    log(f"[steps] 7h in {[round(r['xl_seconds'], 1) for r in ranks]} s; "
+        f"peak GB by rank: 7h-train reference {xl_ref['peak_gb']:.2f}, "
+        f"tensor-parallel "
+        f"{[round(r['train_xl']['peak_gb'], 2) for r in ranks]}; 7h-fsdp "
+        f"{[round(r['train_xl_fsdp']['peak_gb'], 2) for r in ranks]} "
+        f"(reference reused: "
+        f"{ranks[0]['train_xl_fsdp']['ref'].get('reused', False)}, "
+        f"{ranks[0]['xl_fsdp_reference']}); 7h-serve reference "
+        f"{ranks[0]['serve_xl']['ref']['peak_gb']:.2f}, sharded "
+        f"{[round(r['serve_xl']['peak_gb'], 2) for r in ranks]}")
+    log(f"[steps] 7b-7h in {secs:.1f} s; peak GB by rank: 7b reference "
         f"{ranks[0]['train_tp']['ref']['peak_gb']:.2f}, tensor-parallel "
         f"{[round(r['train_tp']['peak_gb'], 2) for r in ranks]}; pools "
         f"{[round(r['pool_run']['peak_gb'], 2) for r in ranks]}; 7d "
@@ -4284,7 +4670,7 @@ def phase_steps_ranks(report: dict) -> dict:
         f"{[round(r['serve_moe']['peak_gb'], 2) for r in ranks]}; 7f in "
         f"{[round(r['moe_seconds'], 1) for r in ranks]} s")
     if problems:
-        raise SystemExit(f"phase 7b-7g: {problems}")
+        raise SystemExit(f"phase 7b-7h: {problems}")
 
     def total(run, name):
         return sum(r[run]["counters"][f"{name}.launches"] for r in ranks)
@@ -4312,26 +4698,34 @@ def phase_steps_ranks(report: dict) -> dict:
                 "decode_attention": sum(r["serve_moe"]["serve_counters"][
                     "decode_attention.launches"] for r in ranks)},
             "steps-hybrid": {
-                name: sum(total(run, name) for run in held_rg) +
+                name: sum(total(run, name) for run in
+                          ("train_rg", "train_rg_fsdp")) +
                 sum(r["serve_rg"][c][f"{name}.launches"] for r in ranks
                     for c in ("prefill_counters", "serve_counters"))
                 for name in ("flash_attention", "flash_attention_bwd",
                              "decode_attention", "rglru_scan",
-                             "rglru_scan_bwd")}}
+                             "rglru_scan_bwd")},
+            "steps-ssm": {
+                name: sum(total(run, name) for run in
+                          ("train_xl32", "train_xl", "train_xl_fsdp")) +
+                sum(r["serve_xl"][c][f"{name}.launches"] for r in ranks
+                    for c in ("prefill_counters", "serve_counters"))
+                for name in ("mlstm_chunk", "mlstm_chunk_bwd")}}
 
 
 def phase_steps(report: dict) -> dict:
-    """Phase 7: 7a, then 7b to 7g; fails past STEPS_TIMEOUT_S."""
+    """Phase 7: 7a, then 7b to 7h; fails past STEPS_TIMEOUT_S."""
     t0 = time.perf_counter()
     by_path = phase_steps_serve(report)
     by_path.update(phase_steps_ranks(report))
     secs = time.perf_counter() - t0
     ranks = report["steps_ranks"]["ranks"]
     log(f"[steps] phase 7 in {secs:.1f} s (7a "
-        f"{report['steps_serve']['seconds']:.1f}, 7b-7g "
+        f"{report['steps_serve']['seconds']:.1f}, 7b-7h "
         f"{report['steps_ranks']['seconds']:.1f}, of which 7f "
         f"{max(r['moe_seconds'] for r in ranks):.1f}, 7g "
-        f"{max(r['rg_seconds'] for r in ranks):.1f})")
+        f"{max(r['rg_seconds'] for r in ranks):.1f}, 7h "
+        f"{max(r['xl_seconds'] for r in ranks):.1f})")
     if secs > STEPS_TIMEOUT_S:
         raise SystemExit(f"phase 7 took {secs:.0f} s, past "
                          f"{STEPS_TIMEOUT_S}")
@@ -4419,6 +4813,8 @@ def main() -> int:
                                report["steps_ranks"]["ranks"])
     secs["7g hybrid, in 7"] = max(r["rg_seconds"] for r in
                                   report["steps_ranks"]["ranks"])
+    secs["7h ssm, in 7"] = max(r["xl_seconds"] for r in
+                               report["steps_ranks"]["ranks"])
     log(f"[time] seconds by phase: "
         f"{ {k: round(v, 1) for k, v in secs.items()} }")
     report["phase_s"] = secs
@@ -4535,6 +4931,17 @@ def main() -> int:
          "source": "src/repro_torch/csrc/mlstm_chunk_bwd.cu",
          "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:76",
          "grad_of": "src/repro/models/xlstm.py:83 _mlstm_chunk_scan"},
+        # phase 7h: xLSTM-350M's rank of 2 mLSTM heads of 512 (its phase 2
+        # cases at the training's shape)
+        {"name": "mlstm_chunk", "route": "cuda",
+         "source": "src/repro_torch/csrc/mlstm_chunk.cu",
+         "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:76",
+         "case": "mlstm_chunk_tp", "path": "steps-ssm"},
+        {"name": "mlstm_chunk_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/mlstm_chunk_bwd.cu",
+         "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:76",
+         "grad_of": "src/repro/models/xlstm.py:83 _mlstm_chunk_scan",
+         "case": "mlstm_chunk_bwd_tp", "path": "steps-ssm"},
     ]}
     for row in table["kernels"]:
         # a row's case: the kernel's main case, or the one it names; B2 has

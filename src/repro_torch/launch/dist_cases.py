@@ -18,6 +18,9 @@ rules. The inputs (all made from a seed by the caller):
   ``layer/<moe arch>/moe/<name>`` one MoE FFN's (``shared/...`` its
   shared expert's); ``layer/rg/rec/<name>`` one rec block's of the reduced
   RecurrentGemma, ``rec/tail`` and ``rec/h`` a state of it;
+  ``layer/xl/{mlstm,slstm}/<name>`` one mLSTM and one sLSTM block's of
+  ``step_cases.ssm``'s reduced xLSTM, ``xl/mlstm/{C,n,m}`` and
+  ``xl/slstm/{c,n,m,h}`` a state of each;
 - ``lm/<path>``: the reduced Llama-3.1-8B's parameters, flattened as
   ``repro.training.checkpoint._flatten`` names them; ``lm/tokens`` (B, S)
   the prompt and ``lm/steps`` (B, n) the tokens fed to the decode steps.
@@ -37,6 +40,12 @@ What each rank writes (its own block, in fp32), by case:
   (``rglru._rec_block``) of ``x`` from the state ``rec/{tail,h}`` under
   ``tp_bf16_ar`` on the (1, 4) mesh, its output and the rank's block of
   the new state;
+- ``xl/<rules>/<dtype>/<block>`` and ``.../<leaf>``: the reduced xLSTM's
+  mLSTM and sLSTM blocks (``xlstm._mlstm_block``, ``_slstm_block``) of
+  ``x`` from the given states on the (1, 4) mesh, one mLSTM head a rank,
+  under ``standard_rules`` (fp32 and bf16, the partial products summed
+  in fp32) and under ``tp_bf16_ar`` (bf16, summed in bf16): the output,
+  the rank's heads of the new mLSTM state and the whole new sLSTM state;
 - ``lm/<case>/{prefill,step<i>,train}``: the reduced model's logits through
   ``LM.prefill`` and ``decode_step`` (and ``forward_train`` under tensor
   parallelism, its vocabulary block gathered), ``lm/<case>/cache/<slot>/
@@ -60,9 +69,10 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.launch.mesh import batch_axes_for, make_mesh
 from repro_torch.launch.shardspecs import local_leaf, local_params
+from repro_torch.launch.step_cases import ssm
 from repro_torch.models import LM
 from repro_torch.models import layers as L
-from repro_torch.models import moe_layer, rglru
+from repro_torch.models import moe_layer, rglru, xlstm
 from repro_torch.models import sharding as SH
 from repro_torch.models.params import flatten
 from repro_torch.models.vocab import whole_logits
@@ -183,6 +193,43 @@ def tp_rec(inp, mesh, out: Dict[str, np.ndarray]) -> None:
                 out[f"tp/rg/{dname}/{name}"] = _np(t)
 
 
+# the reduced xLSTM's blocks: (case, rules, dtypes)
+XL_CASES = (("std", SH.standard_rules(False), ("fp32", "bf16")),
+            ("tp", rules_tp(), ("bf16",)))
+XL_STATES = {"mlstm": ("C", "n", "m"), "slstm": ("c", "n", "m", "h")}
+
+
+def tp_xlstm(inp, mesh, out: Dict[str, np.ndarray]) -> None:
+    """The reduced xLSTM's mLSTM and sLSTM blocks from the given states:
+    each leaf cut by ``shardspecs.local_leaf`` as the one layer of a stack
+    (an mLSTM slot 0, an sLSTM slot 1), the mLSTM state to the rank's
+    heads, the sLSTM state whole."""
+    cfg = ssm(get_config("xlstm-350m").reduced())
+    for case, rules, dnames in XL_CASES:
+        with SH.use_rules(rules, mesh):
+            for dname in dnames:
+                dtype = DTYPES[dname]
+                for slot, kind in enumerate(("mlstm", "slstm")):
+                    pre = f"layer/xl/{kind}/"
+                    p = {k[len(pre):]: local_leaf(
+                        cfg, f"slots/{slot}/{k[len(pre):]}",
+                        torch.tensor(v)[None], mesh)[0].to(dtype)
+                        for k, v in inp.items() if k.startswith(pre)}
+                    p["ln"] = {"w": p.pop("ln/w")}
+                    state = [torch.tensor(inp[f"xl/{kind}/{name}"])
+                             for name in XL_STATES[kind]]
+                    if kind == "mlstm":     # the rank's heads
+                        state = [_rows(t, mesh, "model", 1) for t in state]
+                    blk = xlstm._mlstm_block if kind == "mlstm" else \
+                        xlstm._slstm_block
+                    y = blk(p, torch.tensor(inp["x"]).to(dtype), cfg, state,
+                            "prefill")
+                    tag = f"xl/{case}/{dname}/{kind}"
+                    out[tag] = _np(y)
+                    for name, t in zip(XL_STATES[kind], state):
+                        out[f"{tag}/{name}"] = _np(t)
+
+
 def lm_case(inp, mesh, rules, tp: bool, dtype, tag: str,
             out: Dict[str, np.ndarray]) -> None:
     """Prefill + decode steps of the reduced Llama-3.1-8B under ``rules``
@@ -241,6 +288,7 @@ def main() -> None:
         tp_layers(inp, meshes["1x4"], out)
         tp_moe(inp, meshes["1x4"], out)
         tp_rec(inp, meshes["1x4"], out)
+        tp_xlstm(inp, meshes["1x4"], out)
         for dname, dtype in DTYPES.items():
             lm_case(inp, meshes["1x4"], rules_kv_seq(), False, dtype,
                     f"lm/kv_seq/{dname}", out)

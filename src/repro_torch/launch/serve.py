@@ -150,7 +150,7 @@ def _serve(args, device, mesh) -> dict:
         cache = primed_cache(built, gen, device, shape.seq_len - args.steps)
     else:
         first = prompt_batch(cfg, built, shape, SEED, device)
-        cache = materialize(built.args[2], device)
+        cache = built.new_cache(device)
     tokens, walls = run_steps(built, params, first, cache, args.steps,
                               device)
     per_step = (shape.global_batch if built.kind == "decode"

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+from repro_torch.models import xlstm
 from repro_torch.models.api import family_module
 from repro_torch.models.rglru import check_lru_axis
 from repro_torch.models.params import flatten, map_leaves, narrow, unflatten
@@ -40,8 +41,9 @@ _REPLICATED_LEAVES = {
 }
 # the leaves the explicit layers take cut (attention's by heads, the FFN's
 # by d_ff, an MoE FFN's experts and router columns by experts, its shared
-# expert by d_ff, an RG-LRU block's by lru): the blocks that
-# ``local_params`` keeps
+# expert by d_ff, an RG-LRU block's by lru), keyed by the parent's name: the
+# blocks that ``local_params`` keeps. An xLSTM slot's parent is its index,
+# so its leaves are chosen by the slot's kind (``xlstm.cut_leaves``)
 EXPLICIT_LEAVES = {"attn": ("wq", "wk", "wv", "bq", "bk", "bv", "wo"),
                    "ffn": ("wi", "wg", "wo", "router"),
                    "shared": ("wi", "wg", "wo"),
@@ -170,7 +172,8 @@ def cuts(rules: dict, experts: bool = False, lru: bool = False) -> tuple:
     they all map to nothing; the vocabulary's where vocab maps to "model";
     every leaf's under ``fsdp_gather``, which takes heads, d_ff, vocab
     (and the experts, the lru width) over nothing. Raises for another cut,
-    which the parameter specs do not place."""
+    which the parameter specs do not place. ``lru``: a model with RG-LRU
+    blocks or xLSTM blocks (the mLSTM's inner width, the sLSTM's gates)."""
     heads, d_ff, vocab = (rules.get(k) for k in ("heads", "d_ff", "vocab"))
     names = ("heads", "d_ff") + (("experts",) if experts else ()) + \
         (("lru",) if lru else ())
@@ -201,7 +204,8 @@ def param_blocks(cfg, mesh, rules: Optional[dict] = None) -> dict:
     ``models.sharding.use_rules``, else ``standard_rules`` of the mesh.
     The layers cut their work by the same rules and check the leaves'
     widths against them. Raises where an ``lru`` axis would cut the
-    RG-LRU's gate blocks (``rglru.check_lru_axis``)."""
+    RG-LRU's gate blocks (``rglru.check_lru_axis``) or an mLSTM head
+    (``xlstm.check_lru_axis``)."""
     if cfg.family not in SH.SHARDED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family "
                                   "under sharding rules comes with ROADMAP "
@@ -209,13 +213,17 @@ def param_blocks(cfg, mesh, rules: Optional[dict] = None) -> dict:
     if rules is None:
         rules = SH.installed() if SH.active() else \
             SH.standard_rules("pod" in mesh.mesh_dim_names)
-    hybrid = cfg.family == "hybrid"
-    layers, vocab, fsdp = cuts(rules, cfg.n_experts > 0, hybrid)
+    hybrid, ssm = cfg.family == "hybrid", cfg.family == "ssm"
+    layers, vocab, fsdp = cuts(rules, cfg.n_experts > 0, hybrid or ssm)
     if layers and hybrid:
         check_lru_axis(SH.axis_size(mesh, rules["lru"]))
+    if layers and ssm:
+        xlstm.check_lru_axis(cfg, SH.axis_size(mesh, rules["lru"]))
+    cut_by_kind = xlstm.cut_leaves(cfg) if ssm else frozenset()
     out = {}
     for key, (shape, _) in family_module(cfg).param_specs(cfg).items():
-        if fsdp or (layers and explicit(key)) or \
+        in_layer = key in cut_by_kind if ssm else explicit(key)
+        if fsdp or (layers and in_layer) or \
                 (vocab and key in VOCAB_LEAVES):
             blk, axes = leaf_block(cfg, key, shape, mesh, fsdp)
             if axes:

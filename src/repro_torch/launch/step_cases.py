@@ -30,13 +30,15 @@ What each rank writes (fp32 unless said), by case:
 - ``serve/<case>/prefill`` (the argmax tokens), ``serve/<case>/step<i>``,
   ``serve/<case>/cache/<path>`` after the steps (``slots/<i>/{k,v}``; the
   hybrid family's also ``slots/<i>/{0,1}`` and ``rest/<j>/{0,1}``, a rec
-  slot's conv tail and h), and ``serve/<case>/kv_heads`` (the rank's KV
-  heads);
+  slot's conv tail and h; the ssm family's ``slots/<i>/{0,1,2,3}``, an
+  mLSTM slot's C, n and m at the rank's heads and an sLSTM slot's c, n, m
+  and h whole), and ``serve/<case>/kv_heads`` (the rank's KV heads);
 - ``args/<mesh>/<shape>/<part>/<path>``: the shape of each leaf of
   ``BuiltStep.args`` for the full-size Llama-3.1-8B (``<shape>`` "fsdp":
   train_4k's FSDP step); ``args/phi/<mesh>/...`` the same for the
   full-size Phi-3.5-MoE, ``args/rg/<mesh>/...`` for the full-size
-  RecurrentGemma-2B (on 2x2 and 2x1x2);
+  RecurrentGemma-2B (on 2x2 and 2x1x2), ``args/xl/<mesh>/...`` for the
+  full-size xLSTM-350M;
 - ``split/<mesh>/<n>/{pre,dec}``: ``split_disagg_mesh``'s pools' ranks
   (data x model), and ``split/<mesh>/<n>/sum`` the SUM of the ranks over
   the rank's own pool's data axis;
@@ -102,6 +104,7 @@ CONFIGS = {
     "maverick": lambda: get_config("llama4-maverick-400b-a17b").reduced(),
     "phi6": lambda: dataclasses.replace(CONFIGS["phi"](), n_experts=6),
     "rg": lambda: hybrid(get_config("recurrentgemma-2b").reduced()),
+    "xl": lambda: ssm(get_config("xlstm-350m").reduced()),
 }
 
 
@@ -112,6 +115,11 @@ def hybrid(cfg):
     the serve cases' 32-token prompts wrap."""
     return dataclasses.replace(cfg, n_layers=5,
                                attn_pattern=("rec", "rec", "attn"), window=16)
+def ssm(cfg):
+    """The reduced xLSTM at 4 heads and 4 layers: two groups of (mLSTM,
+    sLSTM), d_model 256, an mLSTM inner width of 512 in 4 heads of 128
+    (one a rank on a model axis of 4), an sLSTM of 4 heads of 64."""
+    return dataclasses.replace(cfg, n_heads=4, n_layers=4)
 # a vocabulary that 4 does not divide: embed and unembed stay whole on (1, 4)
 VOCAB_UNEVEN = 510
 # (case, config, mesh): the reduced Llama's 2 KV heads over 4 ranks take the
@@ -131,7 +139,10 @@ VOCAB_UNEVEN = 510
 # d_ff, a dense slot of d_ff_dense 16384); phi6, 6 experts, which 4 does
 # not divide, so its experts and router stay whole; rg, the hybrid family:
 # its RG-LRU width over "model" (2 of the 8 gate blocks a rank on 1x4, 4 on
-# 2x1x2), its 4 query heads over 1 KV head (the "gather" plan)
+# 2x1x2), its 4 query heads over 1 KV head (the "gather" plan); xl, the ssm
+# family: its mLSTM heads (one a rank on 1x4, two on 2x2) and its sLSTM's
+# gate columns over "model", the sLSTM's r and b_in summed over the lru
+# axis (``xlstm.partial_leaves``)
 TRAIN_CASES = (("llama/1x4", "llama", "1x4"), ("llama/2x2", "llama", "2x2"),
                ("llama/4x1", "llama", "4x1"),
                ("llama/2x2x1", "llama", "2x2x1"),
@@ -153,6 +164,8 @@ TRAIN_CASES = (("llama/1x4", "llama", "1x4"), ("llama/2x2", "llama", "2x2"),
                ("maverick/2x2/fsdp", "maverick", "2x2"),
                ("rg/1x4", "rg", "1x4"), ("rg/2x1x2", "rg", "2x1x2"),
                ("rg/2x2/fsdp", "rg", "2x2"),
+               ("xl/1x4", "xl", "1x4"), ("xl/2x2", "xl", "2x2"),
+               ("xl/2x1x2", "xl", "2x1x2"), ("xl/2x2/fsdp", "xl", "2x2"),
                ("phi6/1x4", "phi6", "1x4"))
 TRAIN_SHAPE = InputShape("train_small", 16, 4, "train")
 # the MoE configs' batch: 4 rows of 64 tokens, so that a rank's rows hold
@@ -198,12 +211,17 @@ SERVE_CASES = (("kv_seq/1x4", "llama", "1x4", KV_SEQ, "model"),
 # tokens wrap the 16-row window, and the serve steps go on from the
 # prefill's own position 32 (its rec states are the prompt's)
 HYBRID_SERVE_CASES = (("rg/1x4", "rg", "1x4"), ("rg/2x2", "rg", "2x2"))
+# the ssm family's: the serve steps go on from the prefill's position 32
+SSM_SERVE_CASES = (("xl/1x4", "xl", "1x4"), ("xl/2x2", "xl", "2x2"))
+# the families whose serve steps go on from the prefill's own position
+RECURRENT = ("hybrid", "ssm")
 ARGS_MESHES = ("1x4", "2x2", "2x1x2")
 # the full-size configs of ``args_shapes``, their keys' prefixes and their
 # meshes: RecurrentGemma-2B's 10 heads do not split over 4 ranks
 ARGS_ARCHS = (("", "llama3.1-8b", ARGS_MESHES),
               ("phi/", "phi3.5-moe-42b-a6.6b", ARGS_MESHES),
-              ("rg/", "recurrentgemma-2b", ("2x2", "2x1x2")))
+              ("rg/", "recurrentgemma-2b", ("2x2", "2x1x2")),
+              ("xl/", "xlstm-350m", ARGS_MESHES))
 
 
 def train_opt() -> AdamWConfig:
@@ -246,7 +264,8 @@ def train_case(inp, case: str, name: str, mesh, out: Dict[str, np.ndarray]):
 def serve_case(inp, case: str, name: str, mesh, overrides, kv_seq,
                out: Dict[str, np.ndarray]) -> None:
     """The prefill, then the serve steps fed ``serve/feed`` from SERVE_POS
-    (from the prefill's own position for the hybrid family); writes the
+    (from the prefill's own position for the hybrid and ssm families,
+    ``RECURRENT``); writes the
     tokens, every cache leaf after the steps (``cache/<path>``, as
     ``params.flatten`` names it) and the rank's KV heads."""
     cfg = CONFIGS[name]()
@@ -260,10 +279,10 @@ def serve_case(inp, case: str, name: str, mesh, overrides, kv_seq,
     rows = SS.local_batch({"prompt": torch.from_numpy(inp["serve/prompt"]),
                            "feed": torch.from_numpy(inp["serve/feed"])},
                           baxes, mesh)
-    cache = materialize(pre.args[2], "cpu")
+    cache = pre.new_cache("cpu")
     tokens, cache = pre.fn(params, {"tokens": rows["prompt"]}, cache)
     out[f"serve/{case}/prefill"] = tokens.numpy()
-    if cfg.family != "hybrid":
+    if cfg.family not in RECURRENT:
         cache["pos"] = torch.tensor(SERVE_POS, dtype=torch.int32)
     for i in range(rows["feed"].shape[1]):
         tokens, cache = dec.fn(params, rows["feed"][:, i].contiguous(), cache)
@@ -366,7 +385,7 @@ def main() -> None:
         train_case(inp, case, name, meshes[tag], out)
     for case, name, tag, overrides, kv_seq in SERVE_CASES:
         serve_case(inp, case, name, meshes[tag], overrides, kv_seq, out)
-    for case, name, tag in HYBRID_SERVE_CASES:
+    for case, name, tag in HYBRID_SERVE_CASES + SSM_SERVE_CASES:
         serve_case(inp, case, name, meshes[tag], None, None, out)
     for tag in ARGS_MESHES:
         args_shapes(meshes[tag], tag, out)

@@ -13,9 +13,10 @@ leaves by heads and d_ff, ``embed`` and ``unembed`` by vocab), AdamW's m,
 v and count, the batch's rows as ``shardspecs.local_batch`` takes them
 (over the flattened ("pod", "data") on a multi-pod mesh) and the cache as
 ``transformer.local_cache`` sizes it. ``init_params`` draws the weights
-into those blocks. ``fn`` runs on real tensors of those shapes and updates
-the parameters, the optimizer state and the cache in place, where the JAX
-steps donate them.
+into those blocks, and a prefill or serve step's ``new_cache(device)``
+makes the rank's fresh cache as the family initialises it. ``fn`` runs on
+real tensors of those shapes and updates the parameters, the optimizer
+state and the cache in place, where the JAX steps donate them.
 
 The train step computes what the JAX one computes over the global batch:
 the loss is the masked mean over every rank's rows (its log-sum-exp taken
@@ -24,9 +25,9 @@ loss averaged over the batch's ranks (each rank's the mean over its own
 groups, so the average is the mean over the global batch's groups), each
 leaf's gradient is the global one restricted to the rank's block (a
 leaf held whole but read in part, the QK-norm's weights under the heads'
-rule or an RG-LRU block's gates under the lru rule, summed over that
-axis), the gradient norm is the global norm, and the clip and AdamW run on
-those.
+rule, an RG-LRU block's gates or an sLSTM's recurrence and bias under the
+lru rule, summed over that axis), the gradient norm is the global norm,
+and the clip and AdamW run on those.
 Each step's rules name in ``batch`` the mesh axes its rows are cut over
 (none where ``batch_axes_for`` leaves the batch whole), which the MoE FFN
 reads to tell whether the rank's rows hold whole groups of the global
@@ -57,7 +58,7 @@ from repro_torch.launch import shardspecs as SS
 from repro_torch.launch.mesh import batch_axes_for
 from repro_torch.models import LM
 from repro_torch.models import layers as L
-from repro_torch.models import rglru
+from repro_torch.models import rglru, xlstm
 from repro_torch.models import sharding as SH
 from repro_torch.models.api import MOE_AUX_WEIGHT, family_module
 from repro_torch.models.moe_layer import check_groups
@@ -77,6 +78,9 @@ class BuiltStep:
     mesh: object
     rules: dict
     kind: str
+    # a prefill or serve step's: this rank's fresh cache on a device, as
+    # the family initialises it (an xLSTM state's m at -1e30, not zeros)
+    new_cache: Optional[Callable] = None
 
 
 def effective_window(cfg: ModelConfig, shape: InputShape) -> Optional[int]:
@@ -150,10 +154,15 @@ def _meta_batch(cfg: ModelConfig, rows: int, seq: int, dtype,
     return specs
 
 
-def _meta_cache(lm: LM, rules, mesh, rows: int, max_len: int, dtype, window):
-    with SH.use_rules(rules, mesh):
-        return lm.init_cache(rows, max_len, dtype, window=window,
-                             device="meta")
+def _cache_maker(lm: LM, rules, mesh, rows: int, max_len: int, dtype,
+                 window) -> Callable:
+    """device -> this rank's fresh cache on it (``LM.init_cache`` under
+    ``rules``)."""
+    def make(device):
+        with SH.use_rules(rules, mesh):
+            return lm.init_cache(rows, max_len, dtype, window=window,
+                                 device=device)
+    return make
 
 
 def train_batch_axes(shape: InputShape, mesh, rules) -> tuple:
@@ -202,19 +211,8 @@ def build_train_step(cfg: ModelConfig, mesh, shape: InputShape,
                     "count": torch.empty((), dtype=torch.int32,
                                          device="meta")}
     abstract_batch = _meta_batch(cfg, rows, shape.seq_len, dtype)
-    # the leaves a rank holds whole and reads in part: path -> the axis its
-    # gradient's shares are summed over (the heads' for the attention's,
-    # the lru width's for an RG-LRU block's)
     with SH.use_rules(rules, mesh):
-        in_part = {"attn": (L.head_plan(cfg).axis, L.partial_leaves(cfg))}
-        if cfg.family == "hybrid":
-            in_part["rec"] = (rules["lru"], rglru.partial_leaves())
-    partial = {}
-    for key in flatten(abstract_params):
-        *_, block, leaf = ["", *key.split("/")]
-        axis, names = in_part.get(block, (None, ()))
-        if leaf in names:
-            partial[key] = axis
+        partial = _partial_leaves(cfg, abstract_params, rules)
 
     def train_step(params, opt_state, batch):
         with SH.use_rules(rules, mesh):
@@ -252,6 +250,27 @@ def build_train_step(cfg: ModelConfig, mesh, shape: InputShape,
                                   abstract_batch), mesh, rules, "train")
 
 
+def _partial_leaves(cfg: ModelConfig, abstract_params, rules) -> dict:
+    """The leaves a rank holds whole and reads in part under the active
+    ``rules``: path -> the axis its gradient's shares are summed over. The
+    attention's by their parent's name (the heads' axis), an RG-LRU
+    block's likewise (the lru width's); an xLSTM's by their full paths
+    (``xlstm.partial_leaves``, the lru width's), since a slot's parent is
+    its index."""
+    if cfg.family == "ssm":
+        return {key: rules["lru"] for key in xlstm.partial_leaves(cfg)}
+    in_part = {"attn": (L.head_plan(cfg).axis, L.partial_leaves(cfg))}
+    if cfg.family == "hybrid":
+        in_part["rec"] = (rules["lru"], rglru.partial_leaves())
+    partial = {}
+    for key in flatten(abstract_params):
+        *_, block, leaf = ["", *key.split("/")]
+        axis, names = in_part.get(block, (None, ()))
+        if leaf in names:
+            partial[key] = axis
+    return partial
+
+
 def _global_norm(grads: dict, blocks: dict) -> torch.Tensor:
     """The norm of the whole gradient: a cut leaf's squares summed over the
     axes it is cut over, a whole leaf's counted once."""
@@ -287,8 +306,9 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: InputShape,
     abstract_params = _meta_params(cfg, blocks, dtype)
     abstract_batch = _meta_batch(cfg, rows, shape.seq_len, dtype,
                                  with_labels=False)
-    abstract_cache = _meta_cache(lm, rules, mesh, rows, shape.seq_len, dtype,
-                                 window)
+    new_cache = _cache_maker(lm, rules, mesh, rows, shape.seq_len, dtype,
+                             window)
+    abstract_cache = new_cache("meta")
 
     @torch.no_grad()
     def prefill_step(params, batch, cache):
@@ -297,7 +317,8 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: InputShape,
             return logits.argmax(-1).to(torch.int32), cache
 
     return BuiltStep(prefill_step, (abstract_params, abstract_batch,
-                                    abstract_cache), mesh, rules, "prefill")
+                                    abstract_cache), mesh, rules, "prefill",
+                     new_cache)
 
 
 def build_serve_step(cfg: ModelConfig, mesh, shape: InputShape,
@@ -314,8 +335,9 @@ def build_serve_step(cfg: ModelConfig, mesh, shape: InputShape,
     window = effective_window(cfg, shape)
 
     abstract_params = _meta_params(cfg, blocks, dtype)
-    abstract_cache = _meta_cache(lm, rules, mesh, rows, shape.seq_len, dtype,
-                                 window)
+    new_cache = _cache_maker(lm, rules, mesh, rows, shape.seq_len, dtype,
+                             window)
+    abstract_cache = new_cache("meta")
     abstract_token = torch.empty((rows,), dtype=torch.int32, device="meta")
 
     @torch.no_grad()
@@ -325,7 +347,8 @@ def build_serve_step(cfg: ModelConfig, mesh, shape: InputShape,
             return logits.argmax(-1).to(torch.int32), cache
 
     return BuiltStep(serve_step, (abstract_params, abstract_token,
-                                  abstract_cache), mesh, rules, "decode")
+                                  abstract_cache), mesh, rules, "decode",
+                     new_cache)
 
 
 def build_step(cfg: ModelConfig, mesh, shape: InputShape, **kw) -> BuiltStep:

@@ -254,14 +254,8 @@ def _rec_block(p, x, cfg, state, mode):
     else:
         y = rglru_scan(log_a, xs, h_lru)                      # (B, S, W/m)
         h_new = y[:, -1]
-    z = y.to(x.dtype) * gate
-    if sh.size == 1:
-        out = z @ p["w_out"]
-    elif SH.rule("tp_bf16_ar"):   # the partial product in x's dtype
-        out = SH.all_reduce(z @ p["w_out"], SH.rule("lru"))
-    else:                         # in fp32, cast once
-        out = SH.all_reduce(z.float() @ p["w_out"].float(),
-                            SH.rule("lru")).to(x.dtype)
+    out = SH.row_block_product(y.to(x.dtype) * gate, p["w_out"],
+                               SH.rule("lru"), x.dtype)
     return x + out, (conv_tail, h_new)
 
 

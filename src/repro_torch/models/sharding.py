@@ -49,8 +49,9 @@ _MESH = None
 FLAGS = ("tp_bf16_ar", "fsdp_gather")
 # the families whose layers run under rules (``models.layers``, the MoE
 # FFN's experts in ``models.moe_layer``, the RG-LRU's width in
-# ``models.rglru``); the others raise there until ROADMAP A12
-SHARDED_FAMILIES = ("dense", "vlm", "moe", "hybrid")
+# ``models.rglru``, the mLSTM's inner width and the sLSTM's gates in
+# ``models.xlstm``); the audio family raises there until ROADMAP A12
+SHARDED_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm")
 # the mesh axes FSDP cuts the weights over, flattened (``fsdp_axes``)
 FSDP_AXES = ("data", "model")
 
@@ -302,6 +303,20 @@ def all_reduce(x: torch.Tensor, axis, op: str = "sum"):
                                "(run under torch.no_grad())")
         return _SumReduce.apply(x, axis)
     return _reduce(x, axis, op)
+
+
+def row_block_product(z: torch.Tensor, w: torch.Tensor, axis, dtype):
+    """``z @ w`` where, over mesh axis ``axis``, z is the rank's block of
+    columns and w its block of rows (an RG-LRU block's or an xLSTM block's
+    output projection): the partial products summed over the axis in fp32
+    and cast once to ``dtype``, as GSPMD does for the JAX functions, or
+    formed and summed in z's dtype under ``tp_bf16_ar``; the plain product
+    on an axis of size 1 or none."""
+    if _shard(axis).size == 1:
+        return z @ w
+    if rule("tp_bf16_ar"):
+        return all_reduce(z @ w, axis)
+    return all_reduce(z.float() @ w.float(), axis).to(dtype)
 
 
 def entry(x: torch.Tensor, axis) -> torch.Tensor:

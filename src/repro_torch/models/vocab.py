@@ -1,5 +1,6 @@
 """The vocabulary-parallel embedding and logits, shared by the families that
-run under sharding rules (``models.transformer``, ``models.rglru``).
+run under sharding rules (``models.transformer``, ``models.rglru``,
+``models.xlstm``).
 
 Where ``embed`` and ``unembed`` are cut over the vocabulary
 (``launch.shardspecs.local_params`` under a ``vocab`` rule), a rank holds

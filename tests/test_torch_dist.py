@@ -27,6 +27,9 @@ are killed, and the run fails with their output, past ``WALL_S``. Then:
   ``NamedSharding``, leaf by leaf;
 - ``batch_axes_for`` on both meshes and ``make_smoke_mesh`` (on a one-rank
   group of its own) against the JAX functions;
+- the reduced xLSTM's (4 heads) mLSTM and sLSTM blocks from a given state
+  on (1, 4), one mLSTM head a rank, under ``standard_rules`` and
+  ``tp_bf16_ar``, against the JAX functions;
 - the plain B2's log-sum-exp against ``jax.nn.logsumexp`` of the JAX
   reference's scaled scores, and the refusals the rules must give.
 """
@@ -50,6 +53,7 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
 )
 from repro_torch.launch.dist_cases import BATCHES, MOE_ARCHS  # noqa: E402
 from repro_torch.launch.shardspecs import EXPLICIT_LEAVES  # noqa: E402
+from repro_torch.launch.step_cases import ssm  # noqa: E402
 from repro_torch.models import sharding as SH  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -61,8 +65,15 @@ DD_POS = (0, 5, 15, 16, 31, 32, 41, 63)
 LM_B, LM_PROMPT, LM_STEPS, LM_SEED = 2, 13, 6, 1
 MOE_S = 64             # two rows of 64 tokens: two groups of the reduced 64
 FP32_TOL, DD_TOL, LM_BF16_TOL = 1e-5, 2e-5, 3e-2
+# the xLSTM blocks in bf16: here the gates are an fp32 sum of the ranks'
+# products, in the JAX function one product rounded to bf16 (a step of
+# 2^-6 at the forget gates' ~3), which moves a head's gates by up to that:
+# the output lands 2 bf16 steps from the JAX one (std and tp alike), a
+# head's new C up to 8.7e-3 of its max |C|
+XL_BF16_STEPS, XL_BF16_STATE = 4, 2e-2
 
 JAX_SIDE = r"""
+import dataclasses
 import sys
 import numpy as np
 import jax
@@ -72,7 +83,7 @@ from repro.configs import get_config
 from repro.kernels.decode_attention.ref import decode_attention_ref
 from repro.launch.mesh import batch_axes_for
 from repro.launch.shardspecs import param_spec, sanitize_spec
-from repro.models import LM, layers as L, moe_layer, rglru
+from repro.models import LM, layers as L, moe_layer, rglru, xlstm
 from repro.models.sharding import standard_rules, use_rules
 from repro.training.checkpoint import _flatten
 
@@ -171,6 +182,25 @@ for dname, dt in (("fp32", jnp.float32), ("bf16", jnp.bfloat16)):
     out[f"tp/rg/{dname}/rec"] = np.asarray(y, np.float32)
     out[f"tp/rg/{dname}/tail"] = np.asarray(tail, np.float32)
     out[f"tp/rg/{dname}/h"] = np.asarray(h, np.float32)
+
+# the reduced xLSTM at 4 heads: one mLSTM and one sLSTM block from a given
+# state, unsharded (the port's lru rule cuts its heads and gate columns)
+cfg = dataclasses.replace(get_config("xlstm-350m").reduced(), n_heads=4,
+                          n_layers=4)
+STATES = {"mlstm": ("C", "n", "m"), "slstm": ("c", "n", "m", "h")}
+for dname, dt in (("fp32", jnp.float32), ("bf16", jnp.bfloat16)):
+    for kind, blk in (("mlstm", xlstm._mlstm_block),
+                      ("slstm", xlstm._slstm_block)):
+        pre = f"layer/xl/{kind}/"
+        p = {k[len(pre):]: jnp.asarray(v, dt) for k, v in inp.items()
+             if k.startswith(pre)}
+        p["ln"] = {"w": p.pop("ln/w")}
+        state = tuple(jnp.asarray(inp[f"xl/{kind}/{n}"]) for n in STATES[kind])
+        y, new = jax.jit(lambda p, x, st, blk=blk: blk(
+            p, x, cfg, st, "prefill"))(p, jnp.asarray(inp["x"], dt), state)
+        out[f"xl/{dname}/{kind}"] = np.asarray(y, np.float32)
+        for n, t in zip(STATES[kind], new):
+            out[f"xl/{dname}/{kind}/{n}"] = np.asarray(t, np.float32)
 
 cfg = get_config("llama3.1-8b").reduced()
 lm = LM(cfg)
@@ -286,6 +316,35 @@ def _inputs(path: Path) -> None:
     inp.update({f"layer/rg/rec/{k}": v for k, v in rec.items()})
     inp["rec/tail"] = normal(2, cw - 1, W)
     inp["rec/h"] = normal(2, W, scale=0.5)
+    # the reduced xLSTM's mLSTM and sLSTM blocks (4 heads; its x the
+    # reduced Llama's width), the biases off their init so that a rank's
+    # slice of them shows, and a given state of each
+    cfg = ssm(jax_config("xlstm-350m").reduced())
+    D, nh = cfg.d_model, cfg.n_heads
+    hm, hs = 2 * D // nh, D // nh
+    inp.update({f"layer/xl/mlstm/{k}": v for k, v in {
+        "ln/w": 1.0 + normal(D, scale=0.1),
+        "w_up": normal(D, 2 * D, scale=D ** -0.5),
+        "w_gate": normal(D, 2 * D, scale=D ** -0.5),
+        "wq": normal(2 * D, 2 * D, scale=(2 * D) ** -0.5),
+        "wk": normal(2 * D, 2 * D, scale=(2 * D) ** -0.5),
+        "wv": normal(2 * D, 2 * D, scale=(2 * D) ** -0.5),
+        "w_if": normal(2 * D, 2 * nh, scale=0.1),
+        "b_if": np.concatenate([normal(nh, scale=0.5),
+                                3.0 + normal(nh, scale=0.5)]),
+        "w_down": normal(2 * D, D, scale=(2 * D) ** -0.5)}.items()})
+    inp.update({f"layer/xl/slstm/{k}": v for k, v in {
+        "ln/w": 1.0 + normal(D, scale=0.1),
+        "w_in": normal(D, 4 * D, scale=D ** -0.5),
+        "b_in": normal(4 * D, scale=0.3),
+        "r": normal(nh, hs, 4 * hs, scale=hs ** -0.5),
+        "w_out": normal(D, D, scale=D ** -0.5)}.items()})
+    inp["xl/mlstm/C"] = normal(2, nh, hm, hm, scale=0.1)
+    inp["xl/mlstm/n"] = normal(2, nh, hm, scale=0.1)
+    inp["xl/mlstm/m"] = normal(2, nh, scale=0.5)
+    for name in ("c", "n", "m", "h"):
+        inp[f"xl/slstm/{name}"] = normal(2, D, scale=0.5)
+    inp["xl/slstm/n"] = 1.0 + np.abs(inp["xl/slstm/n"])
     inp["batches"] = np.asarray(BATCHES)
     np.savez(path, **inp)
 
@@ -438,6 +497,46 @@ def test_tp_rec_block_matches_jax(runs, dtype):
             assert np.abs(out - ref).max() <= 2 * _bf16_step(ref)
 
 
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+@pytest.mark.parametrize("case", ["std/fp32", "std/bf16", "tp/bf16"])
+def test_xlstm_blocks_match_jax(runs, case, kind):
+    """The reduced xLSTM's mLSTM and sLSTM blocks (4 heads, d_model 256)
+    from a given state on (1, 4), against the JAX functions unsharded (the
+    JAX model lets GSPMD place them): one mLSTM head a rank, its ``up``
+    gathered, its gates' fp32 partial sums, B4's plain version on its
+    head; the sLSTM's gate columns a rank, its preactivation gathered and
+    the recurrence whole; each block's partial output summed in fp32 and
+    cast once under ``standard_rules``, in bf16 under ``tp_bf16_ar``. In
+    fp32 the output, the rank's head of the new mLSTM state and the whole
+    new sLSTM state within 1e-5 max(1, max |ref|); in bf16 the output
+    within XL_BF16_STEPS bf16 steps of max |ref| and the state within
+    XL_BF16_STATE of max |ref| (q, k, v, the gates and the sLSTM's
+    preactivation are rounded to bf16 on both sides, but the gates' sum
+    is fp32 here and bf16 in the JAX function)."""
+    jx, ranks, _, _ = runs
+    rules, dtype = case.split("/")
+    ref = jx[f"xl/{dtype}/{kind}"]
+    names = ("C", "n", "m") if kind == "mlstm" else ("c", "n", "m", "h")
+    for r, res in enumerate(ranks):
+        tag = f"xl/{rules}/{dtype}/{kind}"
+        out = res[tag]
+        if dtype == "fp32":
+            assert _rel(out, ref) < FP32_TOL, _rel(out, ref)
+        else:
+            assert np.abs(out - ref).max() <= XL_BF16_STEPS * \
+                _bf16_step(ref), np.abs(out - ref).max() / _bf16_step(ref)
+        for name in names:
+            full = jx[f"xl/{dtype}/{kind}/{name}"]
+            if kind == "mlstm":     # the rank's head
+                full = full[:, r:r + 1]
+            got = res[f"{tag}/{name}"]
+            assert got.shape == full.shape, name
+            err = float(np.abs(got - full).max()) / max(
+                1.0, float(np.abs(full).max()))
+            assert err < (FP32_TOL if dtype == "fp32" else XL_BF16_STATE), \
+                (name, err)
+
+
 def _check_logits(out, ref, dtype: str, what: str) -> None:
     """fp32 within 1e-5 max(1, max |ref|); bf16 within 3e-2 of max |ref|,
     the argmax equal wherever the reference's top-2 gap exceeds that."""
@@ -579,19 +678,27 @@ def test_smoke_mesh_is_jax_smoke_mesh(tmp_path):
 
 
 def test_refusals():
-    """Rules on a family the multi-device layers do not cover raise, naming
-    A12; parameters not cut to the rules raise, naming local_params: the
-    attention's, and an ``embed`` or ``unembed`` of a third width (neither
-    the whole vocabulary nor the rank's block of it)."""
+    """Rules on a family the multi-device layers do not cover (audio)
+    raise, naming A12, as does xLSTM-350M's cache on a model axis of 16
+    ranks, which would cut its 4 mLSTM heads; parameters not cut to the
+    rules raise, naming local_params: the attention's, and an ``embed`` or
+    ``unembed`` of a third width (neither the whole vocabulary nor the
+    rank's block of it)."""
     from repro_torch.configs import get_config
     from repro_torch.models import LM
     from repro_torch.models import layers as L
     rules = {**SH.standard_rules(False), "tp_bf16_ar": True}
+
+    class Mesh16(_Mesh):
+        def size(self, dim):
+            return (1, 16)[dim]
+    with SH.use_rules(rules, Mesh16()):
+        with pytest.raises(NotImplementedError, match="heads over 16.*A12"):
+            LM(get_config("xlstm-350m")).init_cache(2, 32, device="cpu")
     with SH.use_rules(rules, _Mesh()):
-        for arch in ("xlstm-350m", "whisper-large-v3"):
-            with pytest.raises(NotImplementedError, match="A12"):
-                LM(get_config(arch).reduced()).init_cache(2, 32,
-                                                          device="cpu")
+        with pytest.raises(NotImplementedError, match="A12"):
+            LM(get_config("whisper-large-v3").reduced()).init_cache(
+                2, 32, device="cpu")
         cfg = get_config("llama3.1-8b").reduced()
         whole = {k: torch.zeros(s) for k, (s, _) in
                  L.init_attention(cfg).items()}

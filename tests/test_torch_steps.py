@@ -37,7 +37,12 @@ past ``WALL_S``. Then, in fp32:
   group and two ``rest`` rec layers, its RG-LRU width over "model"), on
   (1, 4), on (2, 1, 2) and under FSDP on (2, 2), its whole-held gate
   leaves' gradients summed over the lru axis (the JAX side runs the
-  hybrid's train and serve steps once, on (1, 4), ``JAX_RUN_OF``);
+  hybrid's train and serve steps once, on (1, 4), ``JAX_RUN_OF``); the
+  ssm family, a reduced xLSTM at 4 heads and 4 layers (``step_cases.ssm``:
+  two groups of (mLSTM, sLSTM), its mLSTM heads and sLSTM gate columns
+  over "model", its sLSTM's r and b_in gradients summed over the lru
+  axis), on (1, 4), (2, 2), (2, 1, 2) and under FSDP on (2, 2) (its JAX
+  steps run once too, on (1, 4));
 - ``build_prefill_step`` and ``build_serve_step`` under ``kv_seq`` on
   (1, 4) and under the heads' rule on (1, 4), (2, 2) and (2, 2, 1), and
   the MoE configs under the heads' and experts' rules (Phi on (2, 2),
@@ -46,13 +51,15 @@ past ``WALL_S``. Then, in fp32:
   tolerance, caches within 1e-5; the reduced RecurrentGemma on (1, 4) and
   (2, 2), its prompt wrapping the 16-row window and its serve steps going
   on from the prefill's position, every cache leaf (k, v, conv tails, h)
-  against the rank's block of the JAX cache;
-- every leaf of ``BuiltStep.args`` at the full size of Llama-3.1-8B and of
-  Phi-3.5-MoE, for the four input shapes on (1, 4), (2, 2) and (2, 1, 2),
-  and of RecurrentGemma-2B on (2, 2) and (2, 1, 2), against the JAX
-  ``NamedSharding.shard_shape`` of the same leaf, but for a cache's
-  KV-head dim: the rank's own heads (the JAX cache keeps every KV head on
-  every rank of "model"); and of train_4k's FSDP step;
+  against the rank's block of the JAX cache; the reduced xLSTM likewise
+  on (1, 4) and (2, 2), an mLSTM state at the rank's heads;
+- every leaf of ``BuiltStep.args`` at the full size of Llama-3.1-8B, of
+  Phi-3.5-MoE and of xLSTM-350M, for the four input shapes on (1, 4),
+  (2, 2) and (2, 1, 2), and of RecurrentGemma-2B on (2, 2) and (2, 1, 2),
+  against the JAX ``NamedSharding.shard_shape`` of the same leaf, but for
+  a cache's KV-head dim and an mLSTM state's heads dim: the rank's own
+  heads (the JAX cache keeps every head on every rank of "model"); and of
+  train_4k's FSDP step;
 - ``LM.loss_terms`` with the vocabulary cut, on labels that hold -1 and
   the first and last id of every rank's block, against the JAX
   ``LM.loss`` and the port's outside rules;
@@ -64,8 +71,8 @@ past ``WALL_S``. Then, in fp32:
 
 In the test process alone: ``batch_specs`` and ``cache_specs`` for all
 five families against the JAX functions, ``param_specs_fsdp`` for every
-dense, vlm, moe and hybrid config, FSDP's ``init_params`` against one draw cut to
-each rank's blocks, ``effective_window`` for every ``ARCH_IDS`` x
+dense, vlm, moe, hybrid and ssm config, FSDP's ``init_params`` against one
+draw cut to each rank's blocks, ``effective_window`` for every ``ARCH_IDS`` x
 ``INPUT_SHAPES`` pair, the analytic FLOPs, that each MoE case's batch
 drops choices by capacity, and the refusals that name A12.
 """
@@ -95,7 +102,7 @@ from repro_torch.launch import shardspecs as SS  # noqa: E402
 from repro_torch.launch import step_cases as C  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import sharding as SH  # noqa: E402
-from repro_torch.models.params import LRU_LAMBDA  # noqa: E402
+from repro_torch.models.params import IF_BIAS, LRU_LAMBDA  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 4
@@ -115,7 +122,8 @@ JAX_PROCS = 6     # the JAX side's processes (its compiles take the time)
 # parameters, moments, tokens and caches, gathered whole, to fp32's
 # rounding), so its train and serve steps run once, on (1, 4)
 JAX_RUN_OF = {"rg/2x1x2": "rg/1x4", "rg/2x2/fsdp": "rg/1x4",
-              "rg/2x2": "rg/1x4"}
+              "rg/2x2": "rg/1x4", "xl/2x2": "xl/1x4", "xl/2x1x2": "xl/1x4",
+              "xl/2x2/fsdp": "xl/1x4"}
 
 JAX_SIDE = r"""
 import dataclasses
@@ -165,7 +173,11 @@ CONFIGS["phi6"] = dataclasses.replace(CONFIGS["phi"], n_experts=6)
 CONFIGS["rg"] = dataclasses.replace(
     get_config("recurrentgemma-2b").reduced(), n_layers=5,
     attn_pattern=("rec", "rec", "attn"), window=16)
+CONFIGS["xl"] = dataclasses.replace(get_config("xlstm-350m").reduced(),
+                                    n_heads=4, n_layers=4)
 MOE = ("phi", "maverick", "phi6")
+# the recurrent families' serve steps go on from the prefill's position
+RECURRENT = ("rg", "xl")
 
 
 def paths(tree, is_leaf=None):
@@ -217,7 +229,8 @@ def train(case):
 prompt = jnp.asarray(inp["serve/prompt"])
 feed = jnp.asarray(inp["serve/feed"])
 kv_seq = {"heads": None, "d_ff": None}
-# the hybrid family's cases go on from the prefill's own position (32)
+# the hybrid and ssm families' cases go on from the prefill's own
+# position (32)
 SERVE = {"kv_seq/1x4": ("llama", "1x4", kv_seq, "model"),
          "heads/1x4": ("llama", "1x4", None, None),
          "heads/2x2": ("llama", "2x2", None, None),
@@ -225,7 +238,9 @@ SERVE = {"kv_seq/1x4": ("llama", "1x4", kv_seq, "model"),
          "phi/2x2": ("phi", "2x2", None, None),
          "maverick/1x4": ("maverick", "1x4", None, None),
          "rg/1x4": ("rg", "1x4", None, None),
-         "rg/2x2": ("rg", "2x2", None, None)}
+         "rg/2x2": ("rg", "2x2", None, None),
+         "xl/1x4": ("xl", "1x4", None, None),
+         "xl/2x2": ("xl", "2x2", None, None)}
 
 
 def serve(case):
@@ -243,7 +258,7 @@ def serve(case):
         tok, cache = pre.fn(params, {"tokens": prompt},
                             lm.init_cache(4, 32, dtype=jnp.float32))
         out[f"serve/{case}/prefill"] = np.asarray(tok)
-        if name != "rg":
+        if name not in RECURRENT:
             cache = dict(cache, pos=jnp.asarray(22, jnp.int32))
         step = dec.fn.lower(params, feed[:, 0], cache).compile()
         params, _, cache = jax.device_put((params, feed[:, 0], cache),
@@ -265,7 +280,7 @@ def logits(name):
                                         lm.init_cache(4, 32,
                                                       dtype=jnp.float32))
     out[f"serve/logits/{name}/prefill"] = np.asarray(logits)
-    if name != "rg":
+    if name not in RECURRENT:
         cache = dict(cache, pos=jnp.asarray(22, jnp.int32))
     decode = jax.jit(lm.decode_step)
     for i in range(feed.shape[1]):
@@ -281,7 +296,8 @@ def loss(_):
 
 ARGS = {"": ("llama3.1-8b", ("1x4", "2x2", "2x1x2")),
         "phi/": ("phi3.5-moe-42b-a6.6b", ("1x4", "2x2", "2x1x2")),
-        "rg/": ("recurrentgemma-2b", ("2x2", "2x1x2"))}
+        "rg/": ("recurrentgemma-2b", ("2x2", "2x1x2")),
+        "xl/": ("xlstm-350m", ("1x4", "2x2", "2x1x2"))}
 
 
 def args(pre):
@@ -361,6 +377,8 @@ JAX_CFGS = {
     "rg": dataclasses.replace(jax_config("recurrentgemma-2b").reduced(),
                               n_layers=5, attn_pattern=("rec", "rec", "attn"),
                               window=16),
+    "xl": dataclasses.replace(jax_config("xlstm-350m").reduced(), n_heads=4,
+                              n_layers=4),
 }
 
 
@@ -373,16 +391,22 @@ def test_case_configs_match_jax():
 # the configs whose weights are drawn with numpy (the JAX init of the MoE
 # configs would take as long as all the others' together, the hybrid's
 # 6 s)
-NUMPY_WEIGHTS = (*C.MOE_CONFIGS, "rg")
+NUMPY_WEIGHTS = (*C.MOE_CONFIGS, "rg", "xl")
 
 
 def _numpy_leaf(rng, shape, init) -> np.ndarray:
     """A leaf drawn as the JAX init draws it, from numpy: a normal at its
-    std, ones, zeros, or the RG-LRU's lambda (``params.LRU_LAMBDA``)."""
+    std, ones, zeros, the RG-LRU's lambda (``params.LRU_LAMBDA``) or the
+    mLSTM's gate bias (``params.IF_BIAS``: nh zeros, then nh 3.0s)."""
     if init == "ones":
         return np.ones(shape, np.float32)
     if init == "zeros":
         return np.zeros(shape, np.float32)
+    if init == IF_BIAS:
+        nh = shape[-1] // 2
+        return np.concatenate([np.zeros((*shape[:-1], nh), np.float32),
+                               np.full((*shape[:-1], nh), 3.0, np.float32)],
+                              axis=-1)
     if init == LRU_LAMBDA:
         u = rng.uniform(0.9, 0.999, shape)
         return np.log(np.expm1(-np.log(u ** 8.0) / 8.0)).astype(np.float32)
@@ -450,7 +474,7 @@ def _tail(path: Path) -> str:
 # its config: maverick's and rg's steps compile three times as long as
 # llama's, phi's 1.6 times
 _KIND_S = {"train": 6, "serve": 2.5, "logits": 1.5, "args": 1.5}
-_CONFIG_X = {"rg": 3, "maverick": 3, "phi": 1.6, "phi6": 1.6}
+_CONFIG_X = {"rg": 3, "xl": 3, "maverick": 3, "phi": 1.6, "phi6": 1.6}
 
 
 def _cost(job: str) -> float:
@@ -465,8 +489,9 @@ def _jax_jobs() -> list:
     jobs = ([f"train:{c}" for c, _, _ in C.TRAIN_CASES
              if c not in JAX_RUN_OF]
             + [f"serve:{c[0]}" for c in C.SERVE_CASES + C.HYBRID_SERVE_CASES
-               if c[0] not in JAX_RUN_OF]
-            + [f"logits:{n}" for n in ("llama", "phi", "maverick", "rg")]
+               + C.SSM_SERVE_CASES if c[0] not in JAX_RUN_OF]
+            + [f"logits:{n}" for n in ("llama", "phi", "maverick", "rg",
+                                       "xl")]
             + [f"args:{pre}" for pre, _, _ in C.ARGS_ARCHS]
             + ["loss:", "split:"])
     load = [0.0] * JAX_PROCS
@@ -604,8 +629,8 @@ def test_train_step_matches_jax(runs, case):
     """Loss, grad norm and lr at each of 2 steps, then every parameter
     block and AdamW's m and v, within 1e-5 max(1, max |ref|); the FSDP
     cases against the JAX ``param_mode="fsdp"`` step, each block as its
-    ``param_specs_fsdp`` places it (the hybrid's against its JAX step on
-    (1, 4), ``JAX_RUN_OF``)."""
+    ``param_specs_fsdp`` places it (the hybrid's and the ssm's against
+    their JAX steps on (1, 4), ``JAX_RUN_OF``)."""
     jx, ranks, _ = runs
     jcase = JAX_RUN_OF.get(case, case)
     name, tag = case.split("/")[:2]
@@ -786,6 +811,57 @@ def test_hybrid_serve_steps_match_jax(runs, case):
             assert _rel(res[key], full) < TOL, (r, key, _rel(res[key], full))
 
 
+def _mlstm_slots(cfg) -> set:
+    """The slot indices of an xLSTM config's mLSTM layers."""
+    period = cfg.slstm_every or cfg.n_layers
+    return {i for i, kind in enumerate(cfg.layer_kinds()[:period])
+            if kind == "mlstm"}
+
+
+@pytest.mark.parametrize("case", [c[0] for c in C.SSM_SERVE_CASES])
+def test_ssm_serve_steps_match_jax(runs, case):
+    """The reduced xLSTM at 4 heads (``step_cases.ssm``) under the lru
+    rule: its mLSTM heads (one a rank on 1x4, two on 2x2) and its sLSTM's
+    gate columns over "model", the 32-token prompt prefilled, then the
+    serve steps from the prefill's own position 32. Each rank's rows of
+    the tokens equal the JAX step's wherever the unsharded logits' top-2
+    gap exceeds the tolerance; every state leaf after the steps within
+    1e-5 of the rank's block of the JAX cache (of the JAX step on (1, 4),
+    ``JAX_RUN_OF``): an mLSTM slot's C, n and m at the rank's heads (the
+    JAX cache keeps every head on every rank of "model"), an sLSTM slot's
+    c, n, m and h whole."""
+    jx, ranks, _ = runs
+    jcase = JAX_RUN_OF.get(case, case)
+    tag = case.split("/")[1]
+    n_model = _shape(tag)[-1]
+    B = C.SERVE_PREFILL.global_batch * n_model // WORLD
+    cfg = JAX_CFGS["xl"]
+    mlstm = _mlstm_slots(cfg)
+    pre, jpre = f"serve/{case}/cache/", f"serve/{jcase}/cache/"
+    paths = [k[len(jpre):] for k in jx if k.startswith(jpre)]
+    assert set(paths) == {f"slots/{i}/{j}" for i in range(2)
+                          for j in range(3 if i in mlstm else 4)}
+    for r, res in enumerate(ranks):
+        d, m = _coords(r, tag)
+        rows = slice(d * B, (d + 1) * B)
+        for name in ["prefill"] + [f"step{i}" for i in range(FEED_STEPS)]:
+            got = res[f"serve/{case}/{name}"]
+            want = jx[f"serve/{jcase}/{name}"][rows]
+            clear = _clear(jx[f"serve/logits/xl/{name}"][rows])
+            assert clear.any()
+            np.testing.assert_array_equal(got[clear], want[clear],
+                                          err_msg=name)
+        assert {k[len(pre):] for k in res if k.startswith(pre)} == set(paths)
+        for path in paths:
+            key = pre + path
+            full = jx[jpre + path][:, rows]
+            if int(path.split("/")[1]) in mlstm:     # (G, B, nh, ...)
+                nh = full.shape[2] // n_model
+                full = full[:, :, m * nh:(m + 1) * nh]
+            assert res[key].shape == full.shape, (r, key)
+            assert _rel(res[key], full) < TOL, (r, key, _rel(res[key], full))
+
+
 @pytest.mark.parametrize("tag", list(C.ARGS_MESHES))
 @pytest.mark.parametrize("shape", list(INPUT_SHAPES))
 def test_built_args_have_jax_shard_shapes(runs, tag, shape):
@@ -801,8 +877,8 @@ def test_built_args_have_jax_shard_shapes(runs, tag, shape):
 def _check_args(runs, pre: str, arch: str, tag: str, shape: str) -> dict:
     """Every rank's leaves of ``BuiltStep.args`` of ``arch`` at ``shape``
     on ``tag`` (keys ``args/<pre><tag>/<shape>/``) against the JAX
-    ``shard_shape``s, the cache's KV heads the rank's own. Returns rank
-    0's."""
+    ``shard_shape``s, the cache's KV heads the rank's own, an mLSTM
+    state's heads the rank's own. Returns rank 0's."""
     jx, ranks, _ = runs
     pre = f"args/{pre}{tag}/{shape}/"
     want = {k[len(pre):]: v for k, v in jx.items() if k.startswith(pre)}
@@ -818,6 +894,9 @@ def _check_args(runs, pre: str, arch: str, tag: str, shape: str) -> dict:
                                                                 "/v")):
                 # a rank's query heads read one KV head at least
                 w[-2] = max(1, full.n_kv_heads // n_model)
+            if full.family == "ssm" and key.startswith("cache/slots/") and \
+                    int(key.split("/")[2]) in _mlstm_slots(full):
+                w[2] = full.n_heads // n_model    # (G, B, nh, ...)
             np.testing.assert_array_equal(g, w, err_msg=key)
             if key.split("/")[-1] in ("embed", "unembed"):
                 assert full.vocab_size // n_model in g, key
@@ -866,6 +945,36 @@ def test_hybrid_built_args_have_jax_shard_shapes(runs, tag, shape):
 
 
 @pytest.mark.parametrize("tag", list(C.ARGS_MESHES))
+@pytest.mark.parametrize("shape", list(INPUT_SHAPES))
+def test_ssm_built_args_have_jax_shard_shapes(runs, tag, shape):
+    """The same for the full-size xLSTM-350M, its 4 mLSTM heads over the
+    "model" ranks: an mLSTM slot's w_up, w_gate, wq, wk and wv a rank's
+    2D/n columns, w_if and w_down its 2D/n rows, an sLSTM slot's w_in its
+    4D/n columns and w_out its D/n rows, r and b_in whole, as the JAX
+    ``shard_shape``s; an mLSTM state (C, n, m) at the rank's 4/n heads
+    (the JAX cache keeps all 4 on every rank of "model"), an sLSTM state
+    whole."""
+    got = _check_args(runs, "xl/", "xlstm-350m", tag, shape)
+    full = get_config("xlstm-350m")
+    D, nh, G = full.d_model, full.n_heads, full.n_layers // full.slstm_every
+    n = _shape(tag)[-1]
+    hd = 2 * D // nh
+    np.testing.assert_array_equal(got["params/slots/0/wq"],
+                                  (G, 2 * D, 2 * D // n))
+    np.testing.assert_array_equal(got["params/slots/0/w_if"],
+                                  (G, 2 * D // n, 2 * nh))
+    np.testing.assert_array_equal(got["params/slots/7/w_in"],
+                                  (G, D, 4 * D // n))
+    np.testing.assert_array_equal(got["params/slots/7/w_out"],
+                                  (G, D // n, D))
+    np.testing.assert_array_equal(got["params/slots/7/r"],
+                                  (G, nh, D // nh, 4 * D // nh))
+    if INPUT_SHAPES[shape].kind != "train":
+        assert tuple(got["cache/slots/0/0"][2:]) == (nh // n, hd, hd)
+        assert got["cache/slots/7/3"][-1] == D
+
+
+@pytest.mark.parametrize("tag", list(C.ARGS_MESHES))
 def test_fsdp_args_have_jax_shard_shapes(runs, tag):
     """``BuiltStep.args`` of train_4k's FSDP step (full-size Llama-3.1-8B):
     every parameter leaf, AdamW's m and v and the batch's rows have the
@@ -887,6 +996,14 @@ def test_hybrid_fsdp_args_have_jax_shard_shapes(runs, tag):
     its stacked and ``rest`` rec leaves among the leaves every one of
     which is cut."""
     _check_fsdp_args(runs, "rg/", "recurrentgemma-2b", tag)
+
+
+@pytest.mark.parametrize("tag", list(C.ARGS_MESHES))
+def test_ssm_fsdp_args_have_jax_shard_shapes(runs, tag):
+    """The same for train_4k's FSDP step of the full-size xLSTM-350M: its
+    mLSTM and sLSTM leaves (r and b_in among them) every one of which is
+    cut."""
+    _check_fsdp_args(runs, "xl/", "xlstm-350m", tag)
 
 
 def _check_fsdp_args(runs, pre: str, arch: str, tag: str) -> None:
@@ -1040,7 +1157,7 @@ def test_batch_and_cache_specs_match_jax(arch):
 @pytest.mark.parametrize("arch", ["llama3.1-8b", "starcoder2-15b",
                                   "chameleon-34b", "phi3.5-moe-42b-a6.6b",
                                   "llama4-maverick-400b-a17b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "xlstm-350m"])
 def test_param_specs_match_jax(arch):
     """``param_specs`` of the full-size config's parameters, sanitised on a
     (1, 4) mesh, against the JAX function's on the abstract parameters."""
@@ -1127,8 +1244,8 @@ FSDP_MESHES = ((2, 2), (1, 4), (1, 8), (2, 1, 2))
 def test_param_specs_fsdp_match_jax(arch):
     """The port's ``param_specs_fsdp`` against the JAX function leaf by
     leaf, on (2, 2), (1, 4), (1, 8) and (2, 1, 2) ("pod" in front): each
-    dense, vlm, moe and hybrid config full and reduced, or ``step_cases``'
-    configs."""
+    dense, vlm, moe, hybrid and ssm config full and reduced, or
+    ``step_cases``' configs."""
     if arch == "step cases":
         pairs = [(JAX_CFGS[n], make()) for n, make in C.CONFIGS.items()]
     else:
@@ -1150,7 +1267,8 @@ def test_param_specs_fsdp_match_jax(arch):
 
 
 @pytest.mark.parametrize("case", ["starcoder2_whole4/2x2", "llama_v510/1x4",
-                                  "llama/2x1x2", "phi/2x2", "rg/2x2"])
+                                  "llama/2x1x2", "phi/2x2", "rg/2x2",
+                                  "xl/2x2"])
 def test_fsdp_init_params_keep_blocks_of_one_draw(case):
     """Under FSDP each rank's ``init_params`` are its blocks of the weights
     that one device draws from the same seed (``LM.init`` cut by
@@ -1159,7 +1277,8 @@ def test_fsdp_init_params_keep_blocks_of_one_draw(case):
     (2, 1, 2) the flattened ("pod", "data", "model"), the reduced
     Phi-3.5-MoE's router and stacked experts their blocks, and the hybrid
     family's stacked and ``rest`` rec leaves theirs (``lam`` drawn in
-    fp32)."""
+    fp32), and the ssm family's mLSTM and sLSTM leaves theirs (``b_if``
+    drawn as its fixed halves)."""
     from repro_torch.launch.steps import build_step, init_params
     from repro_torch.models.params import flatten
     name, tag = case.split("/")
@@ -1196,7 +1315,11 @@ def test_refusals_name_a12():
     hybrid family: the full-size RecurrentGemma-2B's 10 heads over 4
     ranks, an lru axis that cuts the 8 gate blocks (16 ranks, or 3), and
     an lru rule that differs from heads and d_ff; its reduced config's
-    train, FSDP, prefill and serve steps build."""
+    train, FSDP, prefill and serve steps build. The ssm family: the
+    full-size xLSTM-350M's 4 mLSTM heads over an lru axis of 16 ranks (the
+    production mesh's model axis) or 8, which would cut a head; its
+    FSDP step there, and its train, FSDP, prefill and serve steps on 4
+    ranks, build. The audio family raises under rules."""
     from repro_torch.launch.steps import build_step
     shape = dataclasses.replace(INPUT_SHAPES["train_4k"], global_batch=4,
                                 seq_len=16)
@@ -1205,14 +1328,24 @@ def test_refusals_name_a12():
     assert built.rules["fsdp_gather"] and \
         built.rules["batch"] == ("data", "model")
     assert built.args[2]["tokens"].shape == (1, 16)
-    for arch in ("xlstm-350m", "whisper-large-v3"):
-        for kind in ("train_4k", "prefill_32k", "decode_32k"):
-            with pytest.raises(NotImplementedError, match="A12"):
-                build_step(get_config(arch).reduced(), _Mesh(),
-                           INPUT_SHAPES[kind])
+    whisper = get_config("whisper-large-v3").reduced()
+    for kind in ("train_4k", "prefill_32k", "decode_32k"):
         with pytest.raises(NotImplementedError, match="A12"):
-            build_step(get_config(arch).reduced(), _Mesh(), shape,
-                       param_mode="fsdp")
+            build_step(whisper, _Mesh(), INPUT_SHAPES[kind])
+    with pytest.raises(NotImplementedError, match="A12"):
+        build_step(whisper, _Mesh(), shape, param_mode="fsdp")
+    # the ssm family: an lru axis that does not divide the 4 mLSTM heads
+    xl_full = get_config("xlstm-350m")
+    for kind in ("train_4k", "prefill_32k", "decode_32k"):
+        with pytest.raises(NotImplementedError, match="heads over 16.*A12"):
+            build_step(xl_full, _Mesh(16), INPUT_SHAPES[kind])
+    with pytest.raises(NotImplementedError, match="heads over 8.*A12"):
+        build_step(xl_full, _Mesh(8), shape)
+    assert build_step(xl_full, _Mesh(16), INPUT_SHAPES["train_4k"],
+                      param_mode="fsdp")
+    for kind in ("train_4k", "prefill_32k", "decode_32k"):
+        assert build_step(xl_full, _Mesh(), INPUT_SHAPES[kind])
+    assert build_step(C.CONFIGS["xl"](), _Mesh(), shape, param_mode="fsdp")
     with pytest.raises(NotImplementedError, match="A12"):
         build_step(llama, _Mesh(), shape, rule_overrides={"d_ff": None})
     with pytest.raises(NotImplementedError, match="A12"):

@@ -245,7 +245,7 @@ def _c3_groups():
     import repro_torch.models.layers as port_layers
     from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
 
-    logits = port_xlstm._logits
+    logits = port_xlstm.logits
 
     def lifted_logits(params, x, cfg):   # lifts only the leaves it reads
         used = {k: params[k] for k in ("final_norm", "unembed")}
@@ -268,7 +268,7 @@ def _c3_groups():
                         _in_fp64_rounded(port_xlstm._slstm_step))],
         "norms": [(port_layers, "apply_norm",
                    _in_fp64_rounded(port_layers.apply_norm))],
-        "final norm and logits": [(port_xlstm, "_logits", lifted_logits)],
+        "final norm and logits": [(port_xlstm, "logits", lifted_logits)],
         "products": [(torch.Tensor, "__matmul__",
                       product(torch.Tensor.__matmul__)),
                      (torch, "einsum", product(torch.einsum))],
